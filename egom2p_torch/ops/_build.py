@@ -1,0 +1,112 @@
+"""Build the port's CUDA kernels and bind them with ctypes.
+
+Every `egom2p_torch/csrc/*.cu` file is compiled by nvcc into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), under `egom2p_torch/build/`, named by a hash of the sources and the
+flags: a library is rebuilt only when that hash changes.  The build runs at
+the first call of `load()`, i.e. at the first kernel launch, never at import.
+A failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures of the entry points in csrc/*.cu: (argtypes, restype)
+SIGNATURES = {
+    # q, k, v, kv_blocked, out, B, N, M, H, 9 strides, safemax, stream
+    "egom2p_flash64_fwd": ([_c_void_p] * 5 + [_c_int] * 4 + [_c_ll] * 9
+                           + [_c_int, _c_void_p], _c_int),
+}
+
+
+class _State:
+    lib = None
+    build_seconds = None  # wall time of the nvcc run; 0.0 when reused
+    ptxas_log = ""        # nvcc's -Xptxas -v report (registers, smem, spills)
+
+
+_lock = threading.Lock()
+
+
+def sources():
+    found = sorted(CSRC_DIR.glob("*.cu"))
+    if not found:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return found
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build() -> Path:
+    """Compile the sources into BUILD_DIR unless a library of the same
+    source hash exists; returns its path."""
+    so = BUILD_DIR / f"libegom2p_kernels_{source_hash()}.so"
+    if so.exists():
+        _State.build_seconds = 0.0
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _State.build_seconds = time.perf_counter() - t0
+    _State.ptxas_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with argtypes set."""
+    with _lock:
+        if _State.lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _State.lib = lib
+    return _State.lib
+
+
+def build_seconds():
+    return _State.build_seconds
+
+
+def ptxas_log() -> str:
+    return _State.ptxas_log

@@ -1,0 +1,246 @@
+"""ROAR generation with CFG in the PyTorch port against the JAX package.
+
+* schedules (a numpy copy) and candidate counts are identical;
+* top-k / top-p candidate filtering, given identical logits, keeps the same
+  candidates with the same probabilities (EGOM2P_EXACT_TOPK=1 on the JAX
+  side: the port's top-K is exact);
+* chunked_head_sample agrees in both CFG mix forms;
+* greedy 3-step ROAR with CFG 2.0 on the tiny model chooses the same
+  positions and the same tokens wherever the JAX top-1/top-2 logit gap is
+  well above the logits tolerance.
+
+The sampled tokens themselves are never compared: jax.random and
+torch.Generator draw different numbers.
+"""
+import copy
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import egom2p_tpu.generate.sampler as jsampler
+import egom2p_tpu.ops.flash64 as jax_f64
+import egom2p_tpu.ops.flash_attention as jax_fa
+from egom2p_torch.compat.from_jax import egom2p_state_dict_from_jax
+from egom2p_torch.generate import sampler as tsampler
+from egom2p_torch.generate import schedules as tsched
+from egom2p_torch.models.egom2p import create_model
+from egom2p_torch.ops.attention import inference_attention
+from egom2p_tpu.generate import schedules as jsched
+from egom2p_tpu.models.egom2p import EgoM2P as JaxEgoM2P
+from egom2p_tpu.models.egom2p import create_model as jax_create_model
+from egom2p_tpu.ops.attention import inference_attention as jax_inference_attention
+
+from test_torch_model import MODS4, NAME, make_mod_dict, tiny_info, to_jax
+
+torch.set_num_threads(2)
+
+PROB_ATOL = 1e-5       # fp32 softmax of identical values, another reduction order
+# fp32 logits of the CFG-mixed (2 l_c - l_u) decoder states of the tiny
+# model's greedy chain (encoder on flash64, small decoder subsets dense):
+# 3.9e-4 max observed over the three steps
+LOGITS_ATOL = 1e-3
+GAP = 10 * LOGITS_ATOL  # tokens are compared where the JAX top-1/top-2 gap exceeds this
+
+
+@pytest.fixture
+def exact_topk(monkeypatch):
+    monkeypatch.setenv("EGOM2P_EXACT_TOPK", "1")
+
+
+@pytest.fixture
+def jax_flash(monkeypatch):
+    real = jax_f64.flash64_attention
+    monkeypatch.setattr(jax_f64, "flash64_attention",
+                        lambda *a, **kw: real(*a, **{**kw, "interpret": True}))
+    monkeypatch.setattr(jax_fa, "supports_flash", lambda: True)
+
+
+@pytest.fixture(scope="module")
+def models():
+    info = tiny_info((2, 8, 16))  # 256-token video grids: encoder on flash64
+    L = info["tok_rgb"]["max_tokens"]
+    md = {"tok_rgb": {"tensor": np.random.default_rng(0).integers(0, 96, (2, L)).astype(np.int32)}}
+    jsampler.init_full_input_modality(md, info, "tok_rgb")
+    jsampler.init_empty_target_modality(md, info, "tok_depth", 2, L)
+    jmodel = jax_create_model(NAME, MODS4, MODS4, modality_info=info, compute_dtype="float32")
+    with mock.patch.object(jax_fa, "supports_flash", lambda: False):  # init runs training
+        params = jmodel.init(jax.random.PRNGKey(0),
+                             to_jax(make_mod_dict(np.random.default_rng(1), info)), 16, 16)
+    tmodel = create_model(NAME, MODS4, MODS4, modality_info=info, compute_dtype="float32")
+    tmodel.load_state_dict(egom2p_state_dict_from_jax(params, tmodel))
+    return info, md, jmodel, params, tmodel.eval()
+
+
+# ---------------------------------------------------------------- schedules
+@pytest.mark.parametrize("scheme,steps,tok_sched,temp_sched", [
+    ("roar", 3, "linear", "constant"), ("maskgit", 8, "cosine", "linear"),
+    ("maskgit", 5, "linear", "onex:0.5:0.5")])
+def test_schedules_copy_matches_jax(scheme, steps, tok_sched, temp_sched):
+    args = (["tok_rgb"], ["tok_depth"], [5120], [scheme], [steps], [tok_sched], [0.7],
+            [temp_sched], [2.0], ["constant"])
+    assert tsched.build_chained_generation_schedules(*args, cfg_grow_conditioning=True) == \
+        jsched.build_chained_generation_schedules(*args, cfg_grow_conditioning=True)
+
+
+def test_init_helpers_and_bucket_match_jax():
+    info = tiny_info()
+    md = {"tok_rgb": {"tensor": np.zeros((2, 32), np.int32)}}
+    jd, td = copy.deepcopy(md), copy.deepcopy(md)
+    for s, d in ((jsampler, jd), (tsampler, td)):
+        s.init_full_input_modality(d, info, "tok_rgb")
+        s.init_empty_target_modality(d, info, "tok_depth", 2, 32)
+    for m in jd:
+        for k in jd[m]:
+            np.testing.assert_array_equal(td[m][k], jd[m][k], err_msg=f"{m}/{k}")
+    for n in (0, 1, 255, 256, 257, 1707, 6827, 8534):
+        assert tsampler._bucket(n) == jsampler._bucket(n)
+    with pytest.raises(NotImplementedError):
+        tsampler.init_empty_target_modality({}, {"caption": {"type": "seq"}}, "caption", 1, 4)
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [
+    (0.0, 0.0, 0.8), (0.01, 0.0, 0.8), (1.0, 0.0, 0.0), (1.0, 50, 0.0),
+    (0.7, 0.1, 0.9), (1.0, 0.0, 1.0)])
+def test_candidate_count_matches_jax(temperature, top_k, top_p):
+    for V in (96, 256, 64000):
+        assert tsampler._candidate_count(V, temperature, top_k, top_p) == \
+            jsampler._candidate_count(V, temperature, top_k, top_p)
+
+
+# ----------------------------------------------------------------- sampling
+@pytest.mark.parametrize("temperature,top_k,top_p", [
+    (1.0, 0.0, 0.8), (0.7, 50, 0.8), (1.0, 0.05, 0.0), (0.01, 0.0, 0.8)])
+def test_candidate_sets_match_jax(exact_topk, monkeypatch, temperature, top_k, top_p):
+    V = 1000
+    logits = np.random.default_rng(1).standard_normal((3, 7, V)).astype(np.float32) * 2
+    k_user, K = jsampler._candidate_count(V, temperature, top_k, top_p)
+    jvals, jidx = jsampler._top_candidates(jnp.asarray(logits), K)
+    tvals, tidx = torch.topk(torch.from_numpy(logits), K, dim=-1)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(tvals.numpy(), np.asarray(jvals))
+
+    seen = {}
+
+    def recorder(key, lg, axis=-1):  # the JAX sampler's final categorical draw
+        seen["logits"] = np.asarray(lg)
+        return jnp.argmax(lg, axis=axis)
+
+    monkeypatch.setattr(jax.random, "categorical", recorder)
+    jsamples, jprobs = jsampler._sample_from_candidates(
+        jvals, jidx, jax.random.PRNGKey(0), temperature, k_user, top_p)
+    got = tsampler._candidate_logits(tvals, temperature, k_user, top_p).numpy()
+    ref = seen["logits"]
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))  # same candidates
+    np.testing.assert_allclose(torch.softmax(torch.from_numpy(got), -1).numpy(),
+                               jax.nn.softmax(ref, axis=-1), atol=PROB_ATOL, rtol=0)
+    # with the noise off, the port's draw is the argmax too
+    monkeypatch.setattr(tsampler, "_gumbel", lambda shape, g, device: torch.zeros(shape))
+    tsamples, tprobs = tsampler._sample_from_candidates(tvals, tidx, torch.Generator(),
+                                                        temperature, k_user, top_p)
+    np.testing.assert_array_equal(tsamples.numpy(), np.asarray(jsamples))
+    np.testing.assert_allclose(tprobs.numpy(), np.asarray(jprobs), atol=PROB_ATOL, rtol=0)
+
+
+def test_sampling_draws_from_the_candidates():
+    """With noise on, every draw is a kept candidate, and draws follow the
+    candidate probabilities."""
+    vals = torch.tensor([[3.0, 2.5, 2.0, -1.0, -2.0]])
+    idxs = torch.tensor([[10, 11, 12, 13, 14]])
+    probs = torch.softmax(tsampler._candidate_logits(vals, 1.0, 0, 0.8), -1)[0]
+    assert probs[3] == 0 and probs[4] == 0  # past the 0.8 nucleus
+    gen = torch.Generator().manual_seed(0)
+    draws = [int(tsampler._sample_from_candidates(vals, idxs, gen, 1.0, 0, 0.8)[0])
+             for _ in range(2000)]
+    freq = np.bincount(np.asarray(draws) - 10, minlength=5) / len(draws)
+    np.testing.assert_allclose(freq, probs.numpy(), atol=0.04)
+
+
+@pytest.mark.parametrize("mix", ["hidden", "logits"])
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_chunked_head_sample_matches_jax(models, exact_topk, monkeypatch, mix, temperature):
+    info, _, jmodel, params, tmodel = models
+    monkeypatch.setenv("EGOM2P_CFG_MIX", mix)
+    y = np.random.default_rng(2).standard_normal((4, 300, 384)).astype(np.float32)  # 2 chunks
+    monkeypatch.setattr(jax.random, "categorical",
+                        lambda key, lg, axis=-1: jnp.argmax(lg, axis=axis))
+    monkeypatch.setattr(tsampler, "_gumbel", lambda shape, g, device: torch.zeros(shape))
+    js, jp = jsampler.chunked_head_sample(jmodel, params, "tok_depth", jnp.asarray(y), (2.0,),
+                                          jax.random.PRNGKey(0), temperature, 0.0, 0.8, 96)
+    with torch.no_grad():
+        ts, tp = tsampler.chunked_head_sample(tmodel, "tok_depth", torch.from_numpy(y), (2.0,),
+                                              torch.Generator(), temperature, 0.0, 0.8, 96)
+    assert ts.shape == (2, 300) and ts.dtype == torch.int32
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=PROB_ATOL, rtol=0)
+
+
+# -------------------------------------------------------- greedy ROAR + CFG
+def _jax_step_logits(jsampler_obj, jmodel, params, state, target, cond, ids_keep):
+    """The CFG-mixed fp32 logits the JAX fused step samples from (hidden mix)."""
+    n_c = jsampler._bucket(jsampler_obj._num_enc_tokens(state))
+    n_u = jsampler._bucket(jsampler_obj._num_enc_tokens(state, exclude=tuple(cond)), 256)
+    dev = {m: {k: jnp.asarray(v) for k, v in d.items()} for m, d in state.items()}
+    un = {m: ({**d, "input_mask": jnp.ones_like(d["input_mask"])} if m in cond else d)
+          for m, d in dev.items()}
+    ids = jnp.asarray(ids_keep)
+    with jax_inference_attention():
+        ys = []
+        for view, n in ((dev, n_c), (un, n_u)):
+            ctx, mask = jmodel.apply(params, view, n, method=JaxEgoM2P.forward_enc_context)
+            ys.append(jmodel.apply(params, view, target, ctx, mask, ids,
+                                   method=JaxEgoM2P.forward_dec_subset_hidden))
+        mixed = ys[1] + 2.0 * (ys[0] - ys[1])
+        return np.asarray(jmodel.apply(params, target, mixed,
+                                       method=JaxEgoM2P.forward_mod_logits))
+
+
+def test_greedy_roar_cfg_matches_jax(models, exact_topk, jax_flash):
+    info, md, jmodel, params, tmodel = models
+    L = info["tok_depth"]["max_tokens"]
+    schedule = tsched.build_chained_generation_schedules(
+        ["tok_rgb"], ["tok_depth"], [L], ["roar"], [3], ["linear"], [0.0],
+        ["constant"], [2.0], ["constant"], cfg_grow_conditioning=True)
+    js = jsampler.GenerationSampler(jmodel, params, info)
+    ts = tsampler.GenerationSampler(tmodel, info)
+    seed, state, compared = 3, copy.deepcopy(md), 0
+    for step, s in enumerate(schedule):
+        # one step at a time from the JAX state, with the chain's per-step seed
+        jout = js.generate(copy.deepcopy(state), [s], seed=seed + step)
+        tout = ts.generate(copy.deepcopy(state), [s], seed=seed + step)
+        for key in ("input_mask", "target_mask"):  # the same positions were chosen
+            np.testing.assert_array_equal(tout["tok_depth"][key], jout["tok_depth"][key])
+        open_mask = ~state["tok_depth"]["target_mask"]
+        ids_keep = js._select_positions(~open_mask, s["num_tokens"],
+                                        np.random.default_rng(seed + step), True)
+        logits = _jax_step_logits(js, jmodel, params, state, "tok_depth",
+                                  s["cfg_cond_domains"], ids_keep)
+        with inference_attention(), torch.no_grad():
+            tdev = ts._to_device(state)
+            ys = []
+            for view, n in ((tdev, tsampler._bucket(ts._num_enc_tokens(state))),
+                            ({m: ({**d, "input_mask": torch.ones_like(d["input_mask"])}
+                                  if m in s["cfg_cond_domains"] else d)
+                              for m, d in tdev.items()},
+                             tsampler._bucket(ts._num_enc_tokens(
+                                 state, exclude=tuple(s["cfg_cond_domains"])), 256))):
+                ctx, mask = tmodel.forward_enc_context(view, n)
+                ys.append(tmodel.forward_dec_subset_hidden(
+                    view, "tok_depth", ctx, mask, torch.from_numpy(ids_keep).long()))
+            tlogits = tmodel.forward_mod_logits("tok_depth", ys[1] + 2.0 * (ys[0] - ys[1]))
+        np.testing.assert_allclose(tlogits.numpy(), logits, atol=LOGITS_ATOL, rtol=0)
+
+        top2 = np.sort(logits, axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > GAP
+        rows = np.arange(ids_keep.shape[0])[:, None]
+        jt = jout["tok_depth"]["tensor"][rows, ids_keep]
+        tt = tout["tok_depth"]["tensor"][rows, ids_keep]
+        np.testing.assert_array_equal(jt, logits.argmax(-1))  # JAX greedy = argmax
+        np.testing.assert_array_equal(tt[clear], jt[clear])
+        compared += int(clear.sum())
+        state = jout
+    assert state["tok_depth"]["target_mask"].all()
+    assert compared >= 0.8 * 2 * L, f"only {compared} of {2 * L} tokens had a clear gap"
