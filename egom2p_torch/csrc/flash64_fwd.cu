@@ -1,12 +1,16 @@
-// Forward attention at head_dim 64 for Hopper (sm_90a), non-causal, with an
-// optional key-padding mask.  Called from egom2p_torch/ops/flash64.py.
+// Forward attention at head_dim 64 for Hopper (sm_90a), non-causal, for
+// inference and for training.  Called from egom2p_torch/ops/flash64.py
+// (inference) and egom2p_torch/ops/flash64_train.py (training forward).
 //
-// Replaces the Pallas TPU kernel egom2p_tpu/ops/flash64.py: `_kernel_noshift`
-// (clamp-only softmax, the default) and `_kernel` (running-max "safemax"
-// softmax), both reached through `flash64_attention` -> `pl.pallas_call`.
-// One template parameter, SAFEMAX, selects between the two.
+// Replaces three Pallas TPU kernels, all one template here:
+//   * egom2p_tpu/ops/flash64.py `_kernel_noshift` (clamp-only softmax, the
+//     default) and `_kernel` (running-max "safemax" softmax), both reached
+//     through `flash64_attention` -> `pl.pallas_call`: SAFEMAX selects;
+//   * egom2p_tpu/ops/flash64_train.py `_fwd_kernel`, the training forward:
+//     the same math plus the per-row L2 output (L2 = true) and the segment
+//     mask mode (SEG = true).
 //
-// Math (identical to the TPU kernel):
+// Math (identical to the TPU kernels):
 //   s = fp32(q . k) * (64^-0.5 * log2 e) + bias,   bias = -1e30 where blocked
 //   clamp:   p = exp2(min(s, 80)),   l = sum p,   o = sum bf16(p) v / l,
 //            a row with l == 0 (every key blocked) writes exact zeros;
@@ -14,12 +18,19 @@
 //            m never rose above -5e29 (every key blocked) writes exact zeros.
 //   l is summed from the fp32 p before p is rounded to bf16 for P.V; p stays
 //   bf16 (never fp16: in clamp mode p reaches 2^80).
+//   L2 (training): log2 l (clamp) or m + log2 l (safemax), +1e30 for a dead
+//   row, so that the backward's p = exp2(s - L2) is 0 there.
+// Masks: a key is blocked when it lies past M, when kv_blocked marks it (key
+// padding), or, in segment mode, when its segment id differs from the
+// query's.  Keys past M are blocked by the bounds check, never through a
+// segment value.
 //
-// What bounds it on this card: arithmetic.  At the main path's shapes
-// (N = M = 5120..8704, B*H = 96) a (batch, head) pair's K and V are 1.1-2.2 MB,
-// and the q tiles of one pair run side by side (blockIdx.x is the fastest grid
-// index), so K/V are read from device memory about once and re-read from L2:
-// the work is 4*N*M*64 tensor-core FLOPs plus N*M exp2 on the SFU.
+// What bounds it on this card: arithmetic.  At the inference path's shapes
+// (N = M = 5120..8704, B*H = 96) and the training step's (N = M = 2048,
+// B*H = 96) a (batch, head) pair's K and V are 0.5-2.2 MB, and the q tiles of
+// one pair run side by side (blockIdx.x is the fastest grid index), so K/V are
+// read from device memory about once and re-read from L2: the work is
+// 4*N*M*64 tensor-core FLOPs plus N*M exp2 on the SFU.
 //
 // What the design does about it: each block owns 64 query rows of one
 // (batch, head), four warps of 16 rows.  The block walks the keys in tiles of
@@ -28,19 +39,20 @@
 // cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the S accumulator
 // fragment is re-packed in registers as the A operand of P V, so P never
 // touches shared memory.  V's B operand comes from ldmatrix.trans.  Static
-// shared memory is 46.5 KB (under the 48 KB static limit).  This is the simple
-// first kernel: wgmma, TMA and warp specialisation are later work.
+// shared memory is 46.5 KB (47 KB with segments, under the 48 KB static
+// limit).  This is the simple first kernel: wgmma, TMA and warp
+// specialisation are later work.
 //
 // The kernel masks its own ragged edges (rows past N, keys past M are
 // zero-filled and keys past M carry the -1e30 bias), reads q/k/v through a
 // row stride each (they may be views of a fused qkv or kv projection),
 // allocates nothing, and runs on the caller's stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace egom2p;
 
 constexpr int kHeadDim = 64;
 constexpr int kBlockQ = 64;                  // query rows per block: 4 warps x 16
@@ -49,68 +61,25 @@ constexpr int kLd = kHeadDim + 8;            // padded smem row: 144 bytes, conf
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 constexpr float kDeadRow = -5e29f;           // kNegInf * 0.5: safemax dead-row threshold
+constexpr float kDeadL2 = 1e30f;             // L2 of a row with no live key
 constexpr float kClamp = 80.f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// D += A (16x16 bf16, row) * B (16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two fp32 -> one register of two bf16 (round to nearest even); `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_smem_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <bool kSafemax>
+// SAFEMAX: running-max softmax.  SEG: block where segments[q] != segments[k]
+// (self-attention; `mask` is then the (B, N) int32 segment ids).  L2: write
+// the per-row log-sum for the training backward.
+template <bool kSafemax, bool kSeg, bool kL2>
 __global__ void __launch_bounds__(kThreads)
     flash64_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_blocked,
-                       __nv_bfloat16* __restrict__ out, int n_q, int n_kv, int64_t q_sb,
-                       int64_t q_sn, int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn,
-                       int64_t m_sb, int64_t o_sb, int64_t o_sn, float scale) {
+                       const int* __restrict__ segments, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ l2, int n_q, int n_kv, int64_t q_sb, int64_t q_sn,
+                       int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn, int64_t m_sb,
+                       int64_t o_sb, int64_t o_sn, float scale) {
   __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kLd];
   __shared__ __align__(16) __nv_bfloat16 sK[2][kBlockK][kLd];
   __shared__ __align__(16) __nv_bfloat16 sV[2][kBlockK][kLd];
   __shared__ float sBias[2][kBlockK];
+  __shared__ int sSeg[kSeg ? 2 : 1][kSeg ? kBlockK : 1];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -122,6 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* kb = k + batch * k_sb + head * kHeadDim;
   const __nv_bfloat16* vb = v + batch * v_sb + head * kHeadDim;
   const uint8_t* mb = kv_blocked == nullptr ? nullptr : kv_blocked + batch * m_sb;
+  const int* sb = kSeg ? segments + batch * m_sb : nullptr;
 
   // A 64 x 64 bf16 tile is 512 chunks of 16 bytes: 4 per thread.  Rows at or
   // past `rows` are zero-filled (their address is clamped to row 0).
@@ -143,12 +113,20 @@ __global__ void __launch_bounds__(kThreads)
       const int key = k0 + tid;
       const bool blocked = key >= n_kv || (mb != nullptr && mb[key] != 0);
       sBias[stage][tid] = blocked ? kNegInf : 0.f;
+      if (kSeg) sSeg[stage][tid] = key < n_kv ? sb[key] : 0;
     }
   };
 
   load_tile(sQ, qb, q_sn, q0, n_q);
   load_kv(0, 0);
   cp_async_commit();
+
+  const int r0 = q0 + warp * 16 + gid;  // this thread's rows: r0 and r0 + 8
+  int seg_q[2] = {0, 0};
+  if (kSeg) {
+    seg_q[0] = r0 < n_q ? sb[r0] : 0;
+    seg_q[1] = r0 + 8 < n_q ? sb[r0 + 8] : 0;
+  }
 
   const int n_tiles = (n_kv + kBlockK - 1) / kBlockK;
   float acc[8][4];  // O: 16 rows x 64 dims per warp, 8 n-tiles of 8 dims
@@ -173,10 +151,7 @@ __global__ void __launch_bounds__(kThreads)
       const int r = warp * 16 + gid;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        qf[kk][0] = ld_smem_u32(&sQ[r][kk * 16 + tig * 2]);
-        qf[kk][1] = ld_smem_u32(&sQ[r + 8][kk * 16 + tig * 2]);
-        qf[kk][2] = ld_smem_u32(&sQ[r][kk * 16 + 8 + tig * 2]);
-        qf[kk][3] = ld_smem_u32(&sQ[r + 8][kk * 16 + 8 + tig * 2]);
+        load_a_frag(qf[kk], &sQ[r][kk * 16 + tig * 2], &sQ[r + 8][kk * 16 + tig * 2]);
       }
     }
 
@@ -195,12 +170,20 @@ __global__ void __launch_bounds__(kThreads)
     // scale, then the mask bias (the TPU kernel's order)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float b0 = sBias[stage][j * 8 + tig * 2];
-      const float b1 = sBias[stage][j * 8 + tig * 2 + 1];
-      s[j][0] = s[j][0] * scale + b0;
-      s[j][1] = s[j][1] * scale + b1;
-      s[j][2] = s[j][2] * scale + b0;
-      s[j][3] = s[j][3] * scale + b1;
+      const int c = j * 8 + tig * 2;
+      float b00 = sBias[stage][c], b01 = sBias[stage][c + 1];  // row gid
+      float b10 = b00, b11 = b01;                              // row gid + 8
+      if (kSeg) {
+        const int k0s = sSeg[stage][c], k1s = sSeg[stage][c + 1];
+        if (seg_q[0] != k0s) b00 = kNegInf;
+        if (seg_q[0] != k1s) b01 = kNegInf;
+        if (seg_q[1] != k0s) b10 = kNegInf;
+        if (seg_q[1] != k1s) b11 = kNegInf;
+      }
+      s[j][0] = s[j][0] * scale + b00;
+      s[j][1] = s[j][1] * scale + b01;
+      s[j][2] = s[j][2] * scale + b10;
+      s[j][3] = s[j][3] * scale + b11;
     }
 
     if (kSafemax) {
@@ -255,10 +238,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int jd = 0; jd < 4; ++jd) {
         // matrices: (keys +0, dims +0), (keys +8, dims +0), (keys +0, dims +8), (keys +8, dims +8)
@@ -285,7 +265,6 @@ __global__ void __launch_bounds__(kThreads)
     denom[i] = row_l[i] > 0.f ? row_l[i] : 1.f;
   }
 
-  const int r0 = q0 + warp * 16 + gid;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + i * 8;
@@ -297,39 +276,89 @@ __global__ void __launch_bounds__(kThreads)
       const float x1 = live[i] ? acc[j][2 * i + 1] / denom[i] : 0.f;
       *reinterpret_cast<uint32_t*>(orow + j * 8 + tig * 2) = pack_bf16(x0, x1);
     }
+    if (kL2 && tig == 0) {
+      const float lse = (kSafemax ? row_m[i] : 0.f) + log2f(denom[i]);
+      l2[(static_cast<int64_t>(batch) * gridDim.y + head) * n_q + row] = live[i] ? lse : kDeadL2;
+    }
   }
+}
+
+template <bool kSeg, bool kL2>
+void launch_fwd(bool safemax, dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
+                const __nv_bfloat16* k, const __nv_bfloat16* v, const uint8_t* kv_blocked,
+                const int* segments, __nv_bfloat16* out, float* l2, int n_q, int n_kv,
+                int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn, int64_t v_sb,
+                int64_t v_sn, int64_t m_sb, int64_t o_sb, int64_t o_sn) {
+  const float scale = static_cast<float>(0.125 * 1.4426950408889634);  // 64^-0.5 * log2(e)
+  if (safemax) {
+    flash64_fwd_kernel<true, kSeg, kL2><<<grid, kThreads, 0, st>>>(
+        q, k, v, kv_blocked, segments, out, l2, n_q, n_kv, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+        m_sb, o_sb, o_sn, scale);
+  } else {
+    flash64_fwd_kernel<false, kSeg, kL2><<<grid, kThreads, 0, st>>>(
+        q, k, v, kv_blocked, segments, out, l2, n_q, n_kv, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+        m_sb, o_sb, o_sn, scale);
+  }
+}
+
+bool bad_shape(int batch, int n_q, int n_kv, int heads) {
+  return batch <= 0 || n_q <= 0 || n_kv <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes.  Strides are in elements; q/k/v/out rows
-// are 64*H wide with unit stride inside a row.  kv_blocked is (B, M) bytes
-// (nonzero = blocked) with batch stride m_sb, or null.  Returns the CUDA error
-// of the launch (0 on success).
+// C entry points, bound with ctypes.  Strides are in elements; q/k/v/out rows
+// are 64*H wide with unit stride inside a row.  Both return the CUDA error of
+// the launch (0 on success).
+
+// Inference.  kv_blocked is (B, M) bytes (nonzero = blocked) with batch
+// stride m_sb, or null.
 extern "C" int egom2p_flash64_fwd(const void* q, const void* k, const void* v,
                                   const void* kv_blocked, void* out, int batch, int n_q, int n_kv,
                                   int heads, long long q_sb, long long q_sn, long long k_sb,
                                   long long k_sn, long long v_sb, long long v_sn, long long m_sb,
                                   long long o_sb, long long o_sn, int safemax, void* stream) {
-  if (batch <= 0 || n_q <= 0 || n_kv <= 0 || heads <= 0 || batch > 65535 || heads > 65535) {
+  if (bad_shape(batch, n_q, n_kv, heads)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
+  launch_fwd<false, false>(safemax != 0, grid, static_cast<cudaStream_t>(stream),
+                           static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v),
+                           static_cast<const uint8_t*>(kv_blocked), nullptr,
+                           static_cast<__nv_bfloat16*>(out), nullptr, n_q, n_kv, q_sb, q_sn, k_sb,
+                           k_sn, v_sb, v_sn, m_sb, o_sb, o_sn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Training forward.  At most one of kv_blocked ((B, M) bytes) and segments
+// ((B, N) int32 ids, N == M) is given, with batch stride m_sb.  l2 is a
+// contiguous (B, H, N) fp32 output.
+extern "C" int egom2p_flash64_train_fwd(const void* q, const void* k, const void* v,
+                                        const void* kv_blocked, const void* segments, void* out,
+                                        void* l2, int batch, int n_q, int n_kv, int heads,
+                                        long long q_sb, long long q_sn, long long k_sb,
+                                        long long k_sn, long long v_sb, long long v_sn,
+                                        long long m_sb, long long o_sb, long long o_sn,
+                                        int safemax, void* stream) {
+  if (bad_shape(batch, n_q, n_kv, heads) || (kv_blocked != nullptr && segments != nullptr) ||
+      (segments != nullptr && n_q != n_kv) || l2 == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  const float scale = static_cast<float>(0.125 * 1.4426950408889634);  // 64^-0.5 * log2(e)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* mp = static_cast<const uint8_t*>(kv_blocked);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (safemax) {
-    flash64_fwd_kernel<true><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, n_q, n_kv, q_sb, q_sn,
-                                                        k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn,
-                                                        scale);
+  auto* lp = static_cast<float*>(l2);
+  if (segments != nullptr) {
+    launch_fwd<true, true>(safemax != 0, grid, st, qp, kp, vp, nullptr,
+                           static_cast<const int*>(segments), op, lp, n_q, n_kv, q_sb, q_sn, k_sb,
+                           k_sn, v_sb, v_sn, m_sb, o_sb, o_sn);
   } else {
-    flash64_fwd_kernel<false><<<grid, kThreads, 0, st>>>(qp, kp, vp, mp, op, n_q, n_kv, q_sb, q_sn,
-                                                         k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn,
-                                                         scale);
+    launch_fwd<false, true>(safemax != 0, grid, st, qp, kp, vp,
+                            static_cast<const uint8_t*>(kv_blocked), nullptr, op, lp, n_q, n_kv,
+                            q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn);
   }
   return static_cast<int>(cudaGetLastError());
 }

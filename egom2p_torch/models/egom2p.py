@@ -1,20 +1,23 @@
-"""EgoM2P: masked multimodal multitask encoder-decoder, inference forward.
+"""EgoM2P: masked multimodal multitask encoder-decoder.
 
-Port of the generation hooks of egom2p_tpu/models/egom2p.py (reference:
+Port of egom2p_tpu/models/egom2p.py (reference:
 egom2p/models/egom2p_model.py:57-819): per-modality embeddings, the
-deterministic argsort-gather of the encoder tokens to a fixed count, the
-encoder and decoder stacks, and the per-modality vocab head.  Parameters are
-fp32; activations run in `config.compute_dtype` (bf16 by default; pass
-"float32" for exact-math parity tests).
+deterministic argsort-gather of the encoder and decoder tokens to fixed
+counts, the encoder and decoder stacks, the per-modality vocab head, the
+training forward with its 'mod' / 'weighted_mod' / 'token' losses, and the
+generation hooks.  Parameters are fp32; activations run in
+`config.compute_dtype` (bf16 by default; pass "float32" for exact-math
+parity tests).
 
-Not ported yet: the training losses, the decoder-side masking for training,
-the autoregressive logits, register tokens and unshared modality
-embeddings (the released models use neither).
+Not ported yet: sequence-type decoder modalities and the causal decoder
+(`adapt_decoder_attention_mask`), the autoregressive logits, register tokens
+and unshared modality embeddings (the released models use none of them).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +27,14 @@ from egom2p_torch.models.embeddings import (make_decoder_embedding,
                                             make_encoder_embedding)
 from egom2p_torch.models.transformer import (ACTIVATIONS, Block, DecoderBlock,
                                              LayerNorm, Linear)
+from egom2p_torch.ops.attention import SegmentMask
+from egom2p_torch.ops.flash_ce import flash_ce_total
+
+SEQ_TYPES = ("seq", "seq_emb", "seq_token")
+
+
+def _exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, 0) - x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +159,76 @@ class EgoM2P(nn.Module):
         mod_k = mod_k.masked_fill(mask_k, -1)
         return tokens_k, emb_k, mask_k[:, None, :], mod_k
 
+    # ------------------------------------------------------- decoder masking
+    def embed_decoder(self, mod_dict, compute_dtype=None) -> List[Dict[str, Any]]:
+        """Per-modality decoder inputs and targets, in sorted modality order:
+        dicts with mod / x / emb / ids / mask / attn.  Image-type decoder
+        inputs are the mask token (reference: egom2p_model.py:285-342)."""
+        compute_dtype = compute_dtype or self.compute_dtype
+        out = []
+        for mod in sorted(self.out_domains):
+            if mod not in mod_dict:
+                continue
+            if self.mod_info[mod]["type"] in SEQ_TYPES:
+                raise NotImplementedError(
+                    f"decoder modality {mod}: sequence-type targets are not ported yet")
+            d = mod_dict[mod]
+            x, emb, ids = self.decoder_embeddings[mod].forward_embed(d, compute_dtype)
+            out.append(dict(mod=mod, x=self.mask_token.to(x.dtype).expand(x.shape),
+                            emb=emb, ids=ids, mask=d["target_mask"].bool(),
+                            attn=d["decoder_attention_mask"].int()))
+        return out
+
+    def forward_mask_decoder(self, dec_embeds, num_decoder_tokens: int,
+                             perm: Optional[torch.Tensor] = None):
+        """Concat + argsort-gather to a fixed token count, the modalities
+        ordered by `perm` (a permutation of range(len(dec_embeds)); None
+        keeps sorted order) through per-modality tie-break offsets
+        (reference: egom2p_model.py:398-444).  Returns (tokens, emb,
+        decoder_mask (B, 1, M), target ids, self-attention mask, mod ids)."""
+        info = self.mod_info
+        device = dec_embeds[0]["x"].device
+        lengths = [e["x"].shape[1] for e in dec_embeds]
+        tokens = torch.cat([e["x"] for e in dec_embeds], dim=1)
+        emb = torch.cat([e["emb"] for e in dec_embeds], dim=1)
+        mask = torch.cat([e["mask"] for e in dec_embeds], dim=1)
+        ids = torch.cat([e["ids"] for e in dec_embeds], dim=1)
+        mod_ids = torch.cat([
+            torch.full(e["x"].shape[:2], info[e["mod"]]["id"], dtype=torch.int32,
+                       device=device) for e in dec_embeds], dim=1)
+
+        lens = torch.tensor(lengths, dtype=torch.float32, device=device)
+        within = torch.cat([torch.arange(n, dtype=torch.float32, device=device)
+                            for n in lengths])[None]
+        if perm is not None and len(dec_embeds) > 1:
+            perm = perm.to(device)
+            offset_per_mod = _exclusive_cumsum(lens[perm])[torch.argsort(perm)]
+        else:
+            offset_per_mod = _exclusive_cumsum(lens)
+        mod_index = torch.cat([torch.full((n,), i, dtype=torch.long, device=device)
+                               for i, n in enumerate(lengths)])
+        base = offset_per_mod[mod_index][None]
+        # fp32, epsilon 1e-6 and a stable sort, exactly as the JAX package:
+        # any other rounding reorders ties
+        prio = mask.float() + (base + within) * 1e-6
+        ids_keep = torch.argsort(prio, dim=1, stable=True)[:, :num_decoder_tokens]
+
+        def take(a):
+            if a.dim() == 3:
+                return torch.gather(a, 1, ids_keep[..., None].expand(-1, -1, a.shape[-1]))
+            return torch.gather(a, 1, ids_keep)
+
+        tokens_k, emb_k, mask_k = take(tokens), take(emb), take(mask)
+        ids_k, mod_k = take(ids), take(mod_ids)
+        tokens_k = tokens_k.masked_fill(mask_k[..., None], 0.0)
+        emb_k = emb_k.masked_fill(mask_k[..., None], 0.0)
+        ids_k = ids_k.masked_fill(mask_k, 0)
+        mod_k = mod_k.masked_fill(mask_k, -1)
+        # image-type modalities only (embed_decoder): the cumsum + separation
+        # mask reduces exactly to "attend within your own modality"
+        sa_mask = SegmentMask(segments=mod_k)
+        return tokens_k, emb_k, mask_k[:, None, :], ids_k, sa_mask, mod_k
+
     # ------------------------------------------------------------- backbones
     def forward_encoder(self, x, encoder_mask):
         for blk in self.encoder:
@@ -158,6 +239,84 @@ class EgoM2P(nn.Module):
         for blk in self.decoder:
             y = blk(y, context, sa_mask, encoder_mask)
         return self.decoder_norm(y)
+
+    # ------------------------------------------------------------------ loss
+    def _chunked_masked_ce(self, y, mod: str, target_ids, weights, chunk: int = 2048):
+        """(sum of CE * w, sum of w) of modality `mod`'s head over the
+        decoder rows.  Heads of 4096 or more tokens take flash_ce_total (its
+        hand-written kernel on CUDA: no (rows, V) logits in device memory);
+        smaller heads a plain logsumexp over chunks of rows."""
+        emb_mod = self.decoder_embeddings[mod]
+        D = y.shape[-1]
+        yf = y.reshape(-1, D)
+        w = weights.reshape(-1).float()
+        # other modalities' targets can exceed this head's vocab: zero them
+        t = torch.where(weights.reshape(-1), target_ids.reshape(-1),
+                        torch.zeros_like(target_ids.reshape(-1)))
+        if emb_mod.vocab_size >= 4096 and D % 128 == 0:
+            return flash_ce_total(yf, emb_mod.token_emb.weight, t, w, chunk=chunk), w.sum()
+        head = emb_mod.head_weight(y.dtype)
+        total = yf.new_zeros((), dtype=torch.float32)
+        for r0 in range(0, yf.shape[0], chunk):
+            logits = emb_mod.forward_logits(yf[r0:r0 + chunk], head)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(1, t[r0:r0 + chunk].long()[:, None])[:, 0]
+            total = total + ((logz - gold) * w[r0:r0 + chunk]).sum()
+        return total, w.sum()
+
+    def forward_loss(self, y, target_ids, decoder_mod_mask, loss_type: str,
+                     present_mods: List[str]):
+        """'mod' / 'weighted_mod' / 'token' losses
+        (reference: egom2p_model.py:553-680)."""
+        info = self.mod_info
+        mod_loss: Dict[str, torch.Tensor] = {}
+        mod_count: Dict[str, torch.Tensor] = {}
+        for mod in present_mods:
+            w = decoder_mod_mask == info[mod]["id"]
+            total, count = self._chunked_masked_ce(y, mod, target_ids, w)
+            loss_m = torch.where(count > 0, total / count.clamp(min=1.0),
+                                 torch.zeros_like(total))
+            if loss_type == "weighted_mod":
+                # rescale as if every modality had a 256-entry codebook
+                # (reference: egom2p_model.py:608)
+                loss_m = loss_m / math.log(info[mod]["vocab_size"]) * math.log(256.0)
+            mod_loss[mod] = loss_m
+            mod_count[mod] = count
+
+        if loss_type in ("mod", "modality", "weighted_mod"):
+            loss = sum(mod_loss.values()) / len(mod_loss)
+        elif loss_type == "token":
+            # the reference weights modalities by logits.numel() =
+            # n_tokens * vocab_size (egom2p_model.py:676)
+            weights = {m: mod_count[m] * info[m]["vocab_size"] for m in mod_loss}
+            denom = sum(weights.values()).clamp(min=1.0)
+            loss = sum(mod_loss[m] * weights[m] for m in mod_loss) / denom
+        else:
+            raise ValueError(f"Invalid loss type: {loss_type}")
+        return loss, mod_loss
+
+    # --------------------------------------------------------------- forward
+    def forward(self, mod_dict, num_encoder_tokens: int, num_decoder_tokens: int,
+                loss_type: str = "mod", shuffle: Optional[torch.Generator] = None,
+                compute_dtype=None):
+        """Training forward (reference: egom2p_model.py:683-734): returns
+        (loss, {mod: loss}).  The decoder's modality order is a permutation
+        drawn from the CPU generator `shuffle`, or sorted order."""
+        compute_dtype = compute_dtype or self.compute_dtype
+        enc_embeds = self.embed_encoder(mod_dict, compute_dtype)
+        encoder_tokens, encoder_emb, encoder_mask, _ = self.forward_mask_encoder(
+            enc_embeds, num_encoder_tokens)
+
+        dec_embeds = self.embed_decoder(mod_dict, compute_dtype)
+        perm = None if shuffle is None else torch.randperm(len(dec_embeds), generator=shuffle)
+        decoder_tokens, decoder_emb, _, target_ids, sa_mask, dec_mod_mask = \
+            self.forward_mask_decoder(dec_embeds, num_decoder_tokens, perm)
+
+        x = self.forward_encoder(encoder_tokens + encoder_emb, encoder_mask)
+        context = self.decoder_proj_context(x) + encoder_emb
+        y = self.forward_decoder(decoder_tokens + decoder_emb, context, encoder_mask, sa_mask)
+        return self.forward_loss(y, target_ids, dec_mod_mask, loss_type,
+                                 [e["mod"] for e in dec_embeds])
 
     # ------------------------------------------------------ generation hooks
     def forward_enc_context(self, mod_dict, num_encoder_tokens: int,

@@ -7,8 +7,9 @@ the reference torch state-dict keys (qkv / proj / fc1 / fc2 / fc3 / norm1 /
 (the model's compute dtype); norms and softmax compute in fp32.
 
 q/k/v stay views of the fused `qkv` / `kv` projection in (B, N, H*64)
-layout: eligible attention goes to the flash64 kernel with no head
-transposes.
+layout: eligible attention goes to the flash64 kernels with no head
+transposes (generation to the inference kernel, training to the
+differentiable flash64_train kernels).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from egom2p_torch.ops.attention import (inference_attention_active,
+from egom2p_torch.ops.attention import (SegmentMask, inference_attention_active,
                                         key_padding_mask, masked_attention)
 
 
@@ -96,24 +97,31 @@ def _merge_heads(x):
 
 
 def _try_flash64(q, k, v, mask, num_heads: int, softmax1: bool):
-    """Route an eligible inference attention call to the flash64 kernel in
-    projection layout (B, N, C); returns the output or None.
+    """Route an eligible attention call to a flash64 kernel in projection
+    layout (B, N, C); returns the output or None.
 
-    Eligible, as in egom2p_tpu/models/transformer.py:131-133 plus its
-    key-padding gate: inside `inference_attention()`, no softmax1, head_dim
-    64 with whole head pairs, N*M >= 256^2, M <= 16384, and a key-padding
-    mask or none.  Eligibility does not depend on the device: CPU tensors
-    take the kernel's plain version inside flash64_attention."""
+    Eligible, as in egom2p_tpu/models/transformer.py:_try_flash64: no
+    softmax1, head_dim 64 with whole head pairs, N*M >= 256^2, M <= 16384.
+    Inside `inference_attention()` a key-padding mask or none goes to the
+    inference kernel; outside it, to flash64_train_attention: a key-padding
+    mask or none, or a SegmentMask with N == M.  Eligibility does not depend
+    on the device: CPU tensors take the kernels' plain versions."""
     C = q.shape[-1]
-    if (not inference_attention_active() or softmax1 or C % 128 != 0
-            or C // num_heads != 64 or q.shape[1] * k.shape[1] < 256 * 256
-            or k.shape[1] > 16384):
+    if (softmax1 or C % 128 != 0 or C // num_heads != 64
+            or q.shape[1] * k.shape[1] < 256 * 256 or k.shape[1] > 16384):
         return None
+    from egom2p_torch.ops.flash64_train import flash64_train_attention
+    if isinstance(mask, SegmentMask):
+        if inference_attention_active() or q.shape[1] != k.shape[1]:
+            return None
+        return flash64_train_attention(q, k, v, segments=mask.segments)
     is_kp, kv_blocked = key_padding_mask(mask)
     if not is_kp:
         return None
-    from egom2p_torch.ops.flash64 import flash64_attention
-    return flash64_attention(q, k, v, kv_blocked)
+    if inference_attention_active():
+        from egom2p_torch.ops.flash64 import flash64_attention
+        return flash64_attention(q, k, v, kv_blocked)
+    return flash64_train_attention(q, k, v, kv_blocked)
 
 
 class _AttentionBase(nn.Module):
@@ -137,7 +145,7 @@ class _AttentionBase(nn.Module):
         if fast is not None:
             return self.proj(fast)
         q, k, v = (_split_heads(t, self.num_heads) for t in (q, k, v))
-        if mask is not None and mask.dim() == 3:
+        if isinstance(mask, torch.Tensor) and mask.dim() == 3:
             mask = mask[:, None]  # add the head dim
         out = masked_attention(q, k, v, mask, softmax1=self.softmax1)
         return self.proj(_merge_heads(out))

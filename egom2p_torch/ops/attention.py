@@ -6,12 +6,13 @@ reference: True means *blocked*, and a fully-blocked query row returns zeros
 whose every key is blocked).
 
 `inference_attention()` marks generation: inside it, eligible attention
-calls route to the flash64 kernel (models/transformer.py:_try_flash64).
+calls route to the flash64 kernel, outside it to the training kernels of
+flash64_train (models/transformer.py:_try_flash64).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,11 +36,24 @@ def inference_attention_active() -> bool:
     return _INFERENCE_ATTN
 
 
+class SegmentMask(NamedTuple):
+    """Self-attention restricted to equal segment ids (B, N).
+
+    The EgoM2P decoder's training mask for image-type modalities reduces to
+    this: with the modality separation mask, every token's budget window
+    covers its own modality block, so attention is "same modality only".
+    Masked positions carry the id -1 and attend to each other; their loss
+    weight is 0."""
+    segments: torch.Tensor  # (B, N) int
+
+
 def key_padding_mask(mask) -> Tuple[bool, Optional[torch.Tensor]]:
     """(is_key_padding, (B, M) blocked-bool or None) for a module-level mask:
     None, (B, 1, M) or (B, 1, 1, M) are key padding."""
     if mask is None:
         return True, None
+    if isinstance(mask, SegmentMask):
+        return False, None
     if mask.dim() == 3 and mask.shape[1] == 1:
         return True, mask[:, 0]
     if mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1:
@@ -51,10 +65,14 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, *,
                      softmax1: bool = False) -> torch.Tensor:
     """Dense attention over (B, H, N, hd) q and (B, H, M, hd) k/v; `mask`
-    broadcasts to (B, H, N, M) with True = blocked.  Returns (B, H, N, hd).
+    broadcasts to (B, H, N, M) with True = blocked, or is a SegmentMask
+    (blocked where the segments differ).  Returns (B, H, N, hd).
 
     Scores and softmax are fp32 (the JAX einsum's fp32 accumulation); the
     weights are cast to v's dtype for the second product."""
+    if isinstance(mask, SegmentMask):
+        seg = mask.segments
+        mask = (seg[:, None, :] != seg[:, :, None])[:, None]
     scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
