@@ -1,17 +1,26 @@
-// Forward attention at head_dim 64 for Hopper (sm_90a), non-causal, for
-// inference and for training.  Called from egom2p_torch/ops/flash64.py
-// (inference) and egom2p_torch/ops/flash64_train.py (training forward).
+// Forward attention at head_dim 64 (and, for the stock route, 80) for Hopper
+// (sm_90a), non-causal, for inference and for training.  Called from
+// egom2p_torch/ops/flash64.py (inference), egom2p_torch/ops/flash64_train.py
+// (training forward) and egom2p_torch/ops/flash_attention.py (the stock
+// route, through flash64_train.py's launcher).
 //
-// Replaces three Pallas TPU kernels, all one template here:
+// Replaces four Pallas TPU kernels, all one template here:
 //   * egom2p_tpu/ops/flash64.py `_kernel_noshift` (clamp-only softmax, the
 //     default) and `_kernel` (running-max "safemax" softmax), both reached
 //     through `flash64_attention` -> `pl.pallas_call`: SAFEMAX selects;
 //   * egom2p_tpu/ops/flash64_train.py `_fwd_kernel`, the training forward:
 //     the same math plus the per-row L2 output (L2 = true) and the segment
-//     mask mode (SEG = true).
+//     mask mode (SEG = true);
+//   * the forward of the stock jax.experimental.pallas.ops.tpu
+//     flash_attention, reached through egom2p_tpu/ops/flash_attention.py
+//     `segment_flash_attention` / `padding_flash_attention`: the safemax
+//     training instance at HD = 64, or at HD = 80 for heads of 65..80 that
+//     the caller zero-pads to 80 (EgoM2P-large: 68), with the true head's
+//     scale passed in.  Zero columns change no score and give zero output
+//     columns, so the padding is exact.
 //
 // Math (identical to the TPU kernels):
-//   s = fp32(q . k) * (64^-0.5 * log2 e) + bias,   bias = -1e30 where blocked
+//   s = fp32(q . k) * (hd^-0.5 * log2 e) + bias,   bias = -1e30 where blocked
 //   clamp:   p = exp2(min(s, 80)),   l = sum p,   o = sum bf16(p) v / l,
 //            a row with l == 0 (every key blocked) writes exact zeros;
 //   safemax: online softmax in the exp2 domain with running max m; a row whose
@@ -30,7 +39,7 @@
 // B*H = 96) a (batch, head) pair's K and V are 0.5-2.2 MB, and the q tiles of
 // one pair run side by side (blockIdx.x is the fastest grid index), so K/V are
 // read from device memory about once and re-read from L2: the work is
-// 4*N*M*64 tensor-core FLOPs plus N*M exp2 on the SFU.
+// 4*N*M*HD tensor-core FLOPs plus N*M exp2 on the SFU.
 //
 // What the design does about it: each block owns 64 query rows of one
 // (batch, head), four warps of 16 rows.  The block walks the keys in tiles of
@@ -38,10 +47,10 @@
 // loads while this one computes.  S = Q K^T and O += P V run on the tensor
 // cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the S accumulator
 // fragment is re-packed in registers as the A operand of P V, so P never
-// touches shared memory.  V's B operand comes from ldmatrix.trans.  Static
-// shared memory is 46.5 KB (47 KB with segments, under the 48 KB static
-// limit).  This is the simple first kernel: wgmma, TMA and warp
-// specialisation are later work.
+// touches shared memory.  V's B operand comes from ldmatrix.trans.  Shared
+// memory: 46.5 KB of static tiles at HD = 64 (47 KB with segments), 56 KB of
+// dynamic ones at HD = 80 (opt-in set at launch).  This is the simple first
+// kernel: wgmma, TMA and warp specialisation are later work.
 //
 // The kernel masks its own ragged edges (rows past N, keys past M are
 // zero-filled and keys past M carry the -1e30 bias), reads q/k/v through a
@@ -54,20 +63,46 @@ namespace {
 
 using namespace egom2p;
 
-constexpr int kHeadDim = 64;
 constexpr int kBlockQ = 64;                  // query rows per block: 4 warps x 16
 constexpr int kBlockK = 64;                  // keys per shared-memory tile
-constexpr int kLd = kHeadDim + 8;            // padded smem row: 144 bytes, conflict-free fragments
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 constexpr float kDeadRow = -5e29f;           // kNegInf * 0.5: safemax dead-row threshold
 constexpr float kDeadL2 = 1e30f;             // L2 of a row with no live key
 constexpr float kClamp = 80.f;
+constexpr double kLog2e = 1.4426950408889634;
+
+// Padded smem rows (HD + 8 bf16: 144 bytes at 64, 176 at 80) keep the
+// fragment loads and ldmatrix rows on distinct banks.
+template <int kHD, bool kSeg>
+struct FwdSmem {
+  __nv_bfloat16 q[kBlockQ][kHD + 8];
+  __nv_bfloat16 k[2][kBlockK][kHD + 8];
+  __nv_bfloat16 v[2][kBlockK][kHD + 8];
+  float bias[2][kBlockK];
+  int seg[kSeg ? 2 : 1][kSeg ? kBlockK : 1];
+};
+
+// A tile set under 48 KB (HD = 64) is static shared memory, as the kernel
+// always had: the compiler then addresses it with constant offsets.  HD = 80
+// needs dynamic shared memory and the opt-in set at launch.
+constexpr int kStaticSmemLimit = 48 * 1024;
+
+template <typename Smem>
+__device__ __forceinline__ Smem& smem_tiles() {
+  if constexpr (sizeof(Smem) <= kStaticSmemLimit) {
+    __shared__ __align__(16) Smem tiles;
+    return tiles;
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return *reinterpret_cast<Smem*>(smem_raw);
+  }
+}
 
 // SAFEMAX: running-max softmax.  SEG: block where segments[q] != segments[k]
 // (self-attention; `mask` is then the (B, N) int32 segment ids).  L2: write
-// the per-row log-sum for the training backward.
-template <bool kSafemax, bool kSeg, bool kL2>
+// the per-row log-sum for the training backward.  HD: head dim, 64 or 80.
+template <bool kSafemax, bool kSeg, bool kL2, int kHD>
 __global__ void __launch_bounds__(kThreads)
     flash64_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_blocked,
@@ -75,11 +110,10 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ l2, int n_q, int n_kv, int64_t q_sb, int64_t q_sn,
                        int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn, int64_t m_sb,
                        int64_t o_sb, int64_t o_sn, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sK[2][kBlockK][kLd];
-  __shared__ __align__(16) __nv_bfloat16 sV[2][kBlockK][kLd];
-  __shared__ float sBias[2][kBlockK];
-  __shared__ int sSeg[kSeg ? 2 : 1][kSeg ? kBlockK : 1];
+  constexpr int kSteps = kHD / 16;           // mma k-steps over head_dim
+  constexpr int kDimTiles = kHD / 8;         // 8-wide n-tiles of the output
+  constexpr int kRowChunks = kHD / 8;        // 16-byte chunks per row
+  FwdSmem<kHD, kSeg>& sm = smem_tiles<FwdSmem<kHD, kSeg>>();
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -87,37 +121,38 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBlockQ;
   const int head = blockIdx.y, batch = blockIdx.z;
 
-  const __nv_bfloat16* qb = q + batch * q_sb + head * kHeadDim;
-  const __nv_bfloat16* kb = k + batch * k_sb + head * kHeadDim;
-  const __nv_bfloat16* vb = v + batch * v_sb + head * kHeadDim;
+  const __nv_bfloat16* qb = q + batch * q_sb + head * kHD;
+  const __nv_bfloat16* kb = k + batch * k_sb + head * kHD;
+  const __nv_bfloat16* vb = v + batch * v_sb + head * kHD;
   const uint8_t* mb = kv_blocked == nullptr ? nullptr : kv_blocked + batch * m_sb;
   const int* sb = kSeg ? segments + batch * m_sb : nullptr;
 
-  // A 64 x 64 bf16 tile is 512 chunks of 16 bytes: 4 per thread.  Rows at or
-  // past `rows` are zero-filled (their address is clamped to row 0).
-  auto load_tile = [&](__nv_bfloat16(*dst)[kLd], const __nv_bfloat16* src, int64_t stride,
+  // A 64 x HD bf16 tile is 64 * HD / 8 chunks of 16 bytes: HD / 16 per
+  // thread.  Rows at or past `rows` are zero-filled (their address is
+  // clamped to row 0).
+  auto load_tile = [&](__nv_bfloat16(*dst)[kHD + 8], const __nv_bfloat16* src, int64_t stride,
                        int row0, int rows) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int chunk = tid + i * kThreads;
-      const int r = chunk >> 3, col = (chunk & 7) * 8;
+    for (int i = 0; i < kHD / 16; ++i) {
+      const unsigned chunk = tid + i * kThreads;  // unsigned: shifts at HD 64, no sign fix-ups
+      const int r = chunk / kRowChunks, col = (chunk % kRowChunks) * 8;
       const bool ok = row0 + r < rows;
       cp_async16(&dst[r][col], src + (ok ? row0 + r : 0) * stride + col, ok);
     }
   };
   auto load_kv = [&](int tile, int stage) {
     const int k0 = tile * kBlockK;
-    load_tile(sK[stage], kb, k_sn, k0, n_kv);
-    load_tile(sV[stage], vb, v_sn, k0, n_kv);
+    load_tile(sm.k[stage], kb, k_sn, k0, n_kv);
+    load_tile(sm.v[stage], vb, v_sn, k0, n_kv);
     if (tid < kBlockK) {
       const int key = k0 + tid;
       const bool blocked = key >= n_kv || (mb != nullptr && mb[key] != 0);
-      sBias[stage][tid] = blocked ? kNegInf : 0.f;
-      if (kSeg) sSeg[stage][tid] = key < n_kv ? sb[key] : 0;
+      sm.bias[stage][tid] = blocked ? kNegInf : 0.f;
+      if (kSeg) sm.seg[stage][tid] = key < n_kv ? sb[key] : 0;
     }
   };
 
-  load_tile(sQ, qb, q_sn, q0, n_q);
+  load_tile(sm.q, qb, q_sn, q0, n_q);
   load_kv(0, 0);
   cp_async_commit();
 
@@ -129,12 +164,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int n_tiles = (n_kv + kBlockK - 1) / kBlockK;
-  float acc[8][4];  // O: 16 rows x 64 dims per warp, 8 n-tiles of 8 dims
+  float acc[kDimTiles][4];  // O: 16 rows x HD dims per warp, n-tiles of 8 dims
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < kDimTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float row_l[2] = {0.f, 0.f};           // rows gid, gid + 8: this thread's partial sums
   float row_m[2] = {kNegInf, kNegInf};   // safemax running max (quad-uniform)
-  uint32_t qf[4][4];                     // Q A-fragments for the 4 k-steps over head_dim
+  uint32_t qf[kSteps][4];                // Q A-fragments for the k-steps over head_dim
 
   for (int t = 0; t < n_tiles; ++t) {
     const int stage = t & 1;
@@ -150,8 +185,8 @@ __global__ void __launch_bounds__(kThreads)
     if (t == 0) {
       const int r = warp * 16 + gid;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        load_a_frag(qf[kk], &sQ[r][kk * 16 + tig * 2], &sQ[r + 8][kk * 16 + tig * 2]);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        load_a_frag(qf[kk], &sm.q[r][kk * 16 + tig * 2], &sm.q[r + 8][kk * 16 + tig * 2]);
       }
     }
 
@@ -160,9 +195,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = sK[stage][j * 8 + gid];
+      const __nv_bfloat16* krow = sm.k[stage][j * 8 + gid];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < kSteps; ++kk) {
         mma_16816(s[j], qf[kk], ld_smem_u32(krow + kk * 16 + tig * 2),
                   ld_smem_u32(krow + kk * 16 + 8 + tig * 2));
       }
@@ -171,10 +206,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = j * 8 + tig * 2;
-      float b00 = sBias[stage][c], b01 = sBias[stage][c + 1];  // row gid
-      float b10 = b00, b11 = b01;                              // row gid + 8
+      float b00 = sm.bias[stage][c], b01 = sm.bias[stage][c + 1];  // row gid
+      float b10 = b00, b11 = b01;                                  // row gid + 8
       if (kSeg) {
-        const int k0s = sSeg[stage][c], k1s = sSeg[stage][c + 1];
+        const int k0s = sm.seg[stage][c], k1s = sm.seg[stage][c + 1];
         if (seg_q[0] != k0s) b00 = kNegInf;
         if (seg_q[0] != k1s) b01 = kNegInf;
         if (seg_q[1] != k0s) b10 = kNegInf;
@@ -206,11 +241,12 @@ __global__ void __launch_bounds__(kThreads)
       row_l[0] *= alpha0;
       row_l[1] *= alpha1;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kDimTiles; ++j) {
         acc[j][0] *= alpha0;
         acc[j][1] *= alpha0;
         acc[j][2] *= alpha1;
         acc[j][3] *= alpha1;
+        if (j >= 8) continue;  // s has 8 key tiles; acc has HD / 8 dim tiles
         s[j][0] = exp2_approx(s[j][0] - mx0);
         s[j][1] = exp2_approx(s[j][1] - mx0);
         s[j][2] = exp2_approx(s[j][2] - mx1);
@@ -240,10 +276,10 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t a[4];
       acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int jd = 0; jd < 4; ++jd) {
+      for (int jd = 0; jd < kHD / 16; ++jd) {
         // matrices: (keys +0, dims +0), (keys +8, dims +0), (keys +0, dims +8), (keys +8, dims +8)
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, &sV[stage][kk * 16 + (mat & 1) * 8 + mrow][jd * 16 + (mat >> 1) * 8]);
+        ldmatrix_x4_trans(bv, &sm.v[stage][kk * 16 + (mat & 1) * 8 + mrow][jd * 16 + (mat >> 1) * 8]);
         mma_16816(acc[2 * jd], a, bv[0], bv[1]);
         mma_16816(acc[2 * jd + 1], a, bv[2], bv[3]);
       }
@@ -269,9 +305,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + i * 8;
     if (row >= n_q) continue;
-    __nv_bfloat16* orow = out + batch * o_sb + row * o_sn + head * kHeadDim;
+    __nv_bfloat16* orow = out + batch * o_sb + row * o_sn + head * kHD;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kDimTiles; ++j) {
       const float x0 = live[i] ? acc[j][2 * i] / denom[i] : 0.f;
       const float x1 = live[i] ? acc[j][2 * i + 1] / denom[i] : 0.f;
       *reinterpret_cast<uint32_t*>(orow + j * 8 + tig * 2) = pack_bf16(x0, x1);
@@ -283,36 +319,64 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kSeg, bool kL2>
-void launch_fwd(bool safemax, dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
-                const __nv_bfloat16* k, const __nv_bfloat16* v, const uint8_t* kv_blocked,
-                const int* segments, __nv_bfloat16* out, float* l2, int n_q, int n_kv,
-                int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn, int64_t v_sb,
-                int64_t v_sn, int64_t m_sb, int64_t o_sb, int64_t o_sn) {
-  const float scale = static_cast<float>(0.125 * 1.4426950408889634);  // 64^-0.5 * log2(e)
-  if (safemax) {
-    flash64_fwd_kernel<true, kSeg, kL2><<<grid, kThreads, 0, st>>>(
-        q, k, v, kv_blocked, segments, out, l2, n_q, n_kv, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
-        m_sb, o_sb, o_sn, scale);
-  } else {
-    flash64_fwd_kernel<false, kSeg, kL2><<<grid, kThreads, 0, st>>>(
-        q, k, v, kv_blocked, segments, out, l2, n_q, n_kv, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
-        m_sb, o_sb, o_sn, scale);
+struct FwdArgs {
+  const __nv_bfloat16 *q, *k, *v;
+  const uint8_t* kv_blocked;
+  const int* segments;
+  __nv_bfloat16* out;
+  float* l2;
+  int n_q, n_kv;
+  int64_t q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn;
+  float scale;  // hd^-0.5 * log2(e)
+};
+
+template <bool kSafemax, bool kSeg, bool kL2, int kHD>
+cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const FwdArgs& a) {
+  auto kernel = flash64_fwd_kernel<kSafemax, kSeg, kL2, kHD>;
+  constexpr int bytes = static_cast<int>(sizeof(FwdSmem<kHD, kSeg>));
+  constexpr int smem = bytes <= kStaticSmemLimit ? 0 : bytes;  // dynamic bytes
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
   }
+  kernel<<<grid, kThreads, smem, st>>>(a.q, a.k, a.v, a.kv_blocked, a.segments, a.out, a.l2,
+                                       a.n_q, a.n_kv, a.q_sb, a.q_sn, a.k_sb, a.k_sn, a.v_sb,
+                                       a.v_sn, a.m_sb, a.o_sb, a.o_sn, a.scale);
+  return cudaGetLastError();
 }
 
 bool bad_shape(int batch, int n_q, int n_kv, int heads) {
   return batch <= 0 || n_q <= 0 || n_kv <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
 }
 
+FwdArgs make_args(const void* q, const void* k, const void* v, const void* kv_blocked,
+                  const void* segments, void* out, void* l2, int n_q, int n_kv, long long q_sb,
+                  long long q_sn, long long k_sb, long long k_sn, long long v_sb, long long v_sn,
+                  long long m_sb, long long o_sb, long long o_sn, double sm_scale) {
+  FwdArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.kv_blocked = static_cast<const uint8_t*>(kv_blocked);
+  a.segments = static_cast<const int*>(segments);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.l2 = static_cast<float*>(l2);
+  a.n_q = n_q;
+  a.n_kv = n_kv;
+  a.q_sb = q_sb; a.q_sn = q_sn; a.k_sb = k_sb; a.k_sn = k_sn; a.v_sb = v_sb; a.v_sn = v_sn;
+  a.m_sb = m_sb; a.o_sb = o_sb; a.o_sn = o_sn;
+  a.scale = static_cast<float>(sm_scale * kLog2e);
+  return a;
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes.  Strides are in elements; q/k/v/out rows
-// are 64*H wide with unit stride inside a row.  Both return the CUDA error of
-// the launch (0 on success).
+// are head_dim * H wide with unit stride inside a row.  Both return the CUDA
+// error of the launch (0 on success).
 
-// Inference.  kv_blocked is (B, M) bytes (nonzero = blocked) with batch
-// stride m_sb, or null.
+// Inference, head_dim 64.  kv_blocked is (B, M) bytes (nonzero = blocked)
+// with batch stride m_sb, or null.
 extern "C" int egom2p_flash64_fwd(const void* q, const void* k, const void* v,
                                   const void* kv_blocked, void* out, int batch, int n_q, int n_kv,
                                   int heads, long long q_sb, long long q_sn, long long k_sb,
@@ -320,45 +384,46 @@ extern "C" int egom2p_flash64_fwd(const void* q, const void* k, const void* v,
                                   long long o_sb, long long o_sn, int safemax, void* stream) {
   if (bad_shape(batch, n_q, n_kv, heads)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  launch_fwd<false, false>(safemax != 0, grid, static_cast<cudaStream_t>(stream),
-                           static_cast<const __nv_bfloat16*>(q),
-                           static_cast<const __nv_bfloat16*>(k),
-                           static_cast<const __nv_bfloat16*>(v),
-                           static_cast<const uint8_t*>(kv_blocked), nullptr,
-                           static_cast<__nv_bfloat16*>(out), nullptr, n_q, n_kv, q_sb, q_sn, k_sb,
-                           k_sn, v_sb, v_sn, m_sb, o_sb, o_sn);
-  return static_cast<int>(cudaGetLastError());
+  const FwdArgs a = make_args(q, k, v, kv_blocked, nullptr, out, nullptr, n_q, n_kv, q_sb, q_sn,
+                              k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn, 0.125);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = safemax ? launch_fwd<true, false, false, 64>(grid, st, a)
+                                  : launch_fwd<false, false, false, 64>(grid, st, a);
+  return static_cast<int>(err);
 }
 
 // Training forward.  At most one of kv_blocked ((B, M) bytes) and segments
 // ((B, N) int32 ids, N == M) is given, with batch stride m_sb.  l2 is a
-// contiguous (B, H, N) fp32 output.
+// contiguous (B, H, N) fp32 output.  head_dim is 64 (both softmax forms) or
+// 80 (safemax only: the stock route); sm_scale is the natural scale, the
+// true head's hd^-0.5.
 extern "C" int egom2p_flash64_train_fwd(const void* q, const void* k, const void* v,
                                         const void* kv_blocked, const void* segments, void* out,
                                         void* l2, int batch, int n_q, int n_kv, int heads,
                                         long long q_sb, long long q_sn, long long k_sb,
                                         long long k_sn, long long v_sb, long long v_sn,
                                         long long m_sb, long long o_sb, long long o_sn,
-                                        int safemax, void* stream) {
+                                        int safemax, int head_dim, float sm_scale, void* stream) {
   if (bad_shape(batch, n_q, n_kv, heads) || (kv_blocked != nullptr && segments != nullptr) ||
-      (segments != nullptr && n_q != n_kv) || l2 == nullptr) {
+      (segments != nullptr && n_q != n_kv) || l2 == nullptr ||
+      !(head_dim == 64 || (head_dim == 80 && safemax))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* lp = static_cast<float*>(l2);
-  if (segments != nullptr) {
-    launch_fwd<true, true>(safemax != 0, grid, st, qp, kp, vp, nullptr,
-                           static_cast<const int*>(segments), op, lp, n_q, n_kv, q_sb, q_sn, k_sb,
-                           k_sn, v_sb, v_sn, m_sb, o_sb, o_sn);
+  const FwdArgs a = make_args(q, k, v, kv_blocked, segments, out, l2, n_q, n_kv, q_sb, q_sn, k_sb,
+                              k_sn, v_sb, v_sn, m_sb, o_sb, o_sn, static_cast<double>(sm_scale));
+  const bool seg = segments != nullptr;
+  cudaError_t err;
+  if (head_dim == 80) {
+    err = seg ? launch_fwd<true, true, true, 80>(grid, st, a)
+              : launch_fwd<true, false, true, 80>(grid, st, a);
+  } else if (safemax) {
+    err = seg ? launch_fwd<true, true, true, 64>(grid, st, a)
+              : launch_fwd<true, false, true, 64>(grid, st, a);
   } else {
-    launch_fwd<false, true>(safemax != 0, grid, st, qp, kp, vp,
-                            static_cast<const uint8_t*>(kv_blocked), nullptr, op, lp, n_q, n_kv,
-                            q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn);
+    err = seg ? launch_fwd<false, true, true, 64>(grid, st, a)
+              : launch_fwd<false, false, true, 64>(grid, st, a);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -244,8 +245,13 @@ class EgoM2P(nn.Module):
     def _chunked_masked_ce(self, y, mod: str, target_ids, weights, chunk: int = 2048):
         """(sum of CE * w, sum of w) of modality `mod`'s head over the
         decoder rows.  Heads of 4096 or more tokens take flash_ce_total (its
-        hand-written kernel on CUDA: no (rows, V) logits in device memory);
-        smaller heads a plain logsumexp over chunks of rows."""
+        hand-written kernel on CUDA: no (rows, V) logits in device memory)
+        when the model dim is a multiple of 128 (not EgoM2P-large's 1020, as
+        in the JAX package); EGOM2P_FLASH_CE=0 turns it off.  Other heads
+        take a plain logsumexp over chunks of rows.  EGOM2P_CE_CHUNK
+        overrides the chunk."""
+        chunk = int(os.environ.get("EGOM2P_CE_CHUNK", "0")) or chunk
+        flash = os.environ.get("EGOM2P_FLASH_CE", "1") != "0"
         emb_mod = self.decoder_embeddings[mod]
         D = y.shape[-1]
         yf = y.reshape(-1, D)
@@ -253,7 +259,7 @@ class EgoM2P(nn.Module):
         # other modalities' targets can exceed this head's vocab: zero them
         t = torch.where(weights.reshape(-1), target_ids.reshape(-1),
                         torch.zeros_like(target_ids.reshape(-1)))
-        if emb_mod.vocab_size >= 4096 and D % 128 == 0:
+        if flash and emb_mod.vocab_size >= 4096 and D % 128 == 0:
             return flash_ce_total(yf, emb_mod.token_emb.weight, t, w, chunk=chunk), w.sum()
         head = emb_mod.head_weight(y.dtype)
         total = yf.new_zeros((), dtype=torch.float32)

@@ -9,18 +9,21 @@ the reference torch state-dict keys (qkv / proj / fc1 / fc2 / fc3 / norm1 /
 q/k/v stay views of the fused `qkv` / `kv` projection in (B, N, H*64)
 layout: eligible attention goes to the flash64 kernels with no head
 transposes (generation to the inference kernel, training to the
-differentiable flash64_train kernels).
+differentiable flash64_train kernels).  Other heads (EgoM2P-large's 68) and
+the kill switches split the heads for masked_attention's stock route.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from egom2p_torch.ops.attention import (SegmentMask, inference_attention_active,
-                                        key_padding_mask, masked_attention)
+from egom2p_torch.ops.attention import (SegmentMask, generation_trace_active,
+                                        inference_attention_active, key_padding_mask,
+                                        masked_attention)
 
 
 def gelu(x):
@@ -98,29 +101,39 @@ def _merge_heads(x):
 
 def _try_flash64(q, k, v, mask, num_heads: int, softmax1: bool):
     """Route an eligible attention call to a flash64 kernel in projection
-    layout (B, N, C); returns the output or None.
+    layout (B, N, C); returns the output or None (the caller then splits
+    the heads and calls masked_attention: the stock route or dense).
 
     Eligible, as in egom2p_tpu/models/transformer.py:_try_flash64: no
     softmax1, head_dim 64 with whole head pairs, N*M >= 256^2, M <= 16384.
-    Inside `inference_attention()` a key-padding mask or none goes to the
-    inference kernel; outside it, to flash64_train_attention: a key-padding
-    mask or none, or a SegmentMask with N == M.  Eligibility does not depend
-    on the device: CPU tensors take the kernels' plain versions."""
+    During generation (`inference_attention()`) a key-padding mask or none
+    goes to the inference kernel, or with EGOM2P_FLASH64=0 to the stock
+    route, never to a training kernel.  Otherwise a key-padding mask or none,
+    or a SegmentMask with N == M, goes to flash64_train_attention, unless
+    EGOM2P_FLASH64_TRAIN=0 (both) or EGOM2P_F64T_SEG=0 (segments) sends it
+    to the stock route.  Eligibility does not depend on the device: CPU
+    tensors take the kernels' plain versions."""
     C = q.shape[-1]
     if (softmax1 or C % 128 != 0 or C // num_heads != 64
             or q.shape[1] * k.shape[1] < 256 * 256 or k.shape[1] > 16384):
         return None
     from egom2p_torch.ops.flash64_train import flash64_train_attention
+    train_off = os.environ.get("EGOM2P_FLASH64_TRAIN", "1") == "0"
     if isinstance(mask, SegmentMask):
-        if inference_attention_active() or q.shape[1] != k.shape[1]:
+        if (generation_trace_active() or q.shape[1] != k.shape[1] or train_off
+                or os.environ.get("EGOM2P_F64T_SEG", "1") == "0"):
             return None
         return flash64_train_attention(q, k, v, segments=mask.segments)
     is_kp, kv_blocked = key_padding_mask(mask)
     if not is_kp:
         return None
-    if inference_attention_active():
+    if generation_trace_active():
+        if not inference_attention_active():
+            return None
         from egom2p_torch.ops.flash64 import flash64_attention
         return flash64_attention(q, k, v, kv_blocked)
+    if train_off:
+        return None
     return flash64_train_attention(q, k, v, kv_blocked)
 
 

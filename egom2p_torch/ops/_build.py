@@ -25,23 +25,31 @@ BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_c_void_p, _c_int, _c_ll, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# safemax, head_dim, sm_scale, stream: the tail of the training attention entry points
+_ATTN_TAIL = [_c_int, _c_int, _c_float, _c_void_p]
 # C signatures of the entry points in csrc/*.cu: (argtypes, restype)
 SIGNATURES = {
     # q, k, v, kv_blocked, out, B, N, M, H, 9 strides, safemax, stream
     "egom2p_flash64_fwd": ([_c_void_p] * 5 + [_c_int] * 4 + [_c_ll] * 9
                            + [_c_int, _c_void_p], _c_int),
-    # q, k, v, kv_blocked, segments, out, l2, B, N, M, H, 9 strides, safemax, stream
+    # q, k, v, kv_blocked, segments, out, l2, B, N, M, H, 9 strides, tail
     "egom2p_flash64_train_fwd": ([_c_void_p] * 7 + [_c_int] * 4 + [_c_ll] * 9
-                                 + [_c_int, _c_void_p], _c_int),
-    # q, k, v, do, l2, D, kv_blocked, segments, dq, B, N, M, H, 9 strides, safemax, stream
+                                 + _ATTN_TAIL, _c_int),
+    # q, k, v, do, l2, D, kv_blocked, segments, dq, B, N, M, H, 9 strides, tail
     "egom2p_flash64_train_dq": ([_c_void_p] * 9 + [_c_int] * 4 + [_c_ll] * 9
-                                + [_c_int, _c_void_p], _c_int),
+                                + _ATTN_TAIL, _c_int),
     # ... dk, dv instead of dq
     "egom2p_flash64_train_dkv": ([_c_void_p] * 10 + [_c_int] * 4 + [_c_ll] * 9
-                                 + [_c_int, _c_void_p], _c_int),
+                                 + _ATTN_TAIL, _c_int),
+    # ... dq (fp32, zeroed), dk, dv
+    "egom2p_flash64_train_dqkv": ([_c_void_p] * 11 + [_c_int] * 4 + [_c_ll] * 9
+                                  + _ATTN_TAIL, _c_int),
     # y, w, targets, logz, gold, R, V, D, y row stride, w row stride, stream
     "egom2p_flash_ce_fwd": ([_c_void_p] * 5 + [_c_int] * 3 + [_c_ll] * 2
+                            + [_c_void_p], _c_int),
+    # y, w, targets, wc, logz, dy, dw, R, V, D, y row stride, w row stride, stream
+    "egom2p_flash_ce_bwd": ([_c_void_p] * 7 + [_c_int] * 3 + [_c_ll] * 2
                             + [_c_void_p], _c_int),
 }
 

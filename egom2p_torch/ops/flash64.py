@@ -39,16 +39,16 @@ def _resolve_safemax(safemax: Optional[bool]) -> bool:
     return bool(safemax)
 
 
-def _check_args(q, k, v, kv_blocked):
+def _check_args(q, k, v, kv_blocked, hd: int = HEAD_DIM):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("flash64 takes (B, N, H*64) q and (B, M, H*64) k, v")
+        raise ValueError(f"flash64 takes (B, N, H*{hd}) q and (B, M, H*{hd}) k, v")
     B, N, C = q.shape
     M = k.shape[1]
     if k.shape != (B, M, C) or v.shape != (B, M, C):
         raise ValueError(f"flash64 shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if C % HEAD_DIM or C == 0:
-        raise ValueError(f"flash64 needs head_dim 64: last dim {C}")
+    if C % hd or C == 0:
+        raise ValueError(f"flash64 needs head_dim {hd}: last dim {C}")
     if N == 0 or M == 0:
         raise ValueError("flash64 needs N > 0 and M > 0")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -16,24 +16,34 @@ same clamp.
 It is a torch.autograd.Function.  The forward launches the forward kernel
 (csrc/flash64_fwd.cu, its L2 instance) and keeps o and L2; the backward forms
 D = rowsum(do * o) per head in fp32 and launches the dq kernel and the dk/dv
-kernel (csrc/flash64_train.cu).  On CUDA tensors the three wrappers
-`flash64_train_fwd`, `flash64_train_dq` and `flash64_train_dkv` launch their
-kernels or raise; on CPU tensors they run the plain PyTorch versions
-`flash64_train_reference_fwd`, `_dq` and `_dkv` (`_bwd` gives all three
-gradients).  Each wrapper's `.launches` counts its CUDA launches.  No
-gradient goes to the mask or the segments.
+kernel (csrc/flash64_train.cu), or, when EGOM2P_F64T_FUSED_BWD=1 at the time
+the backward runs, the one fused dq/dk/dv kernel.  The fused kernel sums dq
+in fp32 with atomic adds, in an order that changes from run to run, so its
+dq is not bitwise deterministic; dq then leaves fp32 in q's dtype (the JAX
+package's fused kernel does the same), where the split kernel rounds it to
+bf16 first.  On CUDA tensors the wrappers `flash64_train_fwd`,
+`flash64_train_dq`, `flash64_train_dkv` and `flash64_train_dqkv` launch
+their kernels or raise; on CPU tensors they run the plain PyTorch versions
+`flash64_train_reference_fwd`, `_dq`, `_dkv` and `_dqkv` (`_bwd` gives the
+split kernels' three gradients).  Each wrapper's `.launches` counts its CUDA
+launches.  No gradient goes to the mask or the segments.
+
+The forward and fused kernels also serve ops/flash_attention.py (the stock
+route) at head_dim 80: every function here takes `hd` (the kernel's head
+dim, 64 or 80) and `sm_scale` (the true head's natural scale, hd^-0.5 by
+default) as keywords.
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from egom2p_torch.ops.flash64 import (HEAD_DIM, NEG_INF, SCALE, _check_args,
-                                      _kernel_operand)
+from egom2p_torch.ops.flash64 import HEAD_DIM, NEG_INF, _check_args, _kernel_operand
 
-NAT_SCALE = HEAD_DIM ** -0.5  # dq and dk take the natural scale at the end
 DEAD_L2 = 1e30                # L2 of a row with no live key: p = 0 in the backward
 REF_Q_CHUNK = 512
 
@@ -44,10 +54,16 @@ def _resolve_safemax(safemax: Optional[bool]) -> bool:
     return bool(safemax)
 
 
-def _check(q, k, v, kv_blocked, segments):
-    _check_args(q, k, v, kv_blocked)
-    if q.shape[-1] % (2 * HEAD_DIM):
-        raise ValueError("flash64_train needs an even count of 64-dim heads")
+def _scales(hd: int, sm_scale: Optional[float]) -> Tuple[float, float]:
+    """(natural scale, exp2-domain scale), both rounded to fp32 as the
+    kernels hold them: an fp32 tensor times either Python float is then
+    exactly the kernel's fp32 multiply."""
+    nat = float(np.float32(hd ** -0.5 if sm_scale is None else sm_scale))
+    return nat, float(np.float32(nat * math.log2(math.e)))
+
+
+def _check(q, k, v, kv_blocked, segments, hd: int = HEAD_DIM):
+    _check_args(q, k, v, kv_blocked, hd)
     if segments is None:
         return
     if kv_blocked is not None:
@@ -70,9 +86,15 @@ def flash64_train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable non-causal attention in projection layout; returns
     (B, N, H*64) in q's dtype."""
     _check(q, k, v, kv_blocked, segments)
+    if q.shape[-1] % (2 * HEAD_DIM):
+        raise ValueError("flash64_train needs an even count of 64-dim heads")
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"flash64_train runs on CUDA or CPU tensors, not {q.device}")
     return _Flash64Train.apply(q, k, v, kv_blocked, segments, _resolve_safemax(safemax))
+
+
+def fused_bwd_enabled() -> bool:
+    return os.environ.get("EGOM2P_F64T_FUSED_BWD", "0") == "1"
 
 
 class _Flash64Train(torch.autograd.Function):
@@ -89,16 +111,19 @@ class _Flash64Train(torch.autograd.Function):
         do = do.contiguous()  # autograd may hand an expanded gradient (of a sum)
         d = row_dot(do, o)
         args = (q, k, v, do, l2, d, kv_blocked, segments, ctx.safemax)
-        dq = flash64_train_dq(*args)
-        dk, dv = flash64_train_dkv(*args)
+        if fused_bwd_enabled():
+            dq, dk, dv = flash64_train_dqkv(*args)
+        else:
+            dq = flash64_train_dq(*args)
+            dk, dv = flash64_train_dkv(*args)
         return dq, dk, dv, None, None, None
 
 
-def row_dot(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+def row_dot(do: torch.Tensor, o: torch.Tensor, hd: int = HEAD_DIM) -> torch.Tensor:
     """D = rowsum(do * o) per head, fp32 (B, H, N): do as given (bf16 in
     training) and the forward's bf16-valued o, widened to fp32."""
     B, N, C = o.shape
-    d = (do.float() * o.float()).view(B, N, C // HEAD_DIM, HEAD_DIM).sum(-1)
+    d = (do.float() * o.float()).view(B, N, C // hd, hd).sum(-1)
     return d.transpose(1, 2).contiguous()
 
 
@@ -109,7 +134,7 @@ def flash64_train_fwd(q, k, v, kv_blocked=None, segments=None, safemax=False
     on CUDA, its plain version on the CPU."""
     if q.device.type == "cpu":
         return flash64_train_reference_fwd(q, k, v, kv_blocked, segments, safemax)
-    out = _launch("fwd", q, k, v, kv_blocked, segments, safemax)
+    out = launch("fwd", q, k, v, kv_blocked, segments, safemax)
     flash64_train_fwd.launches += 1
     return out
 
@@ -119,7 +144,7 @@ def flash64_train_dq(q, k, v, do, l2, d, kv_blocked=None, segments=None,
     """dq in q's dtype from the forward's L2 and D = row_dot(do, o)."""
     if q.device.type == "cpu":
         return flash64_train_reference_dq(q, k, v, do, l2, d, kv_blocked, segments, safemax)
-    out = _launch("dq", q, k, v, kv_blocked, segments, safemax, do, l2, d)
+    out = launch("dq", q, k, v, kv_blocked, segments, safemax, do, l2, d)
     flash64_train_dq.launches += 1
     return out
 
@@ -129,14 +154,26 @@ def flash64_train_dkv(q, k, v, do, l2, d, kv_blocked=None, segments=None,
     """(dk, dv) in k's and v's dtypes."""
     if q.device.type == "cpu":
         return flash64_train_reference_dkv(q, k, v, do, l2, d, kv_blocked, segments, safemax)
-    out = _launch("dkv", q, k, v, kv_blocked, segments, safemax, do, l2, d)
+    out = launch("dkv", q, k, v, kv_blocked, segments, safemax, do, l2, d)
     flash64_train_dkv.launches += 1
+    return out
+
+
+def flash64_train_dqkv(q, k, v, do, l2, d, kv_blocked=None, segments=None,
+                       safemax=False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in q's, k's and v's dtypes from the one fused kernel;
+    dq is summed in fp32 by atomic adds (not bitwise deterministic)."""
+    if q.device.type == "cpu":
+        return flash64_train_reference_dqkv(q, k, v, do, l2, d, kv_blocked, segments, safemax)
+    out = launch("dqkv", q, k, v, kv_blocked, segments, safemax, do, l2, d)
+    flash64_train_dqkv.launches += 1
     return out
 
 
 flash64_train_fwd.launches = 0
 flash64_train_dq.launches = 0
 flash64_train_dkv.launches = 0
+flash64_train_dqkv.launches = 0
 
 
 def _f32_rows(name: str, t: torch.Tensor, shape) -> torch.Tensor:
@@ -146,15 +183,19 @@ def _f32_rows(name: str, t: torch.Tensor, shape) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
-            do=None, l2=None, d=None):
-    """Launch one of the three kernels on q's device and stream."""
+def launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
+           do=None, l2=None, d=None, *, hd: int = HEAD_DIM,
+           sm_scale: Optional[float] = None):
+    """Launch one of the kernels ("fwd", "dq", "dkv" or "dqkv") on q's
+    device and stream; counts nothing (the callers do)."""
     from egom2p_torch.ops import _build
 
     if q.device.type != "cuda":
         raise RuntimeError(f"flash64_train kernels run on CUDA tensors, not {q.device}")
+    _check(q, k, v, kv_blocked, segments, hd)
     B, N, C = q.shape
-    M, H = k.shape[1], C // HEAD_DIM
+    M, H = k.shape[1], C // hd
+    nat, _ = _scales(hd, sm_scale)
     qb, kb, vb = (_kernel_operand(n, t) for n, t in (("q", q), ("k", k), ("v", v)))
     mask = seg = None
     if kv_blocked is not None:
@@ -176,7 +217,7 @@ def _launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
             rc = lib.egom2p_flash64_train_fwd(
                 qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ptr(mask), ptr(seg),
                 out.data_ptr(), lse.data_ptr(), B, N, M, H, *strides, m_sb,
-                out.stride(0), out.stride(1), int(safemax), stream)
+                out.stride(0), out.stride(1), int(safemax), hd, nat, stream)
             result = (out.to(q.dtype), lse)
         else:
             dob = _kernel_operand("do", do)
@@ -186,7 +227,7 @@ def _launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
             common = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), dob.data_ptr(),
                       l2c.data_ptr(), dc.data_ptr(), ptr(mask), ptr(seg))
             tail = (B, N, M, H, *strides, dob.stride(0), dob.stride(1), m_sb,
-                    int(safemax), stream)
+                    int(safemax), hd, nat, stream)
             if which == "dq":
                 dq = torch.empty((B, N, C), dtype=torch.bfloat16, device=q.device)
                 rc = lib.egom2p_flash64_train_dq(*common, dq.data_ptr(), *tail)
@@ -194,17 +235,24 @@ def _launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
             else:
                 dk = torch.empty((B, M, C), dtype=torch.bfloat16, device=q.device)
                 dv = torch.empty((B, M, C), dtype=torch.bfloat16, device=q.device)
-                rc = lib.egom2p_flash64_train_dkv(*common, dk.data_ptr(), dv.data_ptr(), *tail)
-                result = (dk.to(k.dtype), dv.to(v.dtype))
+                if which == "dkv":
+                    rc = lib.egom2p_flash64_train_dkv(*common, dk.data_ptr(), dv.data_ptr(),
+                                                      *tail)
+                    result = (dk.to(k.dtype), dv.to(v.dtype))
+                else:
+                    dq = torch.zeros((B, N, C), dtype=torch.float32, device=q.device)
+                    rc = lib.egom2p_flash64_train_dqkv(*common, dq.data_ptr(), dk.data_ptr(),
+                                                       dv.data_ptr(), *tail)
+                    result = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
     if rc != 0:
         raise RuntimeError(f"flash64_train {which} kernel launch failed with CUDA error {rc}")
     return result
 
 
 # ---------------------------------------------------------- plain versions
-def _heads(t, H):
-    """(B, L, H*64) -> bf16-rounded fp32 (B, H, L, 64)."""
-    return t.to(torch.bfloat16).float().unflatten(-1, (H, HEAD_DIM)).transpose(1, 2)
+def _heads(t, H, hd=HEAD_DIM):
+    """(B, L, H*hd) -> bf16-rounded fp32 (B, H, L, hd)."""
+    return t.to(torch.bfloat16).float().unflatten(-1, (H, hd)).transpose(1, 2)
 
 
 def _bias(kv_blocked, segments, B, M, n0, n1, device):
@@ -221,21 +269,24 @@ def _bias(kv_blocked, segments, B, M, n0, n1, device):
 
 
 def flash64_train_reference_fwd(q, k, v, kv_blocked=None, segments=None,
-                                safemax=False) -> Tuple[torch.Tensor, torch.Tensor]:
+                                safemax=False, *, hd: int = HEAD_DIM,
+                                sm_scale: Optional[float] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the forward kernel: (o in q's dtype, L2 (B,
     H, N) fp32), in chunks of REF_Q_CHUNK query rows.  Safemax takes each
     row's max over all keys at once: the kernel's online softmax, up to
     rounding."""
-    _check(q, k, v, kv_blocked, segments)
+    _check(q, k, v, kv_blocked, segments, hd)
     B, N, C = q.shape
-    M, H = k.shape[1], C // HEAD_DIM
-    qh, kh, vh = _heads(q, H), _heads(k, H), _heads(v, H)
+    M, H = k.shape[1], C // hd
+    _, scale = _scales(hd, sm_scale)
+    qh, kh, vh = _heads(q, H, hd), _heads(k, H, hd), _heads(v, H, hd)
     kt = kh.transpose(-1, -2)
-    out = torch.empty((B, H, N, HEAD_DIM), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, N, hd), dtype=torch.float32, device=q.device)
     l2 = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     for n0 in range(0, N, REF_Q_CHUNK):
         n1 = min(n0 + REF_Q_CHUNK, N)
-        s = torch.matmul(qh[:, :, n0:n1], kt) * SCALE + _bias(
+        s = torch.matmul(qh[:, :, n0:n1], kt) * scale + _bias(
             kv_blocked, segments, B, M, n0, n1, q.device)
         if safemax:
             m = s.amax(dim=-1, keepdim=True)
@@ -280,18 +331,32 @@ def flash64_train_reference_dkv(q, k, v, do, l2, d, kv_blocked=None, segments=No
                           want_dq=False, want_dkv=True)[1:]
 
 
+def flash64_train_reference_dqkv(q, k, v, do, l2, d, kv_blocked=None, segments=None,
+                                 safemax=False, *, hd: int = HEAD_DIM,
+                                 sm_scale: Optional[float] = None):
+    """Plain version of the fused kernel (the arguments of
+    flash64_train_dqkv): the split kernels' math, with dq left in fp32 until
+    the cast to q's dtype."""
+    _check(q, k, v, kv_blocked, segments, hd)
+    return _reference_bwd(q, k, v, do, l2, d, kv_blocked, segments, safemax,
+                          want_dq=True, want_dkv=True, dq_f32=True, hd=hd,
+                          sm_scale=sm_scale)
+
+
 def _reference_bwd(q, k, v, do, l2, d, kv_blocked, segments, safemax, *,
-                   want_dq: bool, want_dkv: bool):
+                   want_dq: bool, want_dkv: bool, dq_f32: bool = False,
+                   hd: int = HEAD_DIM, sm_scale: Optional[float] = None):
     B, N, C = q.shape
-    M, H = k.shape[1], C // HEAD_DIM
-    qh, kh, vh, doh = _heads(q, H), _heads(k, H), _heads(v, H), _heads(do, H)
+    M, H = k.shape[1], C // hd
+    nat, scale = _scales(hd, sm_scale)
+    qh, kh, vh, doh = (_heads(t, H, hd) for t in (q, k, v, do))
     kt, vt = kh.transpose(-1, -2), vh.transpose(-1, -2)
     dq = torch.empty_like(qh) if want_dq else None
     dk = torch.zeros_like(kh) if want_dkv else None
     dv = torch.zeros_like(vh) if want_dkv else None
     for n0 in range(0, N, REF_Q_CHUNK):
         n1 = min(n0 + REF_Q_CHUNK, N)
-        s = torch.matmul(qh[:, :, n0:n1], kt) * SCALE + _bias(
+        s = torch.matmul(qh[:, :, n0:n1], kt) * scale + _bias(
             kv_blocked, segments, B, M, n0, n1, q.device)
         if not safemax:  # the forward's clamp, before subtracting L2
             s = torch.clamp(s, max=80.0)
@@ -300,14 +365,15 @@ def _reference_bwd(q, k, v, do, l2, d, kv_blocked, segments, safemax, *,
         ds = p * (torch.matmul(do_c, vt) - d[:, :, n0:n1, None])
         ds = ds.to(torch.bfloat16).float()
         if want_dq:
-            dq[:, :, n0:n1] = torch.matmul(ds, kh) * NAT_SCALE
+            dq[:, :, n0:n1] = torch.matmul(ds, kh) * nat
         if want_dkv:
             dv += torch.matmul(p.to(torch.bfloat16).float().transpose(-1, -2), do_c)
             dk += torch.matmul(ds.transpose(-1, -2), qh[:, :, n0:n1])
 
-    def back(t, like):  # (B, H, L, 64) fp32 -> bf16-rounded (B, L, H*64) in like's dtype
-        return t.transpose(1, 2).reshape(B, -1, C).to(torch.bfloat16).to(like.dtype)
+    def back(t, like, rounded=True):  # (B, H, L, hd) fp32 -> (B, L, H*hd) in like's dtype
+        t = t.transpose(1, 2).reshape(B, -1, C)
+        return (t.to(torch.bfloat16) if rounded else t).to(like.dtype)
 
-    return (back(dq, q) if want_dq else None,
-            back(dk * NAT_SCALE, k) if want_dkv else None,
+    return (back(dq, q, rounded=not dq_f32) if want_dq else None,
+            back(dk * nat, k) if want_dkv else None,
             back(dv, v) if want_dkv else None)

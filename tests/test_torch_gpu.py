@@ -243,3 +243,142 @@ def test_flash_ce_kernel_rejects_what_it_cannot_take(cuda):
         row_stats(y, torch.zeros((10, 1024), dtype=torch.bfloat16, device=cuda), t)
     with pytest.raises(TypeError):  # fp32 y: the kernel takes bf16
         row_stats(y[:, :768].float(), torch.zeros((10, 768), device=cuda), t)
+
+
+# ------------------------------------------------- fused attention backward
+@pytest.mark.parametrize("safemax", [False, True])
+@pytest.mark.parametrize("mode,N,M", [("none", 300, 333), ("kp", 300, 200), ("kp", 256, 256),
+                                      ("seg", 300, 300), ("seg", 1024, 1024)])
+def test_flash64_train_dqkv_kernel_matches_plain(cuda, safemax, mode, N, M):
+    """The fused dq/dk/dv kernel against its plain version; fully blocked
+    rows give exact zeros in every gradient."""
+    import egom2p_torch.ops.flash64_train as ft
+    rng = np.random.default_rng(2)
+    q, k, v, do, kvb, seg = _train_inputs(rng, 2, N, M, 4, mode, cuda)
+    ro, rl2 = ft.flash64_train_reference_fwd(q, k, v, kvb, seg, safemax)
+    d = ft.row_dot(do, ro)
+    before = ft.flash64_train_dqkv.launches
+    got = ft.flash64_train_dqkv(q, k, v, do, rl2, d, kvb, seg, safemax)
+    torch.cuda.synchronize()
+    assert ft.flash64_train_dqkv.launches == before + 1
+    ref = ft.flash64_train_reference_dqkv(q, k, v, do, rl2, d, kvb, seg, safemax)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max()
+    if kvb is not None:
+        dead = kvb.all(dim=1)
+        for t in got:
+            assert (t[dead] == 0).all(), "fully blocked rows must be exact zeros"
+
+
+def test_flash64_train_fused_switch_on_the_card(cuda, monkeypatch):
+    """EGOM2P_F64T_FUSED_BWD=1 sends the autograd backward to the one fused
+    kernel: one dqkv launch, no dq or dk/dv launch."""
+    import egom2p_torch.ops.flash64_train as ft
+    monkeypatch.setenv("EGOM2P_F64T_FUSED_BWD", "1")
+    rng = np.random.default_rng(3)
+    q, k, v, do, kvb, seg = _train_inputs(rng, 2, 512, 512, 2, "kp", cuda)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    counts = lambda: (ft.flash64_train_dq.launches, ft.flash64_train_dkv.launches,  # noqa: E731
+                      ft.flash64_train_dqkv.launches)
+    before = counts()
+    ft.flash64_train_attention(qr, kr, vr, kvb, seg).backward(do)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 1)
+    ro, rl2 = ft.flash64_train_reference_fwd(q, k, v, kvb, seg)
+    ref = ft.flash64_train_reference_dqkv(q, k, v, do, rl2, ft.row_dot(do, ro), kvb, seg)
+    for g, r in zip((qr.grad, kr.grad, vr.grad), ref):
+        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max()
+
+
+# ----------------------------------------------------------- the stock route
+@pytest.mark.parametrize("hd", [64, 68, 66])
+@pytest.mark.parametrize("mode,N,M", [("none", 300, 333), ("kp", 300, 200), ("seg", 300, 300),
+                                      ("kp", 256, 256)])
+def test_stock_route_kernels_match_plain(cuda, hd, mode, N, M):
+    """padding/segment_flash_attention on the card (forward and fused
+    backward kernels at head_dim 64 or 80) against the plain versions."""
+    import egom2p_torch.ops.flash_attention as fa
+    rng = np.random.default_rng(4)
+    B, H = 2, 3
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda, torch.bfloat16)
+                   for s in ((B, H, N, hd), (B, H, M, hd), (B, H, M, hd), (B, H, N, hd)))
+    kvb = seg = None
+    if mode == "kp":
+        kvb = torch.from_numpy(rng.uniform(size=(B, M)) < 0.3).to(cuda)
+        kvb[-1] = True  # a fully blocked batch row
+    elif mode == "seg":
+        seg = torch.from_numpy(np.sort(rng.integers(0, 4, (B, N)), axis=1)).to(cuda)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    out = (fa.segment_flash_attention(qr, kr, vr, seg) if seg is not None
+           else fa.padding_flash_attention(qr, kr, vr, kvb))
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = fa.flash_attention_reference(q, k, v, kvb, seg)
+    assert out.shape == ref.shape == (B, H, N, hd) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    for g, r in zip((qr.grad, kr.grad, vr.grad),
+                    fa.flash_attention_reference_bwd(q, k, v, do, kvb, seg)):
+        assert g.shape == r.shape
+        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max()
+    if kvb is not None:
+        dead = kvb.all(dim=1)
+        for t in (out, qr.grad, kr.grad, vr.grad):
+            assert (t[dead] == 0).all(), "fully blocked rows must be exact zeros"
+
+
+def test_stock_route_rejects_what_it_cannot_take(cuda):
+    import egom2p_torch.ops.flash64_train as ft
+    import egom2p_torch.ops.flash_attention as fa
+    q = torch.zeros((1, 2, 64, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # head_dim 96: no kernel
+        fa.padding_flash_attention(q, q, q, None)
+    x = torch.zeros((1, 64, 160), dtype=torch.bfloat16, device=cuda)
+    l2 = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(RuntimeError):  # head_dim 80 exists in the safemax form only
+        ft.launch("dqkv", x, x, x, None, None, False, x, l2, l2, hd=80)
+
+
+# ------------------------------------------------------------ CE backward
+@pytest.mark.parametrize("R,D,V", [(2000, 768, 64007), (300, 512, 5000), (77, 256, 200)])
+def test_flash_ce_bwd_kernel_matches_plain(cuda, R, D, V):
+    """The CE backward kernel against the chunked recompute, with about half
+    of the rows at weight 0 (in blocks, as training lays them out) and a
+    vocab its tiles do not divide."""
+    from egom2p_torch.ops.flash_ce import ce_bwd, ce_bwd_reference, row_stats_reference
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    y = torch.randn((R, D), device=cuda, generator=gen).to(torch.bfloat16)
+    w = (torch.randn((V, D), device=cuda, generator=gen) * 0.02).to(torch.bfloat16)
+    t = torch.randint(0, V, (R,), device=cuda, generator=gen, dtype=torch.int32)
+    wc = ((torch.arange(R, device=cuda) // 100) % 2).float() * 0.37
+    logz, _ = row_stats_reference(y, w, t)
+    before = ce_bwd.launches
+    dy, dw = ce_bwd(y, w, t, wc, logz)
+    torch.cuda.synchronize()
+    assert ce_bwd.launches == before + 1
+    rdy, rdw = ce_bwd_reference(y, w, t, wc, logz)
+    assert dy.dtype == dw.dtype == torch.float32
+    # dl rounded to bf16 in both; fp32 sums in another order
+    assert (dy - rdy).abs().max() <= 1e-3 * rdy.abs().max()
+    assert (dw - rdw).abs().max() <= 1e-3 * rdw.abs().max()
+    assert torch.count_nonzero(dy[wc == 0]) == 0
+
+
+def test_flash_ce_bwd_switch_raises_on_what_it_cannot_take(cuda, monkeypatch):
+    """With EGOM2P_CE_PALLAS_BWD=1 a shape or dtype the kernel cannot take
+    raises; nothing falls back to the plain backward."""
+    import egom2p_torch.ops.flash_ce as fce
+    monkeypatch.setenv("EGOM2P_CE_PALLAS_BWD", "1")
+    t = torch.zeros(4, dtype=torch.int64, device=cuda)
+    wts = torch.ones(4, device=cuda)
+    y = torch.randn((4, 384), device=cuda).to(torch.bfloat16).requires_grad_()
+    w = torch.randn((4096, 384), device=cuda).requires_grad_()
+    with pytest.raises(ValueError):  # D = 384: not a multiple of the 256-column slice
+        fce.flash_ce_total(y, w, t, wts).backward()
+    y32 = torch.randn((4, 256), device=cuda).requires_grad_()
+    w32 = torch.randn((4096, 256), device=cuda).requires_grad_()
+    with pytest.raises(TypeError):  # fp32 operands: the kernel takes bf16
+        fce.flash_ce_total(y32, w32, t, wts).backward()

@@ -8,6 +8,7 @@ kernels in interpret mode) and the two 64k-vocab heads take flash CE.  Also
 the decoder's mask-gather, one optimizer step, the schedules, the data
 pipeline, and a short CPU run of the trainer.
 """
+import contextlib
 import copy
 import json
 import pathlib
@@ -420,3 +421,162 @@ def test_trainer_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ------------------------------------------- heads of 68 and the kill switches
+import egom2p_torch.models.transformer as port_tr  # noqa: E402
+import egom2p_torch.ops.attention as port_attn  # noqa: E402
+import egom2p_torch.ops.flash64 as port_f64  # noqa: E402
+import egom2p_torch.ops.flash_attention as port_fa  # noqa: E402
+import egom2p_tpu.models.transformer as jax_tr  # noqa: E402
+import egom2p_tpu.ops.attention as jax_attn  # noqa: E402
+import egom2p_tpu.ops.flash64 as jax_f64  # noqa: E402
+
+# The tiny model with 3 heads of 68 (dim 204: the 3D sin-cos position
+# embedding needs dim % 12 == 0), as EgoM2P-large's 15 heads of 68.  The
+# port sends every attention to the stock route (its plain versions, bf16
+# roundings of q/k/v, p, dS and the outputs), the JAX package computes
+# them densely in fp32 on the CPU.  Measured: losses within 1.3e-5
+# relative (LOSS_RTOL), gradients within 7.5e-3 of their max where it
+# exceeds 1e-3 (GRAD_TOL) and within 2.6e-5 absolute elsewhere (GRAD_FLOOR)
+LARGE_HEADS_OVERRIDES = dict(dim=204, num_heads=3)
+
+
+@pytest.fixture(scope="module")
+def heads68_models():
+    info = full_info()
+    jmodel = jax_create_model(NAME, MODS4, MODS4, modality_info=info, compute_dtype="float32",
+                              **LARGE_HEADS_OVERRIDES)
+    md = make_mod_dict(np.random.default_rng(0), info, inputs=(4, 8, 4, 8), targets=(4, 8, 4, 8))
+    params = jmodel.init(jax.random.PRNGKey(0), to_jax(md), 256, 256)
+    tmodel = create_model(NAME, MODS4, MODS4, modality_info=info, compute_dtype="float32",
+                          **LARGE_HEADS_OVERRIDES)
+    tmodel.load_state_dict(egom2p_state_dict_from_jax(params, tmodel))
+    return jmodel, params, tmodel
+
+
+def test_heads_of_68_loss_and_every_gradient_match_jax(heads68_models, port_calls, monkeypatch):
+    """3 heads of 68 at 256 + 256 tokens: every attention takes the stock
+    route (18 calls: 6 encoder, 6 decoder self, 6 cross; no flash64_train),
+    the CE heads the plain path (dim 204 is no multiple of 128, as
+    EgoM2P-large's 1020); loss and every gradient against JAX."""
+    jmodel, params, tmodel = heads68_models
+    stock = []
+    real_fwd = port_fa.flash_attention_fwd
+    monkeypatch.setattr(port_fa, "flash_attention_fwd",
+                        lambda *a, **kw: stock.append(kw["hd"]) or real_fwd(*a, **kw))
+    md = make_mod_dict(np.random.default_rng(1), tmodel.mod_info)
+    (j_loss, j_mod), j_grads = jax.value_and_grad(
+        lambda p: jmodel.apply(p, to_jax(md), 256, 256, "mod"), has_aux=True)(params)
+
+    tmodel.zero_grad(set_to_none=True)
+    loss, mod_loss = tmodel(to_torch(md), 256, 256, "mod")
+    loss.backward()
+    assert stock == [80] * 18 and port_calls == {"attention": 0, "ce": 0}
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=LOSS_RTOL)
+    for m in MODS4:
+        np.testing.assert_allclose(mod_loss[m].item(), float(j_mod[m]), rtol=LOSS_RTOL,
+                                   err_msg=m)
+    ref = egom2p_state_dict_from_jax(j_grads, tmodel)
+    params_t = dict(tmodel.named_parameters(remove_duplicate=False))
+    assert set(ref) == set(params_t)
+    for key, r in ref.items():
+        tol = max(GRAD_TOL * r.abs().max().item(), GRAD_FLOOR)
+        assert (params_t[key].grad - r).abs().max().item() <= tol, key
+
+
+def _routes(monkeypatch):
+    """Spies on every attention kernel entry of both packages; each records
+    its name and returns zeros of q's shape."""
+    seen = []
+
+    def spy(name):
+        def fn(q, *a, **kw):
+            seen.append(name)
+            return q * 0
+        return fn
+
+    for mod, name, label in ((port_f64, "flash64_attention", "flash64"),
+                             (port_f64t, "flash64_train_attention", "flash64_train"),
+                             (port_fa, "padding_flash_attention", "stock padding"),
+                             (port_fa, "segment_flash_attention", "stock segment"),
+                             (jax_f64, "flash64_attention", "flash64"),
+                             (jax_f64t, "flash64_train_attention", "flash64_train"),
+                             (jax_fa, "padding_flash_attention", "stock padding"),
+                             (jax_fa, "segment_flash_attention", "stock segment")):
+        monkeypatch.setattr(mod, name, spy(label))
+    monkeypatch.setattr(jax_fa, "supports_flash", lambda: True)  # the TPU's routing
+    return seen
+
+
+def _route(seen, try_flash64, masked_attention, segment_mask, q, mask, heads):
+    """Which kernel one attention call of a model reaches."""
+    seen.clear()
+    if try_flash64(q, q, q, mask, heads, False) is None:
+        split = q.reshape(q.shape[0], q.shape[1], heads, -1).transpose(1, 2) \
+            if isinstance(q, torch.Tensor) else q.reshape(q.shape[0], q.shape[1], heads, -1
+                                                          ).transpose(0, 2, 1, 3)
+        if isinstance(mask, (port_attn.SegmentMask, jax_attn.SegmentMask)):
+            mask = segment_mask(mask.segments)
+        elif mask is not None:
+            mask = mask[:, None]
+        masked_attention(split, split, split, mask)
+    return seen[0] if seen else "dense"
+
+
+@pytest.mark.parametrize("env", [{}, {"EGOM2P_FLASH64": "0"}, {"EGOM2P_FLASH64_TRAIN": "0"},
+                                 {"EGOM2P_F64T_SEG": "0"},
+                                 {"EGOM2P_FLASH64_TRAIN": "0", "EGOM2P_FLASH64": "0"}])
+def test_kill_switches_route_as_jax(monkeypatch, env):
+    """For every mask kind, head_dim 64 and 68, training and generation, the
+    port's _try_flash64 + masked_attention reach the kernel that the JAX
+    package's reach, under each kill switch."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    seen = _routes(monkeypatch)
+    routes = []
+    for generation in (False, True):
+        for hd in (64, 68):
+            C = 2 * hd
+            qt, qj = torch.zeros((2, 256, C)), jnp.zeros((2, 256, C))
+            kp_t = torch.zeros((2, 1, 256), dtype=torch.bool)
+            kp_j = jnp.zeros((2, 1, 256), bool)
+            seg_t = port_attn.SegmentMask(torch.zeros((2, 256), dtype=torch.int32))
+            seg_j = jax_attn.SegmentMask(jnp.zeros((2, 256), jnp.int32))
+            for kind, mt, mj in (("none", None, None), ("kp", kp_t, kp_j),
+                                 ("seg", seg_t, seg_j)):
+                ctx_t = port_attn.inference_attention() if generation else contextlib.nullcontext()
+                ctx_j = jax_attn.inference_attention() if generation else contextlib.nullcontext()
+                with ctx_t:
+                    got = _route(seen, port_tr._try_flash64, port_attn.masked_attention,
+                                 port_attn.SegmentMask, qt, mt, 2)
+                with ctx_j:
+                    want = _route(seen, jax_tr._try_flash64, jax_attn.masked_attention,
+                                  jax_attn.SegmentMask, qj, mj, 2)
+                assert got == want, (generation, hd, kind, got, want)
+                routes.append(got)
+    if not env:  # training at hd 64: the training kernels; hd 68: the stock route
+        assert routes[:6] == ["flash64_train"] * 3 + ["stock padding"] * 2 + ["stock segment"]
+    if env.get("EGOM2P_FLASH64_TRAIN") == "0":
+        assert "flash64_train" not in routes
+
+
+def test_ce_switches(full_models, port_calls, monkeypatch):
+    """EGOM2P_FLASH_CE=0 sends the 64k heads to the plain chunked CE (the
+    same loss); EGOM2P_CE_CHUNK sets flash CE's chunk."""
+    _, _, tmodel = full_models
+    md = to_torch(make_mod_dict(np.random.default_rng(7), tmodel.mod_info))
+    chunks = []
+    real = port_egom2p.flash_ce_total
+    monkeypatch.setattr(port_egom2p, "flash_ce_total",
+                        lambda *a, **kw: chunks.append(kw["chunk"]) or real(*a, **kw))
+    with torch.no_grad():
+        flash, _ = tmodel(md, 256, 256, "mod")
+        monkeypatch.setenv("EGOM2P_CE_CHUNK", "64")
+        chunked, _ = tmodel(md, 256, 256, "mod")
+        monkeypatch.setenv("EGOM2P_FLASH_CE", "0")
+        plain, _ = tmodel(md, 256, 256, "mod")
+    assert chunks == [2048, 2048, 64, 64]
+    # fp32 logits summed in another order (measured 1.1e-7 relative)
+    np.testing.assert_allclose(chunked.item(), flash.item(), rtol=1e-6)
+    np.testing.assert_allclose(plain.item(), flash.item(), rtol=1e-6)
