@@ -7,7 +7,11 @@
    per source, all started together.
 2. Serving kernel phase: the flash64 kernel against its plain PyTorch version
    at the rgb2depth main path's shapes (B=8, 12 heads of 64), in both softmax
-   modes; prints the max abs error and the time of each.
+   modes; prints the max abs error and the time of each, beside the time of
+   torch's scaled_dot_product_attention on the same inputs and mask (a
+   yardstick timed here only; the port never calls it).  Then the forward
+   kernel at ragged lengths on both sides of its 128-row and 128-key tile
+   edges, with key padding, segments and no mask, dead rows included.
 3. Serving slice, at full width: Cosmos DV4x8x8 tokenize of a seeded uint8
    clip batch (8, 16, 256, 256, 3), then EgoM2P-base 3-step ROAR rgb2depth
    (CFG 2.0, temperature 0.01, top-p 0.8) with random --smoke weights,
@@ -58,8 +62,11 @@
    dim to be a multiple of 128), finite losses near ln V, every parameter
    moved; step time, tokens/s, peak memory, a profiled step and a B=1
    kernels-vs-plain check.
-11. Prints the kernel JSON line, the card's name and power limit, and last
-   the device JSON line.
+11. Prints the kernel JSON line (per kernel: launches on its main path, max
+   error, kernel / plain / library times and the card's bound for the same
+   work: the larger of its bytes at 3.35 TB/s and its operations at the
+   dense bf16 peak), the card's name and power limit, and last the device
+   JSON line.
 
 Any failed check raises (nonzero exit, no device line).  Without a CUDA
 device it exits with code 2 before doing anything.
@@ -111,6 +118,89 @@ LARGE_B = 4
 DEFAULT_STEP = dict(fwd=36, dq=36, dkv=36, dqkv=0, ce_fwd=2, ce_bwd=0, stock_fwd=0, stock_bwd=0)
 FUSED_STEP = dict(DEFAULT_STEP, dq=0, dkv=0, dqkv=36, ce_bwd=2)
 LARGE_STEP = dict(fwd=0, dq=0, dkv=0, dqkv=0, ce_fwd=0, ce_bwd=0, stock_fwd=72, stock_bwd=72)
+HBM_GB_PER_S = 3350.0          # H100 SXM device memory, NVIDIA's data sheet
+SM_COUNT, EXP2_PER_SM_CLOCK = 132, 16   # H100 SXM; special-function results per SM per clock
+SM_CLOCK_MHZ = 1980.0          # H100 SXM boost clock; main() takes the card's clocks.max.sm
+# the forward kernel's tile edges: lengths on both sides of each, one row,
+# and the main paths' ragged lengths
+RAGGED_SELF = (1, 63, 64, 65, 127, 128, 129, 1707, 2000)
+RAGGED_CROSS = ((1, 129), (129, 1), (63, 2000), (2000, 65), (127, 128), (128, 127), (65, 1707))
+
+
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take: (ms, "operations" or "bytes"),
+    the larger of the operations at the dense bf16 peak and the bytes (each
+    input read once, each output written once) at the device memory rate."""
+    ops_ms = flops / BF16_PEAK_TFLOPS / 1e9
+    bytes_ms = nbytes / HBM_GB_PER_S / 1e6
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def attention_bound_ms(products: int, b: int, heads: int, n: int, m: int, hd: int,
+                       q_tensors: int = 2, kv_tensors: int = 2):
+    """Bound of an attention kernel that runs `products` matrix products of
+    n x m x hd per (batch, head) (forward 2, dq 3, dk/dv 4, fused backward
+    5) and moves `q_tensors` bf16 tensors of n rows and `kv_tensors` of m
+    rows (forward: q, o and k, v)."""
+    flops = products * 2.0 * b * heads * n * m * hd
+    nbytes = 2.0 * b * heads * hd * (q_tensors * n + kv_tensors * m)
+    return bound_ms(flops, nbytes)
+
+
+def exp2_bound_ms(b: int, heads: int, n: int, m: int, sm_clock_mhz: float) -> float:
+    """The second bound of a head_dim-64 forward: one exp2 per score on the
+    special function units, 16 results per SM per clock."""
+    return b * heads * n * m / (SM_COUNT * EXP2_PER_SM_CLOCK * sm_clock_mhz * 1e3)
+
+
+def ce_fwd_bound_ms(rows: int, dim: int, vocab: int):
+    """One logits product; y and W read, two fp32 values per row written."""
+    return bound_ms(2.0 * rows * dim * vocab, 2.0 * dim * (rows + vocab) + 8.0 * rows)
+
+
+def ce_bwd_bound_ms(live_rows: int, rows: int, dim: int, vocab: int):
+    """Three logits-sized products (logits, dy, dW) over the rows of nonzero
+    weight; y and W read, fp32 dy and dW written."""
+    return bound_ms(3 * 2.0 * live_rows * dim * vocab, (2.0 + 4.0) * dim * (rows + vocab))
+
+
+def _sdpa_ms(qh, kh, vh, kvb=None, seg=None, backward=False, reps=5):
+    """Times of torch's scaled_dot_product_attention on head-major (B, H, L,
+    hd) q/k/v with the boolean mask of the key padding or the segments:
+    (forward ms, backward ms or None, the longest device kernel's name).
+    The backward is forward + backward through autograd minus the forward."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    mask = None
+    if kvb is not None:
+        mask = ~kvb.bool()[:, None, None, :]
+    elif seg is not None:
+        mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+    with torch.no_grad():
+        fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)  # noqa: E731
+        fwd_ms = _cuda_time_ms(fwd, reps, 1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fwd()
+            torch.cuda.synchronize()
+    kernels = [(e.time_range.end - e.time_range.start, e.name) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    picked = max(kernels)[1][:60] if kernels else "kernel name not read"
+    if not backward:
+        return fwd_ms, None, picked
+    leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+    do = torch.randn_like(qh)
+
+    def both():
+        for t in leaves:
+            t.grad = None
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(do)
+
+    return fwd_ms, _cuda_time_ms(both, reps, 1) - fwd_ms, picked
+
+
+def _split_heads(t, heads):
+    return t.unflatten(-1, (heads, t.shape[-1] // heads)).transpose(1, 2)
 
 
 def _cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -164,6 +254,11 @@ def kernel_phase(dev):
         blocked = None
         if live is not None:
             blocked = (torch.arange(n_kv, device=dev) >= live)[None].expand(B, -1).contiguous()
+        lib_ms, _, picked = _sdpa_ms(*(_split_heads(t, HEADS) for t in (q, k, v)), blocked)
+        bound, bound_by = attention_bound_ms(2, B, HEADS, n_q, n_kv, 64)
+        print(f"flash64 {name}: bound {bound:.4f} ms ({bound_by}), exp2 bound "
+              f"{exp2_bound_ms(B, HEADS, n_q, n_kv, SM_CLOCK_MHZ):.4f} ms at {SM_CLOCK_MHZ:.0f} MHz; "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms ({picked})")
         for safemax in (False, True):
             out = flash64_attention(q, k, v, blocked, safemax=safemax)
             torch.cuda.synchronize()
@@ -180,10 +275,73 @@ def kernel_phase(dev):
             print(f"flash64 {mode:7s} {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.4f} ms")
             rows.append({"case": name, "mode": mode, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms})
+                         "plain_ms": plain_ms, "library_ms": lib_ms, "shape": (n_q, n_kv)})
             max_err = max(max_err, err)
         del q, k, v
     return rows, max_err
+
+
+def ragged_phase(dev):
+    """The forward kernel against its plain version at lengths around its
+    128-row query tiles and 128-key stages: the training instance (o and
+    L2) on self-attention views of one qkv projection with no mask, key
+    padding (one batch row fully blocked) and segments with -1; the
+    inference instance with N != M; fully blocked key stages before, between
+    and after live ones.  Both softmax forms.  Returns the number of cases."""
+    import egom2p_torch.ops.flash64_train as ft
+    from egom2p_torch.ops.flash64 import flash64_attention, flash64_attention_reference
+
+    b, heads = 2, 2
+    C = heads * 64
+    rng = np.random.default_rng(4)
+    randn = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape, np.float32)).to(dev, torch.bfloat16)
+    n_cases, worst = 0, 0.0
+    for n in RAGGED_SELF:
+        qkv = randn(b, n, 3 * C)
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        kvb = torch.from_numpy(rng.uniform(size=(b, n)) < 0.3)
+        kvb[1] = True
+        ids = np.array([31433, 17061, 7210, -1], np.int32)
+        seg = torch.from_numpy(ids[np.sort(rng.integers(0, 4, (b, n)), axis=1)]).to(dev)
+        for mode, mk, sg in (("none", None, None), ("kp", kvb.to(dev), None), ("seg", None, seg)):
+            for safemax in (False, True):
+                o, l2 = ft.flash64_train_fwd(q, k, v, mk, sg, safemax)
+                torch.cuda.synchronize()
+                ro, rl2 = ft.flash64_train_reference_fwd(q, k, v, mk, sg, safemax)
+                err = (o.float() - ro.float()).abs().max().item()
+                err_l2 = (l2 - rl2).abs().max().item()
+                if err > TRAIN_O_ATOL or err_l2 > TRAIN_L2_ATOL:
+                    raise AssertionError(f"ragged {n}^2 {mode} safemax={safemax}: o {err}, "
+                                         f"L2 {err_l2}")
+                if mode == "kp" and not ((o[1] == 0).all() and (l2[1] == 1e30).all()):
+                    raise AssertionError(f"ragged {n}^2: a dead row is not zeros with L2 = 1e30")
+                worst, n_cases = max(worst, err), n_cases + 1
+    blocked_cases = [(nq, nk, None) for nq, nk in RAGGED_CROSS]
+    blocked_cases += [(300, 512, [(0, 128), (256, 512)]), (300, 640, [(300, 310)])]
+    for n_q, n_kv, live in blocked_cases:
+        q, kv = randn(b, n_q, 3 * C)[..., :C], randn(b, n_kv, 2 * C)
+        k, v = kv[..., :C], kv[..., C:]
+        if live is None:
+            blocked = torch.from_numpy(rng.uniform(size=(b, n_kv)) < 0.3)
+            blocked[1] = True
+        else:
+            blocked = torch.ones((b, n_kv), dtype=torch.bool)
+            for lo, hi in live:
+                blocked[0, lo:hi] = False
+        blocked = blocked.to(dev)
+        for safemax in (False, True):
+            out = flash64_attention(q, k, v, blocked, safemax=safemax)
+            torch.cuda.synchronize()
+            ref = flash64_attention_reference(q, k, v, blocked, safemax=safemax)
+            torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+            if not (out[1] == 0).all():
+                raise AssertionError(f"ragged {n_q}x{n_kv}: a dead row is not exact zeros")
+            worst = max(worst, (out.float() - ref.float()).abs().max().item())
+            n_cases += 1
+    print(f"flash64 forward, ragged lengths {RAGGED_SELF} and {RAGGED_CROSS}, blocked stages: "
+          f"{n_cases} cases, max_abs_err {worst:.3e}")
+    return n_cases
 
 
 def _rgb2depth_sample(tokens):
@@ -291,6 +449,10 @@ def slice_phase(dev):
     gen_ms = float(np.median([g for _, g in times]) * 1e3)
     print(f"slice median: tokenize {tok_ms:.1f} ms, generate {gen_ms:.1f} ms, "
           f"{B / (tok_ms + gen_ms) * 1e3:.3f} clips/s")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, tok_s, gen_s = run(seed=4)
+    _device_breakdown(prof, "batch", (tok_s + gen_s) * 1e3, tok_ms + gen_ms)
     # one more run with the running-max softmax (the inference kernel's
     # other form, EGOM2P_F64_SAFEMAX=1), counted on its own
     with _env(EGOM2P_F64_SAFEMAX="1"):
@@ -301,7 +463,7 @@ def slice_phase(dev):
           f"{safemax_launches}")
     if safemax_launches != LAUNCHES_PER_GENERATE or not out["tok_depth"]["target_mask"].all():
         raise AssertionError(f"safemax run: {safemax_launches} launches")
-    return launches, safemax_launches
+    return launches, safemax_launches, B / (tok_ms + gen_ms) * 1e3
 
 
 def _train_case(rng, dev, name, n, mode, C=HEADS * 64):
@@ -331,6 +493,10 @@ def train_kernel_phase(dev):
              _train_case(rng, dev, "ragged 2000^2, segments", 2000, "seg")]
     rows = []
     for name, q, k, v, do, kvb, seg in cases:
+        lib_fwd, lib_bwd, picked = _sdpa_ms(*(_split_heads(t, HEADS) for t in (q, k, v)),
+                                            kvb, seg, backward=True)
+        print(f"flash64_train {name}: scaled_dot_product_attention forward {lib_fwd:.3f} ms, "
+              f"backward {lib_bwd:.3f} ms ({picked})")
         for safemax in (False, True):
             mode = "safemax" if safemax else "clamp"
             o, l2 = ft.flash64_train_fwd(q, k, v, kvb, seg, safemax)
@@ -365,7 +531,8 @@ def train_kernel_phase(dev):
                   + " ".join(f"{k} {v:.2e}" for k, v in err.items())
                   + "  kernel ms " + " ".join(f"{k} {v:.3f}" for k, v in ms.items())
                   + "  plain ms " + " ".join(f"{k} {v:.3f}" for k, v in plain.items()))
-            rows.append({"case": name, "mode": mode, "err": err, "ms": ms, "plain_ms": plain})
+            rows.append({"case": name, "mode": mode, "err": err, "ms": ms, "plain_ms": plain,
+                         "library_ms": {"fwd": lib_fwd, "bwd": lib_bwd}})
         del q, k, v, do
     return rows
 
@@ -462,7 +629,8 @@ def ce_bwd_phase(dev):
         print(f"flash_ce_bwd R={R} D=768 V={V} ({live.float().mean().item():.0%} rows live): "
               f"max_abs_err dy {err['dy']:.2e} dW {err['dW']:.2e}  kernel {ms:.3f} ms  "
               f"plain chunked {plain_ms:.3f} ms")
-        rows.append({"R": R, "V": V, "err": max(err.values()), "ms": ms, "plain_ms": plain_ms})
+        rows.append({"R": R, "V": V, "err": max(err.values()), "ms": ms, "plain_ms": plain_ms,
+                     "live_rows": int(live.sum().item())})
         del y, w, dy, dw, rdy, rdw
     return rows
 
@@ -530,12 +698,16 @@ def stock_kernel_phase(dev):
                          qp, kp, vp, kvb, seg, True, **kw), 2, 1),
                      "bwd": _cuda_time_ms(lambda: ft.flash64_train_reference_dqkv(
                          *bargs, True, **kw), 2, 1)}
+            lib_fwd, lib_bwd, picked = _sdpa_ms(q, k, v, kvb, seg, backward=True, reps=3)
             name = f"hd {hd} (kernel {hdk}), {heads} heads, 2048^2, {mode}"
+            print(f"stock route {name}: scaled_dot_product_attention forward {lib_fwd:.3f} ms, "
+                  f"backward {lib_bwd:.3f} ms ({picked})")
             print(f"stock route {name}: max_abs_err "
                   + " ".join(f"{k} {v:.2e}" for k, v in err.items())
                   + "  kernel ms " + " ".join(f"{k} {v:.3f}" for k, v in ms.items())
                   + "  plain ms " + " ".join(f"{k} {v:.3f}" for k, v in plain.items()))
-            rows.append({"case": name, "hd": hd, "err": err, "ms": ms, "plain_ms": plain})
+            rows.append({"case": name, "hd": hd, "err": err, "ms": ms, "plain_ms": plain,
+                         "library_ms": {"fwd": lib_fwd, "bwd": lib_bwd}})
             del q, k, v, do, qr, kr, vr, qp, kp, vp, dop
     # the forward at a serving length (EgoM2P-large's encoder at 8704 tokens)
     q, k, v, _, kvb, _ = _stock_case(rng, dev, 8704, LARGE_HEADS, LARGE_HD, "kp")
@@ -586,10 +758,12 @@ def _reset_counts():
 
 
 def _kernel_class(name: str) -> str:
-    # template arguments: flash64_fwd_kernel<SAFEMAX, SEG, L2, HD>,
+    # template arguments: flash64_fwd_kernel<SAFEMAX, SEG, L2>,
     # flash64_dkv_kernel<CLAMP, MODE, HD, FUSED>
+    if "flash80_fwd_kernel" in name:
+        return "stock route fwd (hd 80)"
     if "flash64_fwd_kernel" in name:
-        return "stock route fwd (hd 80)" if ", 80>" in name else "flash64_train fwd"
+        return "flash64 fwd"
     if "flash64_dkv_kernel" in name:
         if ", 80, true>" in name:
             return "stock route fused bwd (hd 80)"
@@ -628,6 +802,12 @@ def profile_step(model, optimizer, batch, step_ms):
         step_fn(batch, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    _device_breakdown(prof, "step", wall_ms, step_ms)
+
+
+def _device_breakdown(prof, what, wall_ms, ref_ms):
+    """Prints a trace's device time by kernel class and the device's idle
+    share against `ref_ms`, the same work's time without the profiler."""
     spans, by_class = [], {}
     for e in prof.events():
         # kernels and copies only: the optimizer's annotated ranges
@@ -640,7 +820,7 @@ def profile_step(model, optimizer, batch, step_ms):
         cls = _kernel_class(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + (end - start) / 1e3
     if not spans:  # a measurement, not a check: say so and go on
-        print(f"profiled step: wall {wall_ms:.1f} ms; the profiler recorded no device "
+        print(f"profiled {what}: wall {wall_ms:.1f} ms; the profiler recorded no device "
               f"activity, device time by kernel class not measured")
         return
     spans.sort()
@@ -654,9 +834,9 @@ def profile_step(model, optimizer, batch, step_ms):
     busy += cur_e - cur_s
     window_ms = (spans[-1][1] - spans[0][0]) / 1e3
     total = sum(by_class.values())
-    print(f"profiled step: wall {wall_ms:.1f} ms, device window {window_ms:.1f} ms, "
-          f"device busy {busy / 1e3:.1f} ms; idle share {1 - busy / 1e3 / step_ms:.3f} of "
-          f"the unprofiled {step_ms:.1f} ms step ({1 - busy / 1e3 / window_ms:.3f} of the "
+    print(f"profiled {what}: wall {wall_ms:.1f} ms, device window {window_ms:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms; idle share {1 - busy / 1e3 / ref_ms:.3f} of "
+          f"the unprofiled {ref_ms:.1f} ms {what} ({1 - busy / 1e3 / window_ms:.3f} of the "
           f"traced window)")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:24s} {ms:9.2f} ms  {ms / total:6.1%}")
@@ -829,6 +1009,48 @@ def large_train_phase(dev):
                      "large")
 
 
+def check_build(ptxas_log: str, library) -> None:
+    """Prints ptxas's registers, spills and remarks, and the count of wgmma
+    (HGMMA) instructions in the forward kernel's SASS.  Raises if the
+    head_dim-64 forward kernel spills, if ptxas says it serialises its wgmma,
+    or if its SASS holds no HGMMA."""
+    entry, faults, remarks = "", [], set()
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+            if "flash64_fwd_kernel" in entry and "spill" in line and "0 bytes spill stores" not in line:
+                faults.append(f"{entry}: {line.strip()}")
+        if "Potential Performance Loss" in line:
+            remarks.add(line.strip()[:300])
+            if "flash64_fwd_kernel" in line:
+                faults.append(line.strip())
+    for line in sorted(remarks):
+        print(f"  ptxas remark: {line}")
+    from egom2p_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, ""
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif "HGMMA" in line:
+                counts[fn] = counts.get(fn, 0) + 1
+        fwd = {k: v for k, v in counts.items() if "flash64_fwd_kernel" in k}
+        print(f"  SASS: HGMMA (wgmma) instructions: flash64_fwd_kernel {sorted(fwd.values())} "
+              f"over {len(fwd)} instances, flash_ce_bwd_kernel "
+              f"{sorted(v for k, v in counts.items() if 'flash_ce_bwd_kernel' in k)}")
+        if len(fwd) != 6:
+            faults.append(f"{len(fwd)} of the 6 flash64_fwd_kernel instances hold HGMMA")
+    else:
+        print("  SASS: cuobjdump not found, wgmma instructions not counted")
+    if faults:
+        raise AssertionError("forward kernel build: " + "; ".join(faults))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -843,58 +1065,91 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds():.2f} s)")
-    for line in _build.ptxas_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    check_build(_build.ptxas_log(), _build.build())
+    global SM_CLOCK_MHZ
+    SM_CLOCK_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows, max_err = kernel_phase(dev)
-    launches, safemax_launches = slice_phase(dev)
-    train_rows = train_kernel_phase(dev)
-    ce_rows = ce_phase(dev)
-    train_launches, default_ms = train_slice_phase(dev)
-    fused_rows = fused_bwd_phase(dev)
-    ce_bwd_rows = ce_bwd_phase(dev)
-    fused_launches, _ = fused_train_phase(dev, default_ms)
-    stock_rows = stock_kernel_phase(dev)
-    large_launches, _ = large_train_phase(dev)
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        print(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    rows, max_err = phase(kernel_phase, dev)
+    phase(ragged_phase, dev)
+    launches, safemax_launches, _ = phase(slice_phase, dev)
+    train_rows = phase(train_kernel_phase, dev)
+    ce_rows = phase(ce_phase, dev)
+    train_launches, default_ms = phase(train_slice_phase, dev)
+    fused_rows = phase(fused_bwd_phase, dev)
+    ce_bwd_rows = phase(ce_bwd_phase, dev)
+    fused_launches, _ = phase(fused_train_phase, dev, default_ms)
+    stock_rows = phase(stock_kernel_phase, dev)
+    large_launches, _ = phase(large_train_phase, dev)
 
     step_case = train_rows[0]  # encoder self-attention 2048^2, key padding, clamp
     errs = lambda *keys: max(r["err"][k] for r in train_rows for k in keys)  # noqa: E731
     stock_errs = lambda *keys: max(r["err"][k] for r in stock_rows for k in keys)  # noqa: E731
     kernels = []
 
-    def add(name, source, replaces, n, err, ms, plain_ms):
+    def add(name, source, replaces, n, err, ms, plain_ms, bound, library_ms, **more):
         kernels.append({"name": name, "route": "cuda", "source": f"egom2p_torch/csrc/{source}",
                         "replaces": f"egom2p_tpu/ops/{replaces}", "launches": n,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+                        **more})
 
     # rows[0] / rows[1]: the encoder cond 8704^2 call, the hottest, clamp / safemax
+    serve_bound = attention_bound_ms(2, B, HEADS, *rows[0]["shape"], 64)
+    serve_exp2 = exp2_bound_ms(B, HEADS, *rows[0]["shape"], SM_CLOCK_MHZ)
     add("flash64_fwd", "flash64_fwd.cu", "flash64.py:83", launches, max_err,
-        rows[0]["ms"], rows[0]["plain_ms"])
+        rows[0]["ms"], rows[0]["plain_ms"], serve_bound, rows[0]["library_ms"],
+        exp2_bound_ms=serve_exp2)
     add("flash64_fwd_safemax", "flash64_fwd.cu", "flash64.py:119", safemax_launches, max_err,
-        rows[1]["ms"], rows[1]["plain_ms"])
-    for name, src, line, part, keys in (
-            ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",)),
-            ("flash64_train_dq", "flash64_train.cu", 172, "dq", ("dq",)),
-            ("flash64_train_dkv", "flash64_train.cu", 232, "dkv", ("dk", "dv"))):
+        rows[1]["ms"], rows[1]["plain_ms"], serve_bound, rows[1]["library_ms"],
+        exp2_bound_ms=serve_exp2)
+    # the library's backward computes dq, dk and dv in one call: the split
+    # kernels' rows both carry it
+    step_lib = step_case["library_ms"]
+    for name, src, line, part, keys, products, tensors, lib, more in (
+            ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",), 2, (2, 2), step_lib["fwd"],
+             {"exp2_bound_ms": exp2_bound_ms(B, HEADS, 2048, 2048, SM_CLOCK_MHZ)}),
+            ("flash64_train_dq", "flash64_train.cu", 172, "dq", ("dq",), 3, (3, 2),
+             step_lib["bwd"], {"library_computes": "dq, dk and dv"}),
+            ("flash64_train_dkv", "flash64_train.cu", 232, "dkv", ("dk", "dv"), 4, (2, 4),
+             step_lib["bwd"], {"library_computes": "dq, dk and dv"})):
         add(name, src, f"flash64_train.py:{line}", train_launches[part], errs(*keys),
-            step_case["ms"][part], step_case["plain_ms"][part])
+            step_case["ms"][part], step_case["plain_ms"][part],
+            attention_bound_ms(products, B, HEADS, 2048, 2048, 64, *tensors), lib, **more)
     add("flash64_train_dqkv", "flash64_train.cu", "flash64_train.py:296",
         fused_launches["dqkv"], max(r["err"] for r in fused_rows),
-        fused_rows[0]["ms"], fused_rows[0]["plain_ms"])
+        fused_rows[0]["ms"], fused_rows[0]["plain_ms"],
+        attention_bound_ms(5, B, HEADS, 2048, 2048, 64, 4, 4), step_lib["bwd"])
     add("flash_ce_fwd", "flash_ce_fwd.cu", "flash_ce.py:76", train_launches["ce_fwd"],
-        max(r["err"] for r in ce_rows), ce_rows[0]["ms"], ce_rows[0]["plain_ms"])
+        max(r["err"] for r in ce_rows), ce_rows[0]["ms"], ce_rows[0]["plain_ms"],
+        ce_fwd_bound_ms(ce_rows[0]["R"], 768, ce_rows[0]["V"]), None)
+    # no single PyTorch call computes the CE backward: plain_ms is the chunked route
     add("flash_ce_bwd", "flash_ce_bwd.cu", "flash_ce.py:167", fused_launches["ce_bwd"],
-        max(r["err"] for r in ce_bwd_rows), ce_bwd_rows[0]["ms"], ce_bwd_rows[0]["plain_ms"])
-    # stock_rows[0]: EgoM2P-large's heads of 68, 2048^2, key padding
-    add("stock_flash_fwd", "flash64_fwd.cu", "flash_attention.py:93",
+        max(r["err"] for r in ce_bwd_rows), ce_bwd_rows[0]["ms"], ce_bwd_rows[0]["plain_ms"],
+        ce_bwd_bound_ms(ce_bwd_rows[0]["live_rows"], ce_bwd_rows[0]["R"], 768,
+                        ce_bwd_rows[0]["V"]), None)
+    # stock_rows[0]: EgoM2P-large's heads of 68, 2048^2, key padding; the
+    # bound counts the true head of 68
+    add("stock_flash_fwd", "flash80_fwd.cu", "flash_attention.py:93",
         large_launches["stock_fwd"], stock_errs("o"), stock_rows[0]["ms"]["fwd"],
-        stock_rows[0]["plain_ms"]["fwd"])
+        stock_rows[0]["plain_ms"]["fwd"],
+        attention_bound_ms(2, B, LARGE_HEADS, 2048, 2048, LARGE_HD),
+        stock_rows[0]["library_ms"]["fwd"])
     add("stock_flash_bwd", "flash64_train.cu", "flash_attention.py:93",
         large_launches["stock_bwd"], stock_errs("dq", "dk", "dv"), stock_rows[0]["ms"]["bwd"],
-        stock_rows[0]["plain_ms"]["bwd"])
+        stock_rows[0]["plain_ms"]["bwd"],
+        attention_bound_ms(5, B, LARGE_HEADS, 2048, 2048, LARGE_HD, 4, 4),
+        stock_rows[0]["library_ms"]["bwd"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

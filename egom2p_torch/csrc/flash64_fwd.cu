@@ -1,8 +1,9 @@
-// Forward attention at head_dim 64 (and, for the stock route, 80) for Hopper
-// (sm_90a), non-causal, for inference and for training.  Called from
+// Forward attention at head_dim 64 for Hopper (sm_90a), non-causal, for
+// inference and for training: wgmma, TMA, warp-specialised.  Called from
 // egom2p_torch/ops/flash64.py (inference), egom2p_torch/ops/flash64_train.py
 // (training forward) and egom2p_torch/ops/flash_attention.py (the stock
-// route, through flash64_train.py's launcher).
+// route at head_dim 64, through flash64_train.py's launcher).  The
+// head_dim-80 instance of the stock route is csrc/flash80_fwd.cu.
 //
 // Replaces four Pallas TPU kernels, all one template here:
 //   * egom2p_tpu/ops/flash64.py `_kernel_noshift` (clamp-only softmax, the
@@ -13,11 +14,8 @@
 //     mask mode (SEG = true);
 //   * the forward of the stock jax.experimental.pallas.ops.tpu
 //     flash_attention, reached through egom2p_tpu/ops/flash_attention.py
-//     `segment_flash_attention` / `padding_flash_attention`: the safemax
-//     training instance at HD = 64, or at HD = 80 for heads of 65..80 that
-//     the caller zero-pads to 80 (EgoM2P-large: 68), with the true head's
-//     scale passed in.  Zero columns change no score and give zero output
-//     columns, so the padding is exact.
+//     `segment_flash_attention` / `padding_flash_attention`, for heads of up
+//     to 64: the safemax training instance with the true head's scale.
 //
 // Math (identical to the TPU kernels):
 //   s = fp32(q . k) * (hd^-0.5 * log2 e) + bias,   bias = -1e30 where blocked
@@ -34,199 +32,225 @@
 // query's.  Keys past M are blocked by the bounds check, never through a
 // segment value.
 //
-// What bounds it on this card: arithmetic.  At the inference path's shapes
-// (N = M = 5120..8704, B*H = 96) and the training step's (N = M = 2048,
-// B*H = 96) a (batch, head) pair's K and V are 0.5-2.2 MB, and the q tiles of
-// one pair run side by side (blockIdx.x is the fastest grid index), so K/V are
-// read from device memory about once and re-read from L2: the work is
-// 4*N*M*HD tensor-core FLOPs plus N*M exp2 on the SFU.
+// What bounds it on this card: two units of the SM, equally.  A score costs
+// 4 * 64 = 256 tensor-core FLOPs (Q K^T and P V) and one exp2 on the special
+// function unit.  An SM does 16 exp2 a clock and, at the data sheet's 989
+// TFLOP/s, 3,800-4,300 dense bf16 FLOPs a clock (1.98-1.75 GHz), so both
+// take about 1/16 clock a score: at B*H = 96, N = M = 8704 the tensor bound
+// is 1.88 ms and the exp2 bound 1.74 ms at 1980 MHz (1.96 ms at 1755).
+// q/k/v/o bytes are 15x below either (K and V of a (batch, head) pair are
+// 0.5-2.2 MB and stay in L2 while its query tiles run).  Half the tensor
+// peak is therefore the ceiling unless the two overlap perfectly.
 //
-// What the design does about it: each block owns 64 query rows of one
-// (batch, head), four warps of 16 rows.  The block walks the keys in tiles of
-// 64 held in shared memory, double-buffered with cp.async so the next tile
-// loads while this one computes.  S = Q K^T and O += P V run on the tensor
-// cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the S accumulator
-// fragment is re-packed in registers as the A operand of P V, so P never
-// touches shared memory.  V's B operand comes from ldmatrix.trans.  Shared
-// memory: 46.5 KB of static tiles at HD = 64 (47 KB with segments), 56 KB of
-// dynamic ones at HD = 80 (opt-in set at launch).  This is the simple first
-// kernel: wgmma, TMA and warp specialisation are later work.
+// What the design does about it:
+//   * a block owns 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows each, and one producer warp.  Keys go by in tiles
+//     of 128.  S = Q K^T is wgmma m64n128k16 with Q and K read from shared
+//     memory by descriptor (K-major tiles, 128-byte swizzle), O += P V is
+//     wgmma m64n64k16 with P from registers (the S accumulator re-packed as
+//     the A fragment, so P never touches shared memory) and V as an MN-major
+//     tile.  K and V leave shared memory once per 64 query rows, read by the
+//     tensor cores, not by load instructions.
+//   * the producer warp keeps a ring of 4 K/V stages full by TMA (tensor maps
+//     over the strided q/k/v views; rows past N or M arrive as zeros), each
+//     stage with a "full" and an "empty" mbarrier; it also writes the stage's
+//     mask bias (and segment ids) and a flag that says whether the tile has
+//     any blocked key, so that unmasked tiles skip the bias.  setmaxnreg
+//     moves its registers to the consumers (40 / 232).
+//   * in a consumer, tile t's S product is issued before tile t-1's P V and
+//     its exp2 pass runs while that P V is in flight (one wgmma group
+//     pending), so the tensor cores and the SFU work at the same time; the
+//     two warpgroups interleave on top of that.
+// Shared memory: 16 KB (Q) + 4 x 32 KB (K, V) + 4 KB of mask rows, one block
+// per SM.  ptxas (CUDA 12.8): 168 registers at launch for every instance, no
+// spills, no remark about serialised wgmma; 24 HGMMA instructions in each
+// instance's SASS.  On an H100 (700 W): 3.6-3.7 ms at 8704^2 with key
+// padding (clamp), 4.2 ms safemax, 0.25 ms for the training forward at
+// 2048^2, about half of the tensor bound.
 //
-// The kernel masks its own ragged edges (rows past N, keys past M are
-// zero-filled and keys past M carry the -1e30 bias), reads q/k/v through a
-// row stride each (they may be views of a fused qkv or kv projection),
-// allocates nothing, and runs on the caller's stream.
+// The kernel masks its own ragged edges, reads q/k/v through a row stride and
+// a batch stride each (they may be views of a fused qkv or kv projection; TMA
+// needs 16-byte aligned bases and strides), allocates nothing, and runs on
+// the caller's stream.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace egom2p;
 
-constexpr int kBlockQ = 64;                  // query rows per block: 4 warps x 16
-constexpr int kBlockK = 64;                  // keys per shared-memory tile
-constexpr int kThreads = 128;
+constexpr int kHD = 64;
+constexpr int kBlockQ = 128;                 // query rows per block: 2 warpgroups x 64
+constexpr int kBlockK = 128;                 // keys per stage
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 384;                // 2 consumer warpgroups + the producer's
+constexpr int kTileBytes = kBlockK * kHD * 2;
 constexpr float kNegInf = -1e30f;
 constexpr float kDeadRow = -5e29f;           // kNegInf * 0.5: safemax dead-row threshold
 constexpr float kDeadL2 = 1e30f;             // L2 of a row with no live key
 constexpr float kClamp = 80.f;
 constexpr double kLog2e = 1.4426950408889634;
 
-// Padded smem rows (HD + 8 bf16: 144 bytes at 64, 176 at 80) keep the
-// fragment loads and ldmatrix rows on distinct banks.
-template <int kHD, bool kSeg>
-struct FwdSmem {
-  __nv_bfloat16 q[kBlockQ][kHD + 8];
-  __nv_bfloat16 k[2][kBlockK][kHD + 8];
-  __nv_bfloat16 v[2][kBlockK][kHD + 8];
-  float bias[2][kBlockK];
-  int seg[kSeg ? 2 : 1][kSeg ? kBlockK : 1];
+struct Smem {
+  __nv_bfloat16 q[kBlockQ * kHD];            // tiles first: each a multiple of 1024 bytes
+  __nv_bfloat16 k[kStages][kBlockK * kHD];
+  __nv_bfloat16 v[kStages][kBlockK * kHD];
+  float bias[kStages][kBlockK];
+  int seg[kStages][kBlockK];
+  int masked[kStages];                       // the stage's tile has a blocked key
+  uint64_t full[kStages], empty[kStages], q_full;
+};
+constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;  // base rounded up to 1024
+
+struct FwdArgs {
+  const uint8_t* kv_blocked;
+  const int* segments;
+  __nv_bfloat16* out;
+  float* l2;
+  int n_q, n_kv;
+  int64_t m_sb, o_sb, o_sn;
+  float scale;  // hd^-0.5 * log2(e)
 };
 
-// A tile set under 48 KB (HD = 64) is static shared memory, as the kernel
-// always had: the compiler then addresses it with constant offsets.  HD = 80
-// needs dynamic shared memory and the opt-in set at launch.
-constexpr int kStaticSmemLimit = 48 * 1024;
-
-template <typename Smem>
-__device__ __forceinline__ Smem& smem_tiles() {
-  if constexpr (sizeof(Smem) <= kStaticSmemLimit) {
-    __shared__ __align__(16) Smem tiles;
-    return tiles;
-  } else {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    return *reinterpret_cast<Smem*>(smem_raw);
-  }
-}
-
 // SAFEMAX: running-max softmax.  SEG: block where segments[q] != segments[k]
-// (self-attention; `mask` is then the (B, N) int32 segment ids).  L2: write
-// the per-row log-sum for the training backward.  HD: head dim, 64 or 80.
-template <bool kSafemax, bool kSeg, bool kL2, int kHD>
-__global__ void __launch_bounds__(kThreads)
-    flash64_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_blocked,
-                       const int* __restrict__ segments, __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ l2, int n_q, int n_kv, int64_t q_sb, int64_t q_sn,
-                       int64_t k_sb, int64_t k_sn, int64_t v_sb, int64_t v_sn, int64_t m_sb,
-                       int64_t o_sb, int64_t o_sn, float scale) {
-  constexpr int kSteps = kHD / 16;           // mma k-steps over head_dim
-  constexpr int kDimTiles = kHD / 8;         // 8-wide n-tiles of the output
-  constexpr int kRowChunks = kHD / 8;        // 16-byte chunks per row
-  FwdSmem<kHD, kSeg>& sm = smem_tiles<FwdSmem<kHD, kSeg>>();
+// (self-attention; `segments` is then the (B, N) int32 ids).  L2: write the
+// per-row log-sum for the training backward.
+template <bool kSafemax, bool kSeg, bool kL2>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash64_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, const FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment row group / column pair
+  const int wg = tid >> 7;
   const int q0 = blockIdx.x * kBlockQ;
   const int head = blockIdx.y, batch = blockIdx.z;
+  const int n_tiles = (a.n_kv + kBlockK - 1) / kBlockK;
 
-  const __nv_bfloat16* qb = q + batch * q_sb + head * kHD;
-  const __nv_bfloat16* kb = k + batch * k_sb + head * kHD;
-  const __nv_bfloat16* vb = v + batch * v_sb + head * kHD;
-  const uint8_t* mb = kv_blocked == nullptr ? nullptr : kv_blocked + batch * m_sb;
-  const int* sb = kSeg ? segments + batch * m_sb : nullptr;
-
-  // A 64 x HD bf16 tile is 64 * HD / 8 chunks of 16 bytes: HD / 16 per
-  // thread.  Rows at or past `rows` are zero-filled (their address is
-  // clamped to row 0).
-  auto load_tile = [&](__nv_bfloat16(*dst)[kHD + 8], const __nv_bfloat16* src, int64_t stride,
-                       int row0, int rows) {
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < kHD / 16; ++i) {
-      const unsigned chunk = tid + i * kThreads;  // unsigned: shifts at HD 64, no sign fix-ups
-      const int r = chunk / kRowChunks, col = (chunk % kRowChunks) * 8;
-      const bool ok = row0 + r < rows;
-      cp_async16(&dst[r][col], src + (ok ? row0 + r : 0) * stride + col, ok);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 32);               // the producer warp's lanes (+ the TMA bytes)
+      mbar_init(&sm.empty[i], kConsumerWarps);  // one lane of each consumer warp
     }
-  };
-  auto load_kv = [&](int tile, int stage) {
-    const int k0 = tile * kBlockK;
-    load_tile(sm.k[stage], kb, k_sn, k0, n_kv);
-    load_tile(sm.v[stage], vb, v_sn, k0, n_kv);
-    if (tid < kBlockK) {
-      const int key = k0 + tid;
-      const bool blocked = key >= n_kv || (mb != nullptr && mb[key] != 0);
-      sm.bias[stage][tid] = blocked ? kNegInf : 0.f;
-      if (kSeg) sm.seg[stage][tid] = key < n_kv ? sb[key] : 0;
+    mbar_init(&sm.q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (tid >= 2 * 128 + 32) return;
+    const int lane = tid & 31;
+    const uint8_t* mb = a.kv_blocked == nullptr ? nullptr : a.kv_blocked + batch * a.m_sb;
+    const int* sb = kSeg ? a.segments + batch * a.m_sb : nullptr;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kBlockQ * kHD * 2);
+      tma_load_3d(sm.q, &map_q, &sm.q_full, head * kHD, q0, batch);
     }
-  };
-
-  load_tile(sm.q, qb, q_sn, q0, n_q);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const int r0 = q0 + warp * 16 + gid;  // this thread's rows: r0 and r0 + 8
-  int seg_q[2] = {0, 0};
-  if (kSeg) {
-    seg_q[0] = r0 < n_q ? sb[r0] : 0;
-    seg_q[1] = r0 + 8 < n_q ? sb[r0 + 8] : 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % kStages;
+      if (t >= kStages) mbar_wait(&sm.empty[stage], (t / kStages - 1) & 1);
+      const int k0 = t * kBlockK;
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < kBlockK / 32; ++i) {
+        const int c = lane + i * 32, key = k0 + c;
+        const bool blocked = key >= a.n_kv || (mb != nullptr && mb[key] != 0);
+        sm.bias[stage][c] = blocked ? kNegInf : 0.f;
+        if (kSeg) sm.seg[stage][c] = key < a.n_kv ? sb[key] : 0;
+        any |= blocked;
+      }
+      any = __any_sync(0xffffffffu, any);
+      if (lane == 0) {
+        sm.masked[stage] = (any || kSeg) ? 1 : 0;
+        mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes);
+        tma_load_3d(sm.k[stage], &map_k, &sm.full[stage], head * kHD, k0, batch);
+        tma_load_3d(sm.v[stage], &map_v, &sm.full[stage], head * kHD, k0, batch);
+      } else {
+        mbar_arrive(&sm.full[stage]);
+      }
+    }
+    return;
   }
 
-  const int n_tiles = (n_kv + kBlockK - 1) / kBlockK;
-  float acc[kDimTiles][4];  // O: 16 rows x HD dims per warp, n-tiles of 8 dims
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<232>();
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // accumulator row group / column pair
+  const int r0 = q0 + wg * 64 + warp * 16 + gid;  // this thread's rows: r0 and r0 + 8
+  int seg_q[2] = {0, 0};
+  if (kSeg) {
+    const int* sb = a.segments + batch * a.m_sb;
+    seg_q[0] = r0 < a.n_q ? sb[r0] : 0;
+    seg_q[1] = r0 + 8 < a.n_q ? sb[r0 + 8] : 0;
+  }
+  const float scale = a.scale;
+
+  float o[32];     // O: 64 rows x 64 dims per warpgroup
+  float s[64];     // S, then P in fp32: 64 rows x 128 keys
+  uint32_t p[8][4];  // bf16 P as the A fragments of the 8 k-steps over the tile's keys
 #pragma unroll
-  for (int j = 0; j < kDimTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
   float row_l[2] = {0.f, 0.f};           // rows gid, gid + 8: this thread's partial sums
   float row_m[2] = {kNegInf, kNegInf};   // safemax running max (quad-uniform)
-  uint32_t qf[kSteps][4];                // Q A-fragments for the k-steps over head_dim
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
+  const uint64_t desc_q = smem_desc(sm.q + wg * 64 * kHD, 16, 1024);
+  const uint64_t desc_k0 = smem_desc(sm.k[0], 16, 1024);
+  const uint64_t desc_v0 = smem_desc(sm.v[0], 16, 1024);
+  constexpr uint64_t kStageStep = kTileBytes >> 4;
+
+  // S = Q K^T over the 4 k-steps of head_dim (32 bytes of a row each)
+  auto issue_s = [&](int stage) {
+    const uint64_t dk = desc_k0 + stage * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk) wgmma_ss<0>(s, desc_q + 2 * kk, dk + 2 * kk, kk > 0);
+    wgmma_commit();
+  };
+  // O += P V over the 8 k-steps of the tile's keys (16 rows of 128 bytes each)
+  auto issue_pv = [&](int stage) {
+    const uint64_t dv = desc_v0 + stage * kStageStep;
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) wgmma_rs<1>(o, p[kk], dv + kk * (2048 >> 4), 1);
+    wgmma_commit();
+  };
+  // s -> p (fp32, in place), the row sums and, in safemax mode, the running
+  // max; alpha is the factor that the earlier tiles' O takes.
+  auto softmax = [&](int stage, float (&alpha)[2]) {
+    if (sm.masked[stage] != 0) {
+      // scale, then the mask bias (the TPU kernel's order)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = j * 8 + tig * 2;
+        const float2 b = *reinterpret_cast<const float2*>(&sm.bias[stage][c]);
+        float b00 = b.x, b01 = b.y;  // row gid
+        float b10 = b.x, b11 = b.y;  // row gid + 8
+        if (kSeg) {
+          const int2 ks = *reinterpret_cast<const int2*>(&sm.seg[stage][c]);
+          if (seg_q[0] != ks.x) b00 = kNegInf;
+          if (seg_q[0] != ks.y) b01 = kNegInf;
+          if (seg_q[1] != ks.x) b10 = kNegInf;
+          if (seg_q[1] != ks.y) b11 = kNegInf;
+        }
+        s[4 * j + 0] = s[4 * j + 0] * scale + b00;
+        s[4 * j + 1] = s[4 * j + 1] * scale + b01;
+        s[4 * j + 2] = s[4 * j + 2] * scale + b10;
+        s[4 * j + 3] = s[4 * j + 3] * scale + b11;
+      }
     } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (t == 0) {
-      const int r = warp * 16 + gid;
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        load_a_frag(qf[kk], &sm.q[r][kk * 16 + tig * 2], &sm.q[r + 8][kk * 16 + tig * 2]);
-      }
+      for (int i = 0; i < 64; ++i) s[i] *= scale;
     }
-
-    // S = Q K^T: 16 x 64 per warp, fragment s[j] covers keys j*8 .. j*8+7.
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = sm.k[stage][j * 8 + gid];
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        mma_16816(s[j], qf[kk], ld_smem_u32(krow + kk * 16 + tig * 2),
-                  ld_smem_u32(krow + kk * 16 + 8 + tig * 2));
-      }
-    }
-    // scale, then the mask bias (the TPU kernel's order)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = j * 8 + tig * 2;
-      float b00 = sm.bias[stage][c], b01 = sm.bias[stage][c + 1];  // row gid
-      float b10 = b00, b11 = b01;                                  // row gid + 8
-      if (kSeg) {
-        const int k0s = sm.seg[stage][c], k1s = sm.seg[stage][c + 1];
-        if (seg_q[0] != k0s) b00 = kNegInf;
-        if (seg_q[0] != k1s) b01 = kNegInf;
-        if (seg_q[1] != k0s) b10 = kNegInf;
-        if (seg_q[1] != k1s) b11 = kNegInf;
-      }
-      s[j][0] = s[j][0] * scale + b00;
-      s[j][1] = s[j][1] * scale + b01;
-      s[j][2] = s[j][2] * scale + b10;
-      s[j][3] = s[j][3] * scale + b11;
-    }
-
     if (kSafemax) {
       float mx0 = row_m[0], mx1 = row_m[1];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j + 0], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
@@ -234,58 +258,82 @@ __global__ void __launch_bounds__(kThreads)
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
       // alpha = 0 once a live key lifts m above the -1e30 of a blocked prefix,
       // which washes out that prefix's exp2(0) = 1 garbage
-      const float alpha0 = exp2_approx(row_m[0] - mx0);
-      const float alpha1 = exp2_approx(row_m[1] - mx1);
+      alpha[0] = exp2_approx(row_m[0] - mx0);
+      alpha[1] = exp2_approx(row_m[1] - mx1);
       row_m[0] = mx0;
       row_m[1] = mx1;
-      row_l[0] *= alpha0;
-      row_l[1] *= alpha1;
+      row_l[0] *= alpha[0];
+      row_l[1] *= alpha[1];
 #pragma unroll
-      for (int j = 0; j < kDimTiles; ++j) {
-        acc[j][0] *= alpha0;
-        acc[j][1] *= alpha0;
-        acc[j][2] *= alpha1;
-        acc[j][3] *= alpha1;
-        if (j >= 8) continue;  // s has 8 key tiles; acc has HD / 8 dim tiles
-        s[j][0] = exp2_approx(s[j][0] - mx0);
-        s[j][1] = exp2_approx(s[j][1] - mx0);
-        s[j][2] = exp2_approx(s[j][2] - mx1);
-        s[j][3] = exp2_approx(s[j][3] - mx1);
+      for (int j = 0; j < 16; ++j) {
+        s[4 * j + 0] = exp2_approx(s[4 * j + 0] - mx0);
+        s[4 * j + 1] = exp2_approx(s[4 * j + 1] - mx0);
+        s[4 * j + 2] = exp2_approx(s[4 * j + 2] - mx1);
+        s[4 * j + 3] = exp2_approx(s[4 * j + 3] - mx1);
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][0] = exp2_approx(fminf(s[j][0], kClamp));
-        s[j][1] = exp2_approx(fminf(s[j][1], kClamp));
-        s[j][2] = exp2_approx(fminf(s[j][2], kClamp));
-        s[j][3] = exp2_approx(fminf(s[j][3], kClamp));
-      }
+      for (int i = 0; i < 64; ++i) s[i] = exp2_approx(fminf(s[i], kClamp));
     }
     // l from the fp32 p, before the bf16 rounding
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      row_l[0] += s[j][0] + s[j][1];
-      row_l[1] += s[j][2] + s[j][3];
+    for (int j = 0; j < 16; ++j) {
+      row_l[0] += s[4 * j + 0] + s[4 * j + 1];
+      row_l[1] += s[4 * j + 2] + s[4 * j + 3];
     }
+  };
+  // The S fragments of keys 16kk..16kk+15 (column tiles 2kk, 2kk+1) are
+  // exactly the A fragment of P V's k-step kk.
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
 
-    // O += P V.  The S fragments of keys 16kk..16kk+15 (s[2kk], s[2kk+1]) are
-    // exactly the A fragment of k-step kk.
-    const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
+  float alpha[2] = {1.f, 1.f};
+  mbar_wait(&sm.q_full, 0);
+  mbar_wait(&sm.full[0], 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(0, alpha);  // O is still zero: no rescale
+  pack_p();
+
+  for (int t = 1; t < n_tiles; ++t) {
+    const int stage = t % kStages, prev = (t - 1) % kStages;
+    mbar_wait(&sm.full[stage], (t / kStages) & 1);
+    fence_regs(s);
+    fence_regs(o);
+    wgmma_fence();
+    issue_s(stage);   // tile t's scores ...
+    issue_pv(prev);   // ... ahead of tile t-1's P V
+    wgmma_wait<1>();  // S is there; P V runs on under the exp2 pass
+    fence_regs(s);
+    softmax(stage, alpha);
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);  // this warp is done with stage prev
+    if (kSafemax) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int jd = 0; jd < kHD / 16; ++jd) {
-        // matrices: (keys +0, dims +0), (keys +8, dims +0), (keys +0, dims +8), (keys +8, dims +8)
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, &sm.v[stage][kk * 16 + (mat & 1) * 8 + mrow][jd * 16 + (mat >> 1) * 8]);
-        mma_16816(acc[2 * jd], a, bv[0], bv[1]);
-        mma_16816(acc[2 * jd + 1], a, bv[2], bv[3]);
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
     }
-    __syncthreads();  // every warp is done with `stage` before it is refilled
+    pack_p();
   }
+  fence_regs(o);
+  wgmma_fence();
+  issue_pv((n_tiles - 1) % kStages);
+  wgmma_wait<0>();
+  fence_regs(o);
 
   // Row sums across the quad that shares a row.
 #pragma unroll
@@ -293,110 +341,124 @@ __global__ void __launch_bounds__(kThreads)
     row_l[i] += __shfl_xor_sync(0xffffffffu, row_l[i], 1);
     row_l[i] += __shfl_xor_sync(0xffffffffu, row_l[i], 2);
   }
-  bool live[2];
-  float denom[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    live[i] = kSafemax ? row_m[i] > kDeadRow : row_l[i] > 0.f;
-    denom[i] = row_l[i] > 0.f ? row_l[i] : 1.f;
-  }
-
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + i * 8;
-    if (row >= n_q) continue;
-    __nv_bfloat16* orow = out + batch * o_sb + row * o_sn + head * kHD;
+    if (row >= a.n_q) continue;
+    const bool live = kSafemax ? row_m[i] > kDeadRow : row_l[i] > 0.f;
+    const float denom = row_l[i] > 0.f ? row_l[i] : 1.f;
+    __nv_bfloat16* orow = a.out + batch * a.o_sb + row * a.o_sn + head * kHD;
 #pragma unroll
-    for (int j = 0; j < kDimTiles; ++j) {
-      const float x0 = live[i] ? acc[j][2 * i] / denom[i] : 0.f;
-      const float x1 = live[i] ? acc[j][2 * i + 1] / denom[i] : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      const float x0 = live ? o[4 * j + 2 * i] / denom : 0.f;
+      const float x1 = live ? o[4 * j + 2 * i + 1] / denom : 0.f;
       *reinterpret_cast<uint32_t*>(orow + j * 8 + tig * 2) = pack_bf16(x0, x1);
     }
     if (kL2 && tig == 0) {
-      const float lse = (kSafemax ? row_m[i] : 0.f) + log2f(denom[i]);
-      l2[(static_cast<int64_t>(batch) * gridDim.y + head) * n_q + row] = live[i] ? lse : kDeadL2;
+      const float lse = (kSafemax ? row_m[i] : 0.f) + log2f(denom);
+      a.l2[(static_cast<int64_t>(batch) * gridDim.y + head) * a.n_q + row] = live ? lse : kDeadL2;
     }
   }
 }
 
-struct FwdArgs {
-  const __nv_bfloat16 *q, *k, *v;
-  const uint8_t* kv_blocked;
-  const int* segments;
-  __nv_bfloat16* out;
-  float* l2;
-  int n_q, n_kv;
-  int64_t q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn;
-  float scale;  // hd^-0.5 * log2(e)
+struct Operand {
+  const void* ptr;
+  int rows;
+  long long batch_stride, row_stride;  // elements
 };
 
-template <bool kSafemax, bool kSeg, bool kL2, int kHD>
-cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const FwdArgs& a) {
-  auto kernel = flash64_fwd_kernel<kSafemax, kSeg, kL2, kHD>;
-  constexpr int bytes = static_cast<int>(sizeof(FwdSmem<kHD, kSeg>));
-  constexpr int smem = bytes <= kStaticSmemLimit ? 0 : bytes;  // dynamic bytes
-  if (smem > 0) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, smem, st>>>(a.q, a.k, a.v, a.kv_blocked, a.segments, a.out, a.l2,
-                                       a.n_q, a.n_kv, a.q_sb, a.q_sn, a.k_sb, a.k_sn, a.v_sb,
-                                       a.v_sn, a.m_sb, a.o_sb, a.o_sn, a.scale);
+// The tensor map of a (B, rows, H * 64) bf16 view: boxes of 128 rows x 64
+// columns.
+int operand_map(CUtensorMap* map, const Operand& t, int batch, int heads) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(heads) * kHD, static_cast<uint64_t>(t.rows),
+                            static_cast<uint64_t>(batch)};
+  // a batch of one has no batch stride to honour
+  const uint64_t row_bytes = static_cast<uint64_t>(t.row_stride) * 2;
+  const uint64_t strides[2] = {row_bytes,
+                               batch > 1 ? static_cast<uint64_t>(t.batch_stride) * 2
+                                         : row_bytes * t.rows};
+  const uint32_t box[2] = {kHD, kBlockQ};
+  static_assert(kBlockQ == kBlockK, "one box shape for q, k and v");
+  return make_tensor_map(map, t.ptr, 3, dims, strides, box);
+}
+
+template <bool kSafemax, bool kSeg, bool kL2>
+cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const CUtensorMap (&maps)[3], const FwdArgs& a) {
+  auto kernel = flash64_fwd_kernel<kSafemax, kSeg, kL2>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, kSmemBytes, st>>>(maps[0], maps[1], maps[2], a);
   return cudaGetLastError();
 }
 
-bool bad_shape(int batch, int n_q, int n_kv, int heads) {
-  return batch <= 0 || n_q <= 0 || n_kv <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
-}
-
-FwdArgs make_args(const void* q, const void* k, const void* v, const void* kv_blocked,
-                  const void* segments, void* out, void* l2, int n_q, int n_kv, long long q_sb,
-                  long long q_sn, long long k_sb, long long k_sn, long long v_sb, long long v_sn,
-                  long long m_sb, long long o_sb, long long o_sn, double sm_scale) {
+// Checks the shapes, builds the three tensor maps and launches the instance.
+int run(const void* q, const void* k, const void* v, const void* kv_blocked, const void* segments,
+        void* out, void* l2, int batch, int n_q, int n_kv, int heads, long long q_sb,
+        long long q_sn, long long k_sb, long long k_sn, long long v_sb, long long v_sn,
+        long long m_sb, long long o_sb, long long o_sn, bool safemax, bool want_l2,
+        double sm_scale, void* stream) {
+  if (batch <= 0 || n_q <= 0 || n_kv <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
+      (kv_blocked != nullptr && segments != nullptr) || (segments != nullptr && n_q != n_kv) ||
+      (want_l2 && l2 == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap maps[3];
+  const Operand ops[3] = {{q, n_q, q_sb, q_sn}, {k, n_kv, k_sb, k_sn}, {v, n_kv, v_sb, v_sn}};
+  for (int i = 0; i < 3; ++i) {
+    const int rc = operand_map(&maps[i], ops[i], batch, heads);
+    if (rc != 0) return rc;
+  }
   FwdArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
   a.kv_blocked = static_cast<const uint8_t*>(kv_blocked);
   a.segments = static_cast<const int*>(segments);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.l2 = static_cast<float*>(l2);
   a.n_q = n_q;
   a.n_kv = n_kv;
-  a.q_sb = q_sb; a.q_sn = q_sn; a.k_sb = k_sb; a.k_sn = k_sn; a.v_sb = v_sb; a.v_sn = v_sn;
-  a.m_sb = m_sb; a.o_sb = o_sb; a.o_sn = o_sn;
+  a.m_sb = m_sb;
+  a.o_sb = o_sb;
+  a.o_sn = o_sn;
   a.scale = static_cast<float>(sm_scale * kLog2e);
-  return a;
+  const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool seg = segments != nullptr;
+  cudaError_t err;
+  if (!want_l2) {
+    err = safemax ? launch_fwd<true, false, false>(grid, st, maps, a)
+                  : launch_fwd<false, false, false>(grid, st, maps, a);
+  } else if (safemax) {
+    err = seg ? launch_fwd<true, true, true>(grid, st, maps, a)
+              : launch_fwd<true, false, true>(grid, st, maps, a);
+  } else {
+    err = seg ? launch_fwd<false, true, true>(grid, st, maps, a)
+              : launch_fwd<false, false, true>(grid, st, maps, a);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes.  Strides are in elements; q/k/v/out rows
-// are head_dim * H wide with unit stride inside a row.  Both return the CUDA
-// error of the launch (0 on success).
+// are 64 * H wide with unit stride inside a row; q/k/v bases and strides are
+// multiples of 8 elements (16 bytes, for TMA).  Both return the CUDA error
+// of the launch (0 on success).
 
-// Inference, head_dim 64.  kv_blocked is (B, M) bytes (nonzero = blocked)
-// with batch stride m_sb, or null.
+// Inference.  kv_blocked is (B, M) bytes (nonzero = blocked) with batch
+// stride m_sb, or null.
 extern "C" int egom2p_flash64_fwd(const void* q, const void* k, const void* v,
                                   const void* kv_blocked, void* out, int batch, int n_q, int n_kv,
                                   int heads, long long q_sb, long long q_sn, long long k_sb,
                                   long long k_sn, long long v_sb, long long v_sn, long long m_sb,
                                   long long o_sb, long long o_sn, int safemax, void* stream) {
-  if (bad_shape(batch, n_q, n_kv, heads)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  const FwdArgs a = make_args(q, k, v, kv_blocked, nullptr, out, nullptr, n_q, n_kv, q_sb, q_sn,
-                              k_sb, k_sn, v_sb, v_sn, m_sb, o_sb, o_sn, 0.125);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = safemax ? launch_fwd<true, false, false, 64>(grid, st, a)
-                                  : launch_fwd<false, false, false, 64>(grid, st, a);
-  return static_cast<int>(err);
+  return run(q, k, v, kv_blocked, nullptr, out, nullptr, batch, n_q, n_kv, heads, q_sb, q_sn, k_sb,
+             k_sn, v_sb, v_sn, m_sb, o_sb, o_sn, safemax != 0, false, 0.125, stream);
 }
 
-// Training forward.  At most one of kv_blocked ((B, M) bytes) and segments
-// ((B, N) int32 ids, N == M) is given, with batch stride m_sb.  l2 is a
-// contiguous (B, H, N) fp32 output.  head_dim is 64 (both softmax forms) or
-// 80 (safemax only: the stock route); sm_scale is the natural scale, the
-// true head's hd^-0.5.
+// Training forward at head_dim 64.  At most one of kv_blocked ((B, M) bytes)
+// and segments ((B, N) int32 ids, N == M) is given, with batch stride m_sb.
+// l2 is a contiguous (B, H, N) fp32 output.  sm_scale is the natural scale,
+// the true head's hd^-0.5.
 extern "C" int egom2p_flash64_train_fwd(const void* q, const void* k, const void* v,
                                         const void* kv_blocked, const void* segments, void* out,
                                         void* l2, int batch, int n_q, int n_kv, int heads,
@@ -404,26 +466,8 @@ extern "C" int egom2p_flash64_train_fwd(const void* q, const void* k, const void
                                         long long k_sn, long long v_sb, long long v_sn,
                                         long long m_sb, long long o_sb, long long o_sn,
                                         int safemax, int head_dim, float sm_scale, void* stream) {
-  if (bad_shape(batch, n_q, n_kv, heads) || (kv_blocked != nullptr && segments != nullptr) ||
-      (segments != nullptr && n_q != n_kv) || l2 == nullptr ||
-      !(head_dim == 64 || (head_dim == 80 && safemax))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const FwdArgs a = make_args(q, k, v, kv_blocked, segments, out, l2, n_q, n_kv, q_sb, q_sn, k_sb,
-                              k_sn, v_sb, v_sn, m_sb, o_sb, o_sn, static_cast<double>(sm_scale));
-  const bool seg = segments != nullptr;
-  cudaError_t err;
-  if (head_dim == 80) {
-    err = seg ? launch_fwd<true, true, true, 80>(grid, st, a)
-              : launch_fwd<true, false, true, 80>(grid, st, a);
-  } else if (safemax) {
-    err = seg ? launch_fwd<true, true, true, 64>(grid, st, a)
-              : launch_fwd<true, false, true, 64>(grid, st, a);
-  } else {
-    err = seg ? launch_fwd<false, true, true, 64>(grid, st, a)
-              : launch_fwd<false, false, true, 64>(grid, st, a);
-  }
-  return static_cast<int>(err);
+  if (head_dim != kHD) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, kv_blocked, segments, out, l2, batch, n_q, n_kv, heads, q_sb, q_sn, k_sb,
+             k_sn, v_sb, v_sn, m_sb, o_sb, o_sn, safemax != 0, true,
+             static_cast<double>(sm_scale), stream);
 }

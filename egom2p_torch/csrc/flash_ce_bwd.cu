@@ -12,96 +12,248 @@
 // vocab columns (past V) give p = 0, rows past R and rows of weight 0 give
 // dl = 0 exactly.
 //
-// What bounds it on this card: arithmetic and the size of the accumulators.
-// At the training step's shapes (R = 16384, D = 768, V = 64000) the three
-// products (logits, dy, dW) are 1.6 TFLOP each.  The TPU kernel keeps a
-// (bv, 768) fp32 dW block resident in VMEM and spills a (br, 768) dy block;
-// on an SM (227 KB of shared memory, 64K registers) a 64 x 768 fp32
-// accumulator alone is 192 KB, beside the operand tiles.
+// What bounds it on this card: arithmetic.  At the training step's shapes
+// (R = 16384, D = 768, V = 64000) the three products (logits, dy, dW) are
+// 1.6 TFLOP each over all rows: 4.9 ms at 989 TFLOP/s, 2.4 ms when half the
+// rows weigh 0 (as in training); y, W, dy and dW are 0.37 GB, 0.11 ms.  The
+// TPU kernel keeps a (bv, 768) fp32 dW block resident in VMEM; on an SM a
+// 64 x 768 fp32 accumulator is 192 KB, three quarters of the register file,
+// so a block can own 64 output rows and no more, and every block streams the
+// whole other operand from L2: 128 FLOPs per byte.
 //
-// What the design does about it: two instances of one kernel, each owning
-// its output, so that nothing needs atomics and the result is
-// deterministic (the public cut-cross-entropy backward instead adds both
-// products with fp32 atomics from each (row, vocab) tile, which at D = 768
-// and these tiles would mean tens of GB of atomic traffic).  A block owns 64
-// rows of one operand (4 warps of 16) and a slice of 256 output columns: the
-// dy instance owns rows of y and walks the vocab, the dW instance owns vocab
-// rows of W and walks the rows of y.  The owned 64 x D tile stays resident
-// in shared memory (99 KB at D = 768); the walked operand streams through
-// double-buffered cp.async chunks of 64 x 64 for the logits tile (16 x 64 per
-// warp, fp32 in registers), whose dl goes straight into the A fragments of
-// dl . Z_slice, where Z_slice (64 walked rows x 256 columns) is loaded once
-// per walked tile and read with ldmatrix.trans.  Each warp's 16 x 256 fp32
-// accumulator is 128 registers per thread.  The price is recompute: each
-// of the D / 256 column slices recomputes the logits (3 times at D = 768),
-// so the two instances do 2 * (3 + 1) logits-sized products instead of 3.
-// Rows of weight 0 cost nothing: a dy block whose 64 rows all weigh 0
-// returns at once, and the dW instance walks only the 64-row tiles of y that
-// hold a row of nonzero weight (in training about half of the rows of each
-// 64k head belong to another modality).  Products are mma.sync m16n8k16
-// (bf16 in, fp32 accumulate).  Shared memory is 156 KB (one block per SM).
-// wgmma, TMA, more warps per SM and a cheaper split of D are later work.
+// What the design does about it: two instances of one block routine, each
+// owning its output, so that nothing needs atomics and the result is
+// deterministic.  A dy block owns 64 rows of y and walks the vocab; a dW
+// block owns 64 vocab rows of W and walks only the 32-row tiles of y that
+// hold a row of nonzero weight (a dy block whose rows all weigh 0 returns at
+// once).  Both run in ONE grid, the dy blocks first: they are few and long
+// (R / 64 blocks walking V / 32 tiles), and the many short dW blocks fill
+// the SMs that the last dy blocks leave idle.  A block owns ALL D output
+// columns, so each logits tile is computed once per block:
+//   * the owned 64 x D tile X stays in shared memory; the walked operand goes
+//     by in tiles Z of 32 rows x D through a ring of two stages; both as
+//     D / 64 column blocks of rows x 128 bytes (TMA, 128-byte swizzle);
+//   * D / 256 warpgroups each hold 64 x 256 fp32 of the output (128 registers
+//     a thread) and add dl . Z over their own 256 columns: wgmma m64n256k16,
+//     A = the bf16 dl tile from shared memory, B = their Z column blocks read
+//     MN-major.  A warpgroup that is done with its column blocks of a stage
+//     refills them with the tile after next by TMA itself;
+//   * the last warpgroup also computes the whole 64 x 32 logits tile: wgmma
+//     m64n32k16 over the D / 16 k-steps (A = X, B = Z, both K-major), then
+//     dl = (exp(s - logz) - onehot) * wc in registers, rounded to bf16 into
+//     one half of a 64 x 64 swizzled tile (the halves alternate), and an
+//     mbarrier tells the others.  It issues tile t+1's logits ahead of its
+//     own dl . Z of tile t and makes dl(t+1) while that product runs, so
+//     the other warpgroups never wait for dl in the steady state.
+// Which tiles and blocks of y hold a row of nonzero weight is found by a
+// small scan kernel first, into scratch that the caller provides.
+// Shared memory at D = 768: 96 KB (X) + 2 x 48 KB (Z) + 8 KB (dl) = 201 KB.
+// Registers (ptxas, CUDA 12.8): 184 at D = 256 and 512, no spills.  At
+// D = 768 three warpgroups start at 168 each; setmaxnreg moves 8 from each
+// accumulate-only warpgroup to the last (160 / 160 / 184), which still
+// spills 144 bytes, and ptxas reports that it serialises wgmma there for
+// want of registers (C7512): the open end of this design.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace egom2p;
 
-constexpr int kOwn = 64;          // owned rows per block: 4 warps x 16
-constexpr int kWalk = 64;         // walked rows per tile (the logits tile's columns)
-constexpr int kChunk = 64;        // depth of one streamed chunk
-constexpr int kSlice = 256;       // output columns per block
-constexpr int kThreads = 128;
+constexpr int kOwn = 64;          // owned rows per block
+constexpr int kWalk = 32;         // walked rows per tile (the logits tile's columns)
 constexpr int kMaxDim = 768;
-constexpr int kMaxTiles = 2048;   // walked 64-row tiles of y in the dW instance: R <= 131072
-constexpr int kZLd = kChunk + 8;  // padded smem rows: conflict-free fragments and ldmatrix
-constexpr int kSLd = kSlice + 8;
+constexpr int kXBlockBytes = kOwn * 128;    // one column block of X: 64 rows x 64 columns
+constexpr int kZBlockBytes = kWalk * 128;   // ... of a Z stage: 32 rows x 64 columns
+constexpr int kAccRegs = 160, kLastRegs = 184;  // D = 768: 2 x 160 + 184 = 3 x 168
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
-  const __nv_bfloat16 *y, *w;
   const int* targets;
   const float *wc, *logz;  // (R,) fp32: row weight times the upstream gradient; logsumexp
   float *dy, *dw;          // zeroed (R, D) and (V, D) fp32 outputs
+  // from the scan kernel: the 32-row tiles of y that hold a row of nonzero
+  // weight, in order, their count, and a flag per 64-row block of y
+  const int *live_tiles, *n_live, *block_live;
   int n_rows, vocab, dim;
-  int64_t y_s, w_s;
 };
 
+// Which rows of y count: one block.  live_tiles / n_live: the 32-row tiles
+// with a row of nonzero weight, compacted in order (the dW instance walks
+// only these); block_live: whether a 64-row block has one (a dy block
+// without one has nothing to do).
+__global__ void __launch_bounds__(1024)
+    ce_bwd_scan_kernel(const float* __restrict__ wc, int n_rows, int* __restrict__ live_tiles,
+                       int* __restrict__ n_live, int* __restrict__ block_live) {
+  __shared__ int warp_count[32];
+  __shared__ int base;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_t = (n_rows + kWalk - 1) / kWalk;
+  if (tid == 0) base = 0;
+  for (int t0 = 0; t0 < n_t; t0 += 1024) {  // 1024 tiles a round, one tile a thread
+    const int t = t0 + tid;
+    bool live = false;
+    if (t < n_t) {
+      const int lim = min(kWalk, n_rows - t * kWalk);
+      for (int i = 0; i < lim; ++i) live |= wc[t * kWalk + i] != 0.f;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    // a 64-row block is two neighbouring tiles: lanes 2k and 2k + 1
+    if (t < n_t && (lane & 1) == 0) block_live[t >> 1] = (ballot >> lane) & 3u ? 1 : 0;
+    if (lane == 0) warp_count[warp] = __popc(ballot);
+    __syncthreads();
+    int before = base;
+    for (int w = 0; w < warp; ++w) before += warp_count[w];
+    if (live) live_tiles[before + __popc(ballot & ((1u << lane) - 1u))] = t;
+    __syncthreads();
+    if (tid == 0) {
+      int total = base;
+      for (int w = 0; w < 32; ++w) total += warp_count[w];
+      base = total;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) *n_live = base;
+}
+
+template <int kNW>  // warpgroups: D = 256 * kNW
 struct Smem {
-  __nv_bfloat16 x[kOwn * (kMaxDim + 8)];   // the owned tile, rows of dim + 8
-  __nv_bfloat16 z[2][kWalk][kZLd];         // streamed chunks of the walked tile
-  __nv_bfloat16 s[kWalk][kSLd];            // the walked tile's output-column slice
+  __nv_bfloat16 x[4 * kNW][kXBlockBytes / 2];      // the owned tile
+  __nv_bfloat16 z[2][4 * kNW][kZBlockBytes / 2];   // two stages of the walked operand
+  __nv_bfloat16 dl[kOwn * 64];                     // bf16 dl, K-major: tile t in columns 32 (t & 1) ..
   float lz[2][kWalk], cw[2][kWalk];        // dW instance: the walked rows' logz, weight
   int tg[2][kWalk];                        // ... and target
-  int16_t live[kMaxTiles];                 // dW instance: walked tiles of nonzero weight
-  uint8_t flag[kMaxTiles];
-  int count;
+  uint64_t x_full, z_full[2], dl_full[2], dl_free[2];
 };
 
-template <bool kDw>
-__global__ void __launch_bounds__(kThreads, 1) flash_ce_bwd_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
-  const int own0 = blockIdx.x * kOwn;
-  const int col0 = blockIdx.y * kSlice;        // this block's output columns
-  const int x_ld = a.dim + 8;
-  // the owned operand X and the walked operand Z
-  const __nv_bfloat16* X = kDw ? a.w : a.y;
-  const __nv_bfloat16* Z = kDw ? a.y : a.w;
-  const int64_t x_s = kDw ? a.w_s : a.y_s, z_s = kDw ? a.y_s : a.w_s;
-  const int n_own = kDw ? a.vocab : a.n_rows, n_walk = kDw ? a.n_rows : a.vocab;
-  const int n_k = a.dim / kChunk;
+// One block's work: kDw = false owns rows own0 .. of y (map_x) and walks W
+// (map_z); kDw = true owns vocab rows of W and walks the live tiles of y.
+template <bool kDw, int kNW>
+__device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUtensorMap& map_z,
+                                             const Args& a, const int own_block) {
+  extern __shared__ unsigned char smem_raw[];
+  using Tiles = Smem<kNW>;
+  Tiles& sm = *reinterpret_cast<Tiles*>(smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
+  constexpr int kBlocks = 4 * kNW;          // column blocks of D
 
-  // This thread's owned rows r0, r0 + 8 (dy instance: their logz, weight,
-  // target; a block whose rows all weigh 0 leaves its zeroed dy as it is).
-  const int r0 = own0 + warp * 16 + gid;
+  const int tid = threadIdx.x, wg = tid >> 7;  // every warpgroup accumulates, the last also makes dl
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // accumulator row group / column pair
+  const int own0 = own_block * kOwn;
+  const int n_own = kDw ? a.vocab : a.n_rows, n_walk = kDw ? a.n_rows : a.vocab;
+  const int row_in = warp * 16 + gid;  // this thread's owned rows: row_in, row_in + 8
+  const int r0 = own0 + row_in;
+
+  // dy instance: a block whose rows all weigh 0 has no tile to walk and
+  // leaves its zeroed dy as it is.
+  const int n_tiles = kDw ? *a.n_live
+                          : (a.block_live[own_block] != 0 ? (n_walk + kWalk - 1) / kWalk : 0);
+  if (n_tiles == 0) return;
+  auto tile_row0 = [&](int ti) { return (kDw ? a.live_tiles[ti] : ti) * kWalk; };
+
+  if (tid == 0) {
+    mbar_init(&sm.x_full, 1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.z_full[i], kNW);       // the warpgroups' leaders (+ their TMA bytes)
+      mbar_init(&sm.dl_full[i], 1);        // the last warpgroup's leader
+      mbar_init(&sm.dl_free[i], 4 * kNW);  // one lane of each warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Descriptors are made where they are used, from the tiles' shared
+  // addresses in 16-byte units and constant upper halves.
+  const uint32_t z16 = smem_addr(sm.z[0][0]) >> 4;
+  const uint32_t dl16 = smem_addr(sm.dl) >> 4;
+  constexpr uint32_t kZStep = kZBlockBytes >> 4;
+  constexpr uint32_t kKMajorHi = (1024 >> 4) | (1u << 30);  // SBO 1024, 128-byte swizzle
+  auto desc = [](uint32_t lo, uint32_t hi) { return (static_cast<uint64_t>(hi) << 32) | lo; };
+
+  // this warpgroup streams its own 4 column blocks of walked tile ti into
+  // stage ti & 1
+  auto load_z = [&](int ti) {
+    const int z0 = tile_row0(ti), s = ti & 1;
+    mbar_arrive_expect_tx(&sm.z_full[s], 4 * kZBlockBytes);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = wg * 4 + i;
+      tma_load_2d(sm.z[s][c], &map_z, &sm.z_full[s], c * 64, z0);
+    }
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&sm.x_full, kBlocks * kXBlockBytes);
+#pragma unroll
+    for (int c = 0; c < kBlocks; ++c) tma_load_2d(sm.x[c], &map_x, &sm.x_full, c * 64, own0);
+  }
+  if ((tid & 127) == 0) {
+    load_z(0);
+    if (n_tiles > 1) load_z(1);
+  }
+
+  float acc[128];  // 64 owned rows x 256 output columns
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  // B of dl . Z: this warpgroup's column blocks, MN-major: 16 walked rows
+  // are 2048 bytes, the next 64 columns one column block on
+  const uint32_t zn16 = (z16 + wg * 4 * kZStep) | (kZStep << 16);
+  // acc (64 x 256) += bf16(dl) (64 owned x 32 walked) . Z (32 walked x 256), stage s
+  auto issue_acc = [&](int s) {
+#pragma unroll
+    for (int kk = 0; kk < kWalk / 16; ++kk) {
+      wgmma_ss<1>(acc, desc(dl16 + s * (64 >> 4) + 2 * kk, kKMajorHi),
+                  desc(zn16 + s * kBlocks * kZStep + kk * (2048 >> 4), kKMajorHi), 1);
+    }
+    wgmma_commit();
+  };
+  // after this warpgroup's product over tile ti: the dl half is free, and its
+  // column blocks of the stage take the tile after next
+  auto release = [&](int ti) {
+    if (lane == 0) mbar_arrive(&sm.dl_free[ti & 1]);
+    if (ti + 2 < n_tiles) {
+      named_barrier_sync(2 + wg, 128);  // every warp of the warpgroup is done with them
+      if ((tid & 127) == 0) load_z(ti + 2);
+    }
+  };
+  auto store_acc = [&]() {
+    float* out = kDw ? a.dw : a.dy;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + i * 8;
+      if (row >= n_own) continue;
+      float* o = out + static_cast<int64_t>(row) * a.dim + wg * 256;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        *reinterpret_cast<float2*>(o + j * 8 + tig * 2) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+  };
+
+  if (wg < kNW - 1) {
+    // ------------------------------------------- warpgroups that only accumulate
+    if (kNW == 3) setmaxnreg_dec<kAccRegs>();
+    for (int ti = 0; ti < n_tiles; ++ti) {
+      const int s = ti & 1, phase = (ti >> 1) & 1;
+      mbar_wait(&sm.z_full[s], phase);
+      mbar_wait(&sm.dl_full[s], phase);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_acc(s);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(ti);
+    }
+    store_acc();
+    return;
+  }
+
+  // ------------------------- the last warpgroup: logits and dl, and its own columns
+  if (kNW == 3) setmaxnreg_inc<kLastRegs>();
+  // dy instance: the owned rows' logz, weight and target
   float own_lz[2] = {0.f, 0.f}, own_wc[2] = {0.f, 0.f};
   int own_t[2] = {-1, -1};
-  int n_tiles;
   if (!kDw) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -112,191 +264,180 @@ __global__ void __launch_bounds__(kThreads, 1) flash_ce_bwd_kernel(const Args a)
         own_t[i] = a.targets[row];
       }
     }
-    if (!__syncthreads_or(own_wc[0] != 0.f || own_wc[1] != 0.f)) return;
-    n_tiles = (n_walk + kWalk - 1) / kWalk;
-  } else {
-    // the walked tiles that hold a row of nonzero weight, in order
-    const int all = (n_walk + kWalk - 1) / kWalk;
-    for (int tt = tid; tt < all; tt += kThreads) {
-      const int lim = min(kWalk, n_walk - tt * kWalk);
-      bool live = false;
-      for (int i = 0; i < lim && !live; ++i) live = a.wc[tt * kWalk + i] != 0.f;
-      sm.flag[tt] = live;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int n = 0;
-      for (int tt = 0; tt < all; ++tt) {
-        if (sm.flag[tt]) sm.live[n++] = static_cast<int16_t>(tt);
-      }
-      sm.count = n;
-    }
-    __syncthreads();
-    n_tiles = sm.count;
-    if (n_tiles == 0) return;
   }
-  auto tile_row0 = [&](int ti) { return (kDw ? static_cast<int>(sm.live[ti]) : ti) * kWalk; };
+  const uint32_t x16 = smem_addr(sm.x[0]) >> 4;
+  constexpr uint32_t kXStep = kXBlockBytes >> 4;
+  float lg[16];  // logits: 64 owned rows x 32 walked rows
+  unsigned char* dl_tile = reinterpret_cast<unsigned char*>(sm.dl);
 
-  // the owned tile: kOwn x dim, rows past n_own zero-filled
-  const int row_chunks = a.dim / 8;
-  for (int c = tid; c < kOwn * row_chunks; c += kThreads) {
-    const int r = c / row_chunks, col = (c % row_chunks) * 8;
-    const bool ok = own0 + r < n_own;
-    cp_async16(sm.x + r * x_ld + col, X + static_cast<int64_t>(ok ? own0 + r : 0) * x_s + col, ok);
-  }
-  const int n_steps = n_tiles * n_k;
-  auto load_z = [&](int step, int stage) {  // walked tile step / n_k, depth chunk step % n_k
-    const int ti = step / n_k, kc = step % n_k;
-    const int z0 = tile_row0(ti), k0 = kc * kChunk;
-#pragma unroll
-    for (int i = 0; i < kWalk * kChunk / 8 / kThreads; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 3, col = (c & 7) * 8;
-      const bool ok = z0 + r < n_walk;
-      cp_async16(&sm.z[stage][r][col], Z + static_cast<int64_t>(ok ? z0 + r : 0) * z_s + k0 + col,
-                 ok);
-    }
-    if (kDw && kc == 0 && tid < kWalk) {  // read by tile ti's epilogue, after a barrier
-      const int row = z0 + tid, b = ti & 1;
+  // dW instance: the walked rows' logz, weight and target of tile ti
+  auto load_meta = [&](int ti) {
+    if (kDw && (tid & 127) < kWalk) {
+      const int c = tid & 127, row = tile_row0(ti) + c, s = ti & 1;
       const bool ok = row < n_walk;
-      sm.lz[b][tid] = ok ? a.logz[row] : 0.f;
-      sm.cw[b][tid] = ok ? a.wc[row] : 0.f;
-      sm.tg[b][tid] = ok ? a.targets[row] : -1;
+      sm.lz[s][c] = ok ? a.logz[row] : 0.f;
+      sm.cw[s][c] = ok ? a.wc[row] : 0.f;
+      sm.tg[s][c] = ok ? a.targets[row] : -1;
     }
   };
-  load_z(0, 0);
-  cp_async_commit();
-
-  const __nv_bfloat16* xrow0 = sm.x + (warp * 16 + gid) * x_ld + tig * 2;
-  const __nv_bfloat16* xrow8 = xrow0 + 8 * x_ld;
-  float acc[kSlice / 8][4];  // this warp's 16 owned rows x 256 output columns
+  // logits (64 owned x 32 walked) = X . Z^T over all of D, both K-major
+  auto issue_logits = [&](int s) {
+    // the bases pass through an empty asm for each column block, or the
+    // compiler hoists all 12 x 4 descriptor pairs into registers that this
+    // warpgroup lacks
+    uint32_t xa = x16, za = z16 + s * kBlocks * kZStep;
 #pragma unroll
-  for (int j = 0; j < kSlice / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float s[8][4];
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int stage = step & 1, kc = step % n_k;
-    if (step + 1 < n_steps) {
-      load_z(step + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (kc == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    }
-    // logits (16 owned x 64 walked) += X_chunk . Z_chunk^T
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t af[4];
-      const int col = kc * kChunk + kk * 16;
-      load_a_frag(af, xrow0 + col, xrow8 + col);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* zrow = sm.z[stage][j * 8 + gid] + kk * 16 + tig * 2;
-        mma_16816(s[j], af, ld_smem_u32(zrow), ld_smem_u32(zrow + 8));
-      }
-    }
-
-    if (kc == n_k - 1) {  // the logits tile is complete
-      const int ti = step / n_k, z0 = tile_row0(ti), b = ti & 1;
-      // the walked rows' output-column slice, for the product below
-#pragma unroll
-      for (int i = 0; i < kWalk * kSlice / 8 / kThreads; ++i) {
-        const int c = tid + i * kThreads;
-        const int r = c / (kSlice / 8), col = (c % (kSlice / 8)) * 8;
-        const bool ok = z0 + r < n_walk;
-        cp_async16(&sm.s[r][col], Z + static_cast<int64_t>(ok ? z0 + r : 0) * z_s + col0 + col,
-                   ok);
-      }
-      cp_async_commit();
-      // dl = (p - onehot) * weight, in place of the logits
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, c = j * 8 + tig * 2 + (e & 1);
-          float lz, wt;
-          bool gold;
-          if (kDw) {  // owned vocab row r0 + 8i, walked row z0 + c
-            lz = sm.lz[b][c];
-            wt = sm.cw[b][c];
-            gold = sm.tg[b][c] == r0 + i * 8;
-          } else {    // owned row r0 + 8i, walked vocab column z0 + c
-            lz = own_lz[i];
-            wt = own_wc[i];
-            gold = z0 + c == own_t[i];
-          }
-          float p = exp2_approx((s[j][e] - lz) * kLog2e);
-          if (!kDw && z0 + c >= a.vocab) p = 0.f;  // padded vocab column
-          s[j][e] = (p - (gold ? 1.f : 0.f)) * wt;
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-      // acc (16 owned x 256) += bf16(dl) (16 x 64 walked) . Z_slice (64 x 256)
+    for (int c = 0; c < kBlocks; ++c, xa += kXStep, za += kZStep) {
+      asm volatile("" : "+r"(xa), "+r"(za));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        acc_to_a_frag(af, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int jd = 0; jd < kSlice / 16; ++jd) {
-          uint32_t bm[4];
-          ldmatrix_x4_trans(bm, &sm.s[kk * 16 + (mat & 1) * 8 + mrow][jd * 16 + (mat >> 1) * 8]);
-          mma_16816(acc[2 * jd], af, bm[0], bm[1]);
-          mma_16816(acc[2 * jd + 1], af, bm[2], bm[3]);
-        }
+        wgmma_ss<0>(lg, desc(xa + 2 * kk, kKMajorHi), desc(za + 2 * kk, kKMajorHi),
+                    (c | kk) != 0);
       }
     }
-    __syncthreads();  // every warp is done with `stage` (and the slice) before it is refilled
-  }
-
-  float* out = kDw ? a.dw : a.dy;
+    wgmma_commit();
+  };
+  // dl = (p - onehot) * weight of tile ti, rounded to bf16 into its half of
+  // the swizzled dl tile, then handed to every warpgroup
+  auto make_dl = [&](int ti) {
+    const int s = ti & 1, z0 = tile_row0(ti);
+    named_barrier_sync(1, 128);  // the walked rows' values are written
+    // every warp is done with this half of the dl tile (tile ti - 2)
+    if (ti >= 2) mbar_wait(&sm.dl_free[s], ((ti >> 1) - 1) & 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + i * 8;
-    if (row >= n_own) continue;
-    float* o = out + static_cast<int64_t>(row) * a.dim + col0;
+    for (int j = 0; j < 4; ++j) {
+      const int c = j * 8 + tig * 2;  // walked rows z0 + c, z0 + c + 1
 #pragma unroll
-    for (int j = 0; j < kSlice / 8; ++j) {
-      *reinterpret_cast<float2*>(o + j * 8 + tig * 2) = make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+      for (int i = 0; i < 2; ++i) {
+        float dl[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float lz, wt;
+          bool gold;
+          if (kDw) {  // owned vocab row r0 + 8i, walked row z0 + c + e
+            lz = sm.lz[s][c + e];
+            wt = sm.cw[s][c + e];
+            gold = sm.tg[s][c + e] == r0 + i * 8;
+          } else {    // owned row r0 + 8i, walked vocab column z0 + c + e
+            lz = own_lz[i];
+            wt = own_wc[i];
+            gold = z0 + c + e == own_t[i];
+          }
+          float p = exp2_approx((lg[4 * j + 2 * i + e] - lz) * kLog2e);
+          if (!kDw && z0 + c + e >= a.vocab) p = 0.f;  // padded vocab column
+          dl[e] = (p - (gold ? 1.f : 0.f)) * wt;
+        }
+        const int r = row_in + i * 8, col = s * kWalk + c;  // this tile's half of the dl tile
+        *reinterpret_cast<uint32_t*>(dl_tile + r * 128 + (((col >> 3) ^ (r & 7)) << 4) +
+                                     (col & 7) * 2) = pack_bf16(dl[0], dl[1]);
+      }
     }
+    fence_proxy_async();  // the tile is read by wgmma (async proxy)
+    named_barrier_sync(1, 128);
+    if ((tid & 127) == 0) mbar_arrive(&sm.dl_full[s]);
+  };
+
+  mbar_wait(&sm.x_full, 0);
+  load_meta(0);
+  mbar_wait(&sm.z_full[0], 0);
+  wgmma_fence();
+  issue_logits(0);
+  wgmma_wait<0>();
+  fence_regs(lg);
+  make_dl(0);
+  // tile ti + 1's logits go ahead of tile ti's dl . Z, and its dl is made
+  // while that product runs
+  for (int ti = 0; ti + 1 < n_tiles; ++ti) {
+    const int s = ti & 1;
+    load_meta(ti + 1);
+    mbar_wait(&sm.z_full[s ^ 1], ((ti + 1) >> 1) & 1);
+    fence_regs(acc);
+    fence_regs(lg);
+    wgmma_fence();
+    issue_logits(s ^ 1);
+    issue_acc(s);
+    wgmma_wait<1>();
+    fence_regs(lg);
+    make_dl(ti + 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(ti);
+  }
+  fence_regs(acc);
+  wgmma_fence();
+  issue_acc((n_tiles - 1) & 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  store_acc();
+}
+
+// The tensor map of a (rows, D) bf16 matrix with row stride `stride`
+// (elements): boxes of `box_rows` rows x 64 columns.
+int matrix_map(CUtensorMap* map, const void* ptr, int rows, int dim, long long stride,
+               int box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(dim), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(stride) * 2};
+  const uint32_t box[2] = {64, static_cast<uint32_t>(box_rows)};
+  return make_tensor_map(map, ptr, 2, dims, strides, box);
+}
+
+// One launch for both instances, so that the dW blocks fill the SMs that the
+// last of the (longer) dy blocks leave idle: blocks 0 .. dy_blocks - 1 own
+// rows of y, the rest own vocab rows of W.  owned / walked: the tensor maps
+// of y ([0]) and W ([1]) with boxes of 64 and of 32 rows.
+template <int kNW>
+__global__ void __launch_bounds__(kNW * 128, 1)
+    flash_ce_bwd_kernel(const __grid_constant__ CUtensorMap owned_y,
+                        const __grid_constant__ CUtensorMap owned_w,
+                        const __grid_constant__ CUtensorMap walked_y,
+                        const __grid_constant__ CUtensorMap walked_w, const Args a,
+                        const int dy_blocks) {
+  const int block = blockIdx.x;
+  if (block < dy_blocks) {
+    ce_bwd_block<false, kNW>(owned_y, walked_w, a, block);
+  } else {
+    ce_bwd_block<true, kNW>(owned_w, walked_y, a, block - dy_blocks);
   }
 }
 
-template <bool kDw>
-cudaError_t launch(dim3 grid, cudaStream_t st, const Args& a) {
-  constexpr int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(flash_ce_bwd_kernel<kDw>,
+template <int kNW>
+cudaError_t launch(cudaStream_t st, const CUtensorMap (&owned)[2], const CUtensorMap (&walked)[2],
+                   const Args& a) {
+  constexpr int smem = static_cast<int>(sizeof(Smem<kNW>)) + 1024;  // base rounded up to 1024
+  cudaError_t err = cudaFuncSetAttribute(flash_ce_bwd_kernel<kNW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_ce_bwd_kernel<kDw><<<grid, kThreads, smem, st>>>(a);
+  const int dy_blocks = (a.n_rows + kOwn - 1) / kOwn, dw_blocks = (a.vocab + kOwn - 1) / kOwn;
+  flash_ce_bwd_kernel<kNW><<<dy_blocks + dw_blocks, kNW * 128, smem, st>>>(
+      owned[0], owned[1], walked[0], walked[1], a, dy_blocks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes.  y (R, D) and w (V, D) are bf16 rows with
-// unit stride inside a row and row strides y_s, w_s (elements); D is a
-// multiple of 256 and at most 768; R is at most 131072.  targets (R,) int32,
-// wc and logz (R,) fp32.  dy (R, D) and dw (V, D) are contiguous fp32 outputs
-// that the caller has zeroed.  Launches the dy instance, then the dW
-// instance, on `stream`; returns the first CUDA error (0 on success).
+// unit stride inside a row, 16-byte aligned bases and row strides y_s, w_s
+// (elements, multiples of 8); D is a multiple of 256 and at most 768.
+// targets (R,) int32, wc and logz (R,) fp32.  dy (R, D) and dw (V, D) are
+// contiguous fp32 outputs that the caller has zeroed; scratch is int32 of
+// ceil(R / 32) + ceil(R / 64) + 2 elements, written here.  Launches the scan,
+// then both instances as one grid, on `stream`; returns the first CUDA
+// error (0 on success).
 extern "C" int egom2p_flash_ce_bwd(const void* y, const void* w, const void* targets,
                                    const void* wc, const void* logz, void* dy, void* dw,
-                                   int n_rows, int vocab, int dim, long long y_s, long long w_s,
-                                   void* stream) {
-  if (n_rows <= 0 || vocab <= 0 || dim <= 0 || dim % kSlice != 0 || dim > kMaxDim ||
-      (n_rows + kWalk - 1) / kWalk > kMaxTiles) {
+                                   void* scratch, int n_rows, int vocab, int dim, long long y_s,
+                                   long long w_s, void* stream) {
+  if (n_rows <= 0 || vocab <= 0 || dim <= 0 || dim % 256 != 0 || dim > kMaxDim ||
+      scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  CUtensorMap owned[2], walked[2];  // of y and of w, boxes of 64 and of 32 rows
+  int rc = matrix_map(&owned[0], y, n_rows, dim, y_s, kOwn);
+  if (rc == 0) rc = matrix_map(&owned[1], w, vocab, dim, w_s, kOwn);
+  if (rc == 0) rc = matrix_map(&walked[0], y, n_rows, dim, y_s, kWalk);
+  if (rc == 0) rc = matrix_map(&walked[1], w, vocab, dim, w_s, kWalk);
+  if (rc != 0) return rc;
   Args a;
-  a.y = static_cast<const __nv_bfloat16*>(y);
-  a.w = static_cast<const __nv_bfloat16*>(w);
   a.targets = static_cast<const int*>(targets);
   a.wc = static_cast<const float*>(wc);
   a.logz = static_cast<const float*>(logz);
@@ -305,10 +446,22 @@ extern "C" int egom2p_flash_ce_bwd(const void* y, const void* w, const void* tar
   a.n_rows = n_rows;
   a.vocab = vocab;
   a.dim = dim;
-  a.y_s = y_s;
-  a.w_s = w_s;
+  int* live_tiles = static_cast<int*>(scratch);
+  int* n_live = live_tiles + (n_rows + kWalk - 1) / kWalk;
+  int* block_live = n_live + 1;  // ceil(R / 32 / 2) entries, rounded up to an even tile count
+  a.live_tiles = live_tiles;
+  a.n_live = n_live;
+  a.block_live = block_live;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch<false>(dim3((n_rows + kOwn - 1) / kOwn, dim / kSlice), st, a);
+  ce_bwd_scan_kernel<<<1, 1024, 0, st>>>(a.wc, n_rows, live_tiles, n_live, block_live);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch<true>(dim3((vocab + kOwn - 1) / kOwn, dim / kSlice), st, a));
+  if (dim == 768) {
+    err = launch<3>(st, owned, walked, a);
+  } else if (dim == 512) {
+    err = launch<2>(st, owned, walked, a);
+  } else {
+    err = launch<1>(st, owned, walked, a);
+  }
+  return static_cast<int>(err);
 }

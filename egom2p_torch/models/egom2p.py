@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from egom2p_torch.data.modality_info import MODALITY_INFO
 from egom2p_torch.models.embeddings import (make_decoder_embedding,
@@ -29,7 +30,7 @@ from egom2p_torch.models.embeddings import (make_decoder_embedding,
 from egom2p_torch.models.transformer import (ACTIVATIONS, Block, DecoderBlock,
                                              LayerNorm, Linear)
 from egom2p_torch.ops.attention import SegmentMask
-from egom2p_torch.ops.flash_ce import flash_ce_total
+from egom2p_torch.ops.flash_ce import flash_ce_total, matmul_f32
 
 SEQ_TYPES = ("seq", "seq_emb", "seq_token")
 
@@ -248,8 +249,13 @@ class EgoM2P(nn.Module):
         hand-written kernel on CUDA: no (rows, V) logits in device memory)
         when the model dim is a multiple of 128 (not EgoM2P-large's 1020, as
         in the JAX package); EGOM2P_FLASH_CE=0 turns it off.  Other heads
-        take a plain logsumexp over chunks of rows.  EGOM2P_CE_CHUNK
-        overrides the chunk."""
+        take a plain logsumexp over chunks of rows, each chunk under
+        torch.utils.checkpoint: its (chunk, V) fp32 logits are recomputed in
+        the backward, not kept (the JAX package's jax.checkpoint around its
+        scan body).  The logits product goes through flash_ce.matmul_f32:
+        its operands are bf16 values widened to fp32, exact in TF32, so on
+        the card the product and its recompute run on the TF32 tensor
+        cores with the same numbers.  EGOM2P_CE_CHUNK overrides the chunk."""
         chunk = int(os.environ.get("EGOM2P_CE_CHUNK", "0")) or chunk
         flash = os.environ.get("EGOM2P_FLASH_CE", "1") != "0"
         emb_mod = self.decoder_embeddings[mod]
@@ -261,13 +267,19 @@ class EgoM2P(nn.Module):
                         torch.zeros_like(target_ids.reshape(-1)))
         if flash and emb_mod.vocab_size >= 4096 and D % 128 == 0:
             return flash_ce_total(yf, emb_mod.token_emb.weight, t, w, chunk=chunk), w.sum()
-        head = emb_mod.head_weight(y.dtype)
+        head_t = emb_mod.head_weight(y.dtype).t()
+        bf16_values = y.dtype == torch.bfloat16
+
+        def chunk_total(y_c, t_c, w_c):
+            logits = matmul_f32(y_c, head_t, bf16_values=bf16_values)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(1, t_c.long()[:, None])[:, 0]
+            return ((logz - gold) * w_c).sum()
+
         total = yf.new_zeros((), dtype=torch.float32)
         for r0 in range(0, yf.shape[0], chunk):
-            logits = emb_mod.forward_logits(yf[r0:r0 + chunk], head)
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(1, t[r0:r0 + chunk].long()[:, None])[:, 0]
-            total = total + ((logz - gold) * w[r0:r0 + chunk]).sum()
+            total = total + checkpoint(chunk_total, yf[r0:r0 + chunk], t[r0:r0 + chunk],
+                                       w[r0:r0 + chunk], use_reentrant=False)
         return total, w.sum()
 
     def forward_loss(self, y, target_ids, decoder_mod_mask, loss_type: str,

@@ -13,8 +13,10 @@ and `safemax=True` (or EGOM2P_F64_SAFEMAX=1 when safemax is None), the
 running-max online softmax.
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-csrc/flash64_fwd.cu or raises.  On a CPU tensor it runs
-`flash64_attention_reference`, the plain PyTorch version of the same math.
+csrc/flash64_fwd.cu (wgmma on 128-row query tiles and 128-key stages that a
+producer warp fills by TMA; it masks its own ragged edges, so N and M are
+free) or raises.  On a CPU tensor it runs `flash64_attention_reference`, the
+plain PyTorch version of the same math.
 """
 from __future__ import annotations
 
@@ -87,9 +89,11 @@ flash64_attention.launches = 0
 
 
 def _kernel_operand(name: str, t: torch.Tensor) -> torch.Tensor:
-    """bf16, unit stride inside a row, 16-byte aligned rows: what the kernel's
-    cp.async loads take.  Other float dtypes are rounded to bf16 (the JAX
-    contract); layouts the kernel cannot read raise."""
+    """bf16, unit stride inside a row, a 16-byte aligned base and row and
+    batch strides that are multiples of 16 bytes: what the kernel's TMA tile
+    loads take (views of a fused qkv or kv projection do).  Other float
+    dtypes are rounded to bf16 (the JAX contract); layouts the kernel cannot
+    read raise."""
     if t.dtype != torch.bfloat16:
         t = t.to(torch.bfloat16)
     if t.stride(2) != 1:

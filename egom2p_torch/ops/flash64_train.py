@@ -14,7 +14,8 @@ backward recomputes p = exp2(s - L2) from the forward's per-row L2 with the
 same clamp.
 
 It is a torch.autograd.Function.  The forward launches the forward kernel
-(csrc/flash64_fwd.cu, its L2 instance) and keeps o and L2; the backward forms
+(csrc/flash64_fwd.cu, its L2 instance: wgmma, 128-row query tiles, 128-key
+stages, any N and M) and keeps o and L2; the backward forms
 D = rowsum(do * o) per head in fp32 and launches the dq kernel and the dk/dv
 kernel (csrc/flash64_train.cu), or, when EGOM2P_F64T_FUSED_BWD=1 at the time
 the backward runs, the one fused dq/dk/dv kernel.  The fused kernel sums dq
@@ -29,7 +30,8 @@ split kernels' three gradients).  Each wrapper's `.launches` counts its CUDA
 launches.  No gradient goes to the mask or the segments.
 
 The forward and fused kernels also serve ops/flash_attention.py (the stock
-route) at head_dim 80: every function here takes `hd` (the kernel's head
+route); at head_dim 80 the forward is csrc/flash80_fwd.cu (mma.sync, 64-row
+tiles).  Every function here takes `hd` (the kernel's head
 dim, 64 or 80) and `sm_scale` (the true head's natural scale, hd^-0.5 by
 default) as keywords.
 """
@@ -214,7 +216,9 @@ def launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
         if which == "fwd":
             out = torch.empty((B, N, C), dtype=torch.bfloat16, device=q.device)
             lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-            rc = lib.egom2p_flash64_train_fwd(
+            # head_dim 64: the wgmma kernel; 80 (the stock route): its own file
+            fwd = lib.egom2p_flash80_fwd if hd == 80 else lib.egom2p_flash64_train_fwd
+            rc = fwd(
                 qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ptr(mask), ptr(seg),
                 out.data_ptr(), lse.data_ptr(), B, N, M, H, *strides, m_sb,
                 out.stride(0), out.stride(1), int(safemax), hd, nat, stream)

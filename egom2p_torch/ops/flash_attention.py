@@ -17,15 +17,18 @@ under the A/B kill switches.  The contract is the JAX one:
 q/k/v/do are rounded to bf16 for the products; scores and sums are fp32,
 p is rounded to bf16 for P.V and P^T.dO, dS for dS.K and dS^T.Q.
 
-On the card the route runs the hand-written kernels of
-csrc/flash64_fwd.cu (forward, safemax, with L2) and csrc/flash64_train.cu
-(the fused dq/dk/dv backward, safemax), instanced at head_dim 64 and 80.
-Heads of 65..80 are zero-padded to 80 (the next multiple of 16 that
-mma.sync m16n8k16 needs) and heads under 64 to 64: zero columns change no
-score and give zero output and gradient columns, which are dropped.  The
-wrapper packs q/k/v (and do) into contiguous (B, N, H*hd_kernel) buffers
-before the launch: a head of 68 bf16 is 136 bytes, so the heads of a fused
-projection do not start on the 16-byte boundaries that cp.async needs.  On
+On the card the route runs hand-written kernels: the forward (safemax,
+with L2) is csrc/flash64_fwd.cu at head_dim 64 (wgmma, 128-row tiles) and
+csrc/flash80_fwd.cu at head_dim 80 (mma.sync, 64-row tiles: a row of 160
+bytes fits no 128-byte swizzle atom, so this instance was not redesigned);
+the backward is the fused dq/dk/dv kernel of csrc/flash64_train.cu
+(safemax), instanced at 64 and 80.  Heads of 65..80 are zero-padded to 80
+(the next multiple of 16 that mma.sync m16n8k16 needs) and heads under 64 to
+64: zero columns change no score and give zero output and gradient columns,
+which are dropped.  The wrapper packs q/k/v (and do) into contiguous
+(B, N, H*hd_kernel) buffers before the launch: a head of 68 bf16 is 136
+bytes, so the heads of a fused projection do not start on the 16-byte
+boundaries that the kernels' tile loads (cp.async, TMA) need.  On
 CPU tensors the wrappers `flash_attention_fwd` / `flash_attention_bwd` run
 the plain versions; each counts its CUDA launches in `.launches`.  The fused
 backward's dq is summed with fp32 atomics, so it is not bitwise

@@ -19,15 +19,17 @@ dl = (p - onehot) * wts * g rounded to w's dtype, dy = dl @ w, dW += dl^T @ y
 summed in fp32 and cast to w_mat's dtype.  With EGOM2P_CE_PALLAS_BWD=1 at
 the time the backward runs, `ce_bwd(y, w, targets, wc, logz)` -> (dy, dW),
 both fp32, computes the same in the hand-written kernel
-csrc/flash_ce_bwd.cu (the logits never reach device memory; a CUDA tensor
-it cannot take raises) or, on a CPU tensor, in `ce_bwd_reference`, the
+csrc/flash_ce_bwd.cu (wgmma; a block owns 64 rows and all D output
+columns, so each logits tile is computed once; D a multiple of 256 up to
+768; the logits never reach device memory; a CUDA tensor it cannot take
+raises) or, on a CPU tensor, in `ce_bwd_reference`, the
 chunked recompute with fp32 dy.  `ce_bwd.launches` counts its CUDA calls.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,14 +46,21 @@ def _tf32_matmuls(enabled: bool):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fp32 product a @ b of two tensors of one dtype, with fp32 sums.
+def matmul_f32(a: torch.Tensor, b: torch.Tensor,
+               bf16_values: Optional[bool] = None) -> torch.Tensor:
+    """fp32 product a @ b with fp32 sums.
 
     A bf16 value is exact in TF32 (10 mantissa bits hold bf16's 7), so on a
-    CUDA device the product of bf16 operands runs on the TF32 tensor cores
-    with no rounding of its inputs: the same numbers as a full fp32 product,
-    up to the order of the sums.  Other dtypes compute in full fp32."""
-    with _tf32_matmuls(a.is_cuda and a.dtype == b.dtype == torch.bfloat16):
+    CUDA device the product of operands that hold bf16 values runs on the
+    TF32 tensor cores with no rounding of its inputs: the same numbers as a
+    full fp32 product, up to the order of the sums.  `bf16_values` says that
+    both operands hold bf16 values, whatever their dtype (fp32 copies of
+    bf16 tensors); by default it is true when both are bf16 tensors.  Other
+    operands compute in full fp32.  Only this product takes TF32: the
+    products of its backward run after the switch is restored."""
+    if bf16_values is None:
+        bf16_values = a.dtype == b.dtype == torch.bfloat16
+    with _tf32_matmuls(a.is_cuda and bf16_values):
         return torch.matmul(a.float(), b.float())
 
 
@@ -116,9 +125,9 @@ def _launch(y, w, targets):
     return logz, gold
 
 
-# the backward kernel's limits: 256-column output slices, at most 768 columns
-# (a 64-row operand tile in shared memory), at most 2048 tiles of 64 rows
-BWD_SLICE, BWD_MAX_DIM, BWD_MAX_ROWS = 256, 768, 2048 * 64
+# the backward kernel's limits: 256 output columns per warpgroup, at most 768
+# columns (three warpgroups; a 64-row operand tile in shared memory)
+BWD_SLICE, BWD_MAX_DIM = 256, 768
 
 
 def ce_bwd(y: torch.Tensor, w: torch.Tensor, targets: torch.Tensor, wc: torch.Tensor,
@@ -145,9 +154,9 @@ def _launch_bwd(y, w, targets, wc, logz):
 
     R, D = y.shape
     V = w.shape[0]
-    if D % BWD_SLICE or D > BWD_MAX_DIM or R > BWD_MAX_ROWS:
+    if D % BWD_SLICE or D > BWD_MAX_DIM:
         raise ValueError(f"the flash_ce backward kernel takes D a multiple of {BWD_SLICE} "
-                         f"up to {BWD_MAX_DIM} and R <= {BWD_MAX_ROWS}, got R {R}, D {D}")
+                         f"up to {BWD_MAX_DIM}, got {D}")
     yb, wb = _kernel_operand("y", y), _kernel_operand("w", w)
     t = targets.to(torch.int32).contiguous()
     wcc = wc.to(torch.float32).contiguous()
@@ -156,12 +165,15 @@ def _launch_bwd(y, w, targets, wc, logz):
         raise ValueError(f"wc and logz must be ({R},), got {tuple(wcc.shape)}, {tuple(lz.shape)}")
     dy = torch.zeros((R, D), dtype=torch.float32, device=y.device)
     dw = torch.zeros((V, D), dtype=torch.float32, device=y.device)
+    # the kernel's list of the 32-row tiles and 64-row blocks of y that count
+    scratch = torch.empty(-(-R // 32) + -(-R // 64) + 2, dtype=torch.int32, device=y.device)
     lib = _build.load()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = lib.egom2p_flash_ce_bwd(yb.data_ptr(), wb.data_ptr(), t.data_ptr(),
                                      wcc.data_ptr(), lz.data_ptr(), dy.data_ptr(),
-                                     dw.data_ptr(), R, V, D, yb.stride(0), wb.stride(0), stream)
+                                     dw.data_ptr(), scratch.data_ptr(), R, V, D,
+                                     yb.stride(0), wb.stride(0), stream)
     if rc != 0:
         raise RuntimeError(f"flash_ce backward kernel launch failed with CUDA error {rc}")
     return dy, dw

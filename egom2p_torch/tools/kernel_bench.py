@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Time the forward attention kernel, the CE backward kernel and the serving
+slice of one checkout of the port at the main paths' shapes, each kernel
+checked against its plain version first.
+
+    python3 egom2p_torch/tools/kernel_bench.py [--root DIR] [--only fwd|ce|serve] [--reps N]
+
+`--root` names the checkout whose `egom2p_torch` is imported (default: the
+one this file lies in), so two commits can be compared inside one process
+sequence on one card: unpack the other commit somewhere and run this file
+once per root, in turns.  Needs a CUDA device; prints one JSON object per
+measurement, then the card's name and power limit.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+B, HEADS = 8, 12
+
+
+def cuda_ms(fn, reps, warmup=2):
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fused_views(rng, n_q, n_kv, dev):
+    C = HEADS * 64
+    qkv = torch.from_numpy(rng.standard_normal((B, n_q, 3 * C), np.float32)).to(dev, torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal((B, n_kv, 2 * C), np.float32)).to(dev, torch.bfloat16)
+    return qkv[..., :C], kv[..., :C], kv[..., C:]
+
+
+def bench_fwd(dev, reps):
+    from egom2p_torch.ops import flash64 as f64
+    from egom2p_torch.ops import flash64_train as ft
+
+    rng = np.random.default_rng(0)
+    for name, n_q, n_kv, live in (("8704^2 key padding", 8704, 8704, 8534),
+                                  ("1707x3584 key padding", 1707, 3584, 3414),
+                                  ("1707^2 no mask", 1707, 1707, None)):
+        q, k, v = fused_views(rng, n_q, n_kv, dev)
+        blocked = None
+        if live is not None:
+            blocked = (torch.arange(n_kv, device=dev) >= live)[None].expand(B, -1).contiguous()
+        for safemax in (False, True):
+            out = f64.flash64_attention(q, k, v, blocked, safemax=safemax)
+            torch.cuda.synchronize()
+            ref = f64.flash64_attention_reference(q, k, v, blocked, safemax=safemax)
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = cuda_ms(lambda: f64.flash64_attention(q, k, v, blocked, safemax=safemax), reps)
+            yield {"kernel": "flash64_fwd", "case": name, "safemax": safemax, "ms": ms,
+                   "tflops": 4.0 * B * HEADS * n_q * n_kv * 64 / ms / 1e9, "max_abs_err": err}
+        del q, k, v
+    # the training forward: self-attention views of one qkv projection
+    n, C = 2048, HEADS * 64
+    qkv = torch.from_numpy(rng.standard_normal((B, n, 3 * C), np.float32)).to(dev, torch.bfloat16)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    live = torch.from_numpy(rng.integers(n // 2, n, B)).to(dev)
+    kvb = torch.arange(n, device=dev)[None] >= live[:, None]
+    ids = torch.tensor([31433, 17061, 7210, 25377, -1], device=dev, dtype=torch.int32)
+    seg = ids[torch.from_numpy(np.sort(rng.integers(0, 5, (B, n)), axis=1)).to(dev)]
+    for name, mk, sg in (("2048^2 key padding", kvb, None), ("2048^2 segments", None, seg)):
+        for safemax in (False, True):
+            o, l2 = ft.flash64_train_fwd(q, k, v, mk, sg, safemax)
+            torch.cuda.synchronize()
+            ro, rl2 = ft.flash64_train_reference_fwd(q, k, v, mk, sg, safemax)
+            err = max((o.float() - ro.float()).abs().max().item(), (l2 - rl2).abs().max().item())
+            ms = cuda_ms(lambda: ft.flash64_train_fwd(q, k, v, mk, sg, safemax), reps)
+            yield {"kernel": "flash64_train_fwd", "case": name, "safemax": safemax, "ms": ms,
+                   "tflops": 4.0 * B * HEADS * n * n * 64 / ms / 1e9, "max_abs_err": err}
+
+
+def bench_ce(dev, reps):
+    from egom2p_torch.ops.flash_ce import _bwd_chunked, ce_bwd, row_stats_reference
+
+    R, V, D = 16384, 64000, 768
+    gen = torch.Generator(device=dev).manual_seed(R + 1)
+    y = torch.randn((R, D), device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn((V, D), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    t = torch.randint(0, V, (R,), device=dev, generator=gen, dtype=torch.int32)
+    # each 2048-row sample holds one block of this head's rows (half the rows live)
+    start = torch.randint(0, 1024, (R // 2048 + 1,), device=dev, generator=gen)
+    pos = torch.arange(R, device=dev)
+    live = ((pos % 2048) >= start[pos // 2048]) & ((pos % 2048) < start[pos // 2048] + 1024)
+    logz, _ = row_stats_reference(y, w, t)
+    for name, wc in (("half the rows live", live.float() / live.sum()),
+                     ("all rows live", torch.full((R,), 1.0 / R, device=dev))):
+        dy, dw = ce_bwd(y, w, t, wc, logz)
+        torch.cuda.synchronize()
+        rdy, rdw = _bwd_chunked(y, w, t, wc, logz, 2048, dy_f32=True)
+        err = max(((dy - rdy).abs().max() / rdy.abs().max()).item(),
+                  ((dw - rdw).abs().max() / rdw.abs().max()).item())
+        ms = cuda_ms(lambda: ce_bwd(y, w, t, wc, logz), reps, 1)
+        chunked_ms = cuda_ms(lambda: _bwd_chunked(y, w, t, wc, logz, 2048), 3, 1)
+        yield {"kernel": "flash_ce_bwd", "case": f"R {R} D {D} V {V}, {name}", "ms": ms,
+               "chunked_ms": chunked_ms, "max_rel_err": err}
+        del dy, dw, rdy, rdw
+
+
+def bench_serve(dev, reps):
+    """The serving slice of chip_smoke.py (tokenize + 3-step rgb2depth, B = 8,
+    median of 3 runs) on the package of `--root`."""
+    sys.path.append(str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    launches, _, clips_per_s = chip_smoke.slice_phase(dev)
+    yield {"kernel": "serving slice", "clips_per_s": clips_per_s, "flash64_launches": launches}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--only", choices=("fwd", "ce", "serve"))
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_bench: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, args.root)
+    from egom2p_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    _build.load()
+    print(f"root {args.root}: kernel build {_build.build_seconds():.1f} s")
+    for line in _build.ptxas_log().splitlines():
+        if any(word in line for word in ("registers", "spill", "wgmma", "warning", "setmaxnreg")):
+            print(f"  ptxas: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phases = [p for name, p in (("fwd", bench_fwd), ("ce", bench_ce), ("serve", bench_serve))
+              if args.only in (None, name)]
+    for phase in phases:
+        for row in phase(dev, args.reps):
+            print(json.dumps({"root": args.root, **row}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

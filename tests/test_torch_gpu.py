@@ -95,6 +95,70 @@ def test_flash64_kernel_rejects_bad_layout(cuda):
         flash64_attention(q[:, :, :96], q[:, :, :96], q[:, :, :96])  # hd != 64
 
 
+# the forward kernel's 128-row query tiles and 128-key stages: lengths on both
+# sides of every tile edge, a single row, and the main paths' ragged lengths
+RAGGED_SELF = [1, 63, 64, 65, 127, 128, 129, 1707, 2000]
+RAGGED_CROSS = [(1, 129), (129, 1), (63, 2000), (2000, 65), (127, 128), (128, 127), (65, 1707)]
+
+
+@pytest.mark.parametrize("safemax", [False, True])
+@pytest.mark.parametrize("mode", ["none", "kp", "seg"])
+@pytest.mark.parametrize("n", RAGGED_SELF)
+def test_flash64_fwd_kernel_ragged_self(cuda, n, mode, safemax):
+    """The forward kernel (training instance: o and L2) on strided views of
+    a fused projection, no mask / key padding with a dead batch row /
+    segments with -1: dead rows are exact zeros with L2 = +1e30."""
+    import egom2p_torch.ops.flash64_train as ft
+    rng = np.random.default_rng(n)
+    q, k, v, _, kvb, seg = _train_inputs(rng, 2, n, n, 2, mode, cuda)
+    before = ft.flash64_train_fwd.launches
+    o, l2 = ft.flash64_train_fwd(q, k, v, kvb, seg, safemax)
+    torch.cuda.synchronize()
+    assert ft.flash64_train_fwd.launches == before + 1
+    ro, rl2 = ft.flash64_train_reference_fwd(q, k, v, kvb, seg, safemax)
+    torch.testing.assert_close(o.float(), ro.float(), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(l2, rl2, atol=1e-4, rtol=0)
+    if kvb is not None:
+        dead = kvb.all(dim=1)
+        assert dead.any() and (o[dead] == 0).all() and (l2[dead] == 1e30).all()
+
+
+@pytest.mark.parametrize("safemax", [False, True])
+@pytest.mark.parametrize("N,M", RAGGED_CROSS)
+def test_flash64_fwd_kernel_ragged_cross(cuda, N, M, safemax):
+    """The inference instance with N != M, key padding on k/v views of a
+    fused kv projection, one batch row fully blocked."""
+    rng = np.random.default_rng(N * 10000 + M)
+    q, k, v = _qkv(rng, 2, N, M, 3, cuda, fused=True)
+    blocked = torch.from_numpy(rng.uniform(size=(2, M)) < 0.3)
+    blocked[1] = True
+    blocked = blocked.to(cuda)
+    out = flash64_attention(q, k, v, blocked, safemax=safemax)
+    torch.cuda.synchronize()
+    ref = flash64_attention_reference(q, k, v, blocked, safemax=safemax)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    assert (out[1] == 0).all(), "fully blocked rows must be exact zeros"
+
+
+@pytest.mark.parametrize("safemax", [False, True])
+@pytest.mark.parametrize("M,live", [
+    (8704, [(0, 8534)]),                 # the serving encoder: 8534 live keys of 8704
+    (512, [(0, 128), (256, 512)]),       # a fully blocked 128-key stage between live ones
+    (640, [(300, 310)]),                 # blocked stages first, ten live keys, blocked stages last
+])
+def test_flash64_fwd_kernel_blocked_stages(cuda, M, live, safemax):
+    rng = np.random.default_rng(M)
+    q, k, v = _qkv(rng, 1, 300, M, 2, cuda, fused=True)
+    blocked = torch.ones((1, M), dtype=torch.bool)
+    for lo, hi in live:
+        blocked[:, lo:hi] = False
+    blocked = blocked.to(cuda)
+    out = flash64_attention(q, k, v, blocked, safemax=safemax)
+    torch.cuda.synchronize()
+    ref = flash64_attention_reference(q, k, v, blocked, safemax=safemax)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+
+
 # ------------------------------------------------------------ training kernels
 def _train_inputs(rng, B, N, M, H, mode, device):
     C = H * 64
@@ -343,7 +407,8 @@ def test_stock_route_rejects_what_it_cannot_take(cuda):
 
 
 # ------------------------------------------------------------ CE backward
-@pytest.mark.parametrize("R,D,V", [(2000, 768, 64007), (300, 512, 5000), (77, 256, 200)])
+@pytest.mark.parametrize("R,D,V", [(2000, 768, 64007), (1000, 768, 64007), (300, 512, 5000),
+                                   (77, 256, 200), (640, 256, 1000)])
 def test_flash_ce_bwd_kernel_matches_plain(cuda, R, D, V):
     """The CE backward kernel against the chunked recompute, with about half
     of the rows at weight 0 (in blocks, as training lays them out) and a
@@ -365,6 +430,20 @@ def test_flash_ce_bwd_kernel_matches_plain(cuda, R, D, V):
     assert (dy - rdy).abs().max() <= 1e-3 * rdy.abs().max()
     assert (dw - rdw).abs().max() <= 1e-3 * rdw.abs().max()
     assert torch.count_nonzero(dy[wc == 0]) == 0
+
+
+@pytest.mark.parametrize("D", [256, 768])
+def test_flash_ce_bwd_kernel_no_live_row(cuda, D):
+    """Every row at weight 0: no block has a tile to walk, and both
+    gradients are exact zeros."""
+    from egom2p_torch.ops.flash_ce import ce_bwd
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    y = torch.randn((130, D), device=cuda, generator=gen).to(torch.bfloat16)
+    w = torch.randn((300, D), device=cuda, generator=gen).to(torch.bfloat16)
+    t = torch.zeros(130, device=cuda, dtype=torch.int32)
+    dy, dw = ce_bwd(y, w, t, torch.zeros(130, device=cuda), torch.zeros(130, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(dy) == 0 and torch.count_nonzero(dw) == 0
 
 
 def test_flash_ce_bwd_switch_raises_on_what_it_cannot_take(cuda, monkeypatch):

@@ -34,14 +34,34 @@ NAME = "egom2p_tiny_6e_6d_swiglu_nobias"
 # LayerNorm-scale hidden states at float32.  On the dense path the two
 # packages agree to ~4e-6; every flash64 call rounds q/k/v, p and its output
 # to bf16, and fp32 differences in the order of sums flip some of those
-# roundings by one bf16 ulp, an error that grows with the number of flash64
-# attentions in depth: 5e-3 holds through 12 of them (measured 4.6e-3 max
-# after 6, on the encoder context)...
-HIDDEN_ATOL = 5e-3
-# ...and through all 18 of the tiny model's generation path (6 encoder,
-# 6 decoder self, 6 cross) the decoder hidden states measured 5.8e-3 max,
-# 9e-4 mean
+# roundings.  A flipped rounding of an O(1) value is one bf16 ulp, 2^-8 to
+# 2^-7 (3.9e-3 to 7.8e-3): which elements flip depends on the machine's sum
+# order, so one maximum measured on one machine is no limit.  The checks are
+# therefore two (`assert_hidden_close`): the bulk, where no flip survives
+# (mean |err| <= BULK_MEAN_ATOL and all but BULK_OUTLIERS of the elements
+# within the bulk tolerance; measured mean 3e-4 to 9e-4, a handful of
+# elements in 4e5 beyond 5e-3), and a hard maximum of two ulps of the
+# largest O(1) value, which a genuine fault (a wrong mask, a missed scale)
+# exceeds at once.
+HIDDEN_ATOL = 5e-3          # bulk, up to 12 flash64 attentions in depth
+HIDDEN_MAX_ATOL = 1.6e-2    # two bf16 ulps at 2^-7
+# through all 18 of the tiny model's generation path (6 encoder, 6 decoder
+# self, 6 cross) more roundings flip and each is amplified downstream
 DEEP_HIDDEN_ATOL = 1e-2
+DEEP_HIDDEN_MAX_ATOL = 2e-2
+BULK_MEAN_ATOL = 1.5e-3
+BULK_OUTLIERS = 1e-4        # share of elements allowed beyond the bulk tolerance
+
+
+def assert_hidden_close(got, ref, name, bulk_atol=HIDDEN_ATOL, max_atol=HIDDEN_MAX_ATOL):
+    assert got.shape == ref.shape, name
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    assert np.isfinite(err).all(), name
+    outliers = float((err > bulk_atol).mean())
+    assert err.mean() <= BULK_MEAN_ATOL, f"{name}: mean |err| {err.mean():.3e}"
+    assert outliers <= BULK_OUTLIERS, (
+        f"{name}: {outliers:.2e} of the elements beyond {bulk_atol}")
+    assert err.max() <= max_atol, f"{name}: max |err| {err.max():.3e} > {max_atol}"
 
 
 def tiny_info(video_grid=(2, 4, 4)):
@@ -171,7 +191,7 @@ def test_attention_module_matches_jax(jax_flash, n, qk_norm):
     with inference_attention(), torch.no_grad():
         out = tmod(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
     assert jax_flash["n"] == (2 if n == 256 else 0)  # init + apply
-    np.testing.assert_allclose(out, ref, atol=HIDDEN_ATOL, rtol=0)
+    assert_hidden_close(out, ref, "attention output", max_atol=HIDDEN_ATOL)  # one call deep
 
 
 def test_cross_attention_and_blocks_match_jax(jax_flash):
@@ -198,8 +218,9 @@ def test_cross_attention_and_blocks_match_jax(jax_flash):
         out_b = tblock(t(ctx), t(mask)).numpy()
         out_d = tdec(t(x), t(ctx), None, t(mask)).numpy()
     assert jax_flash["n"] == 6  # (encoder self, decoder self, cross) x (init, apply)
-    np.testing.assert_allclose(out_b, ref_b, atol=HIDDEN_ATOL, rtol=0)
-    np.testing.assert_allclose(out_d, ref_d, atol=HIDDEN_ATOL, rtol=0)
+    # one and two flash64 calls deep (measured max 2.2e-3): no flip reaches 5e-3
+    assert_hidden_close(out_b, ref_b, "encoder block", max_atol=HIDDEN_ATOL)
+    assert_hidden_close(out_d, ref_d, "decoder block", max_atol=HIDDEN_ATOL)
 
 
 def _jax_hooks(jmodel, params, md, n_enc, ids_keep):
@@ -243,9 +264,12 @@ def test_generation_hooks_match_jax(request, jax_flash, models, n_enc, k, flash_
     np.testing.assert_array_equal(got[1], ref[1])  # encoder mask / gather order
     for name, g, r in zip(("context", "decoder hidden", "logits"),
                           (got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
-        assert g.shape == r.shape, name
-        tol = HIDDEN_ATOL if name == "context" else atol  # context: 6 flash64 deep
-        np.testing.assert_allclose(g, r, atol=tol, rtol=0, err_msg=name)
+        if flash_calls == 0:  # dense on both sides (measured 4e-6): no rounding to flip
+            assert_hidden_close(g, r, name, max_atol=HIDDEN_ATOL)
+        elif name == "context" or atol == HIDDEN_ATOL:  # context: 6 flash64 deep
+            assert_hidden_close(g, r, name)
+        else:
+            assert_hidden_close(g, r, name, DEEP_HIDDEN_ATOL, DEEP_HIDDEN_MAX_ATOL)
 
 
 def test_mask_gather_matches_jax(dense_models):

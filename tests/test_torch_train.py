@@ -580,3 +580,48 @@ def test_ce_switches(full_models, port_calls, monkeypatch):
     # fp32 logits summed in another order (measured 1.1e-7 relative)
     np.testing.assert_allclose(chunked.item(), flash.item(), rtol=1e-6)
     np.testing.assert_allclose(plain.item(), flash.item(), rtol=1e-6)
+
+
+def test_plain_ce_rematerialises_its_logits(heads68_models, monkeypatch):
+    """The plain CE (the heads of a model whose dim is no multiple of 128)
+    keeps no (chunk, V) fp32 logits for the backward: each chunk runs under
+    torch.utils.checkpoint and recomputes them, as the JAX package's
+    jax.checkpoint around its scan body.  Loss and gradients are those of
+    the same CE with the logits kept (the fp32 sums in another order)."""
+    _, _, tmodel = heads68_models
+    emb = tmodel.decoder_embeddings["tok_rgb"]
+    V, D, chunk = emb.vocab_size, 204, 64
+    monkeypatch.setenv("EGOM2P_CE_CHUNK", str(chunk))
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.standard_normal((2, 96, D)).astype(np.float32)).requires_grad_()
+    ids = torch.from_numpy(rng.integers(0, V, (2, 96)).astype(np.int32))
+    weights = torch.from_numpy(rng.uniform(size=(2, 96)) < 0.6)
+
+    saved = []
+    tmodel.zero_grad(set_to_none=True)
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append((tuple(t.shape), t.dtype)) or t, lambda t: t):
+        total, count = tmodel._chunked_masked_ce(y, "tok_rgb", ids, weights)
+    assert V == 64000 and count.item() == weights.sum().item()
+    kept = [s for s, dt in saved if len(s) == 2 and s[1] == V and s[0] != D]
+    assert not kept, f"logits-sized tensors saved for the backward: {kept}"
+    total.backward()
+    got = (total.item(), y.grad.clone(), emb.token_emb.weight.grad.clone())
+
+    # the same CE in one piece, logits kept
+    y.grad = None
+    tmodel.zero_grad(set_to_none=True)
+    logits = emb.forward_logits(y.reshape(-1, D))
+    gold = logits.gather(1, ids.reshape(-1).long()[:, None])[:, 0]
+    ref = ((torch.logsumexp(logits, dim=-1) - gold) * weights.reshape(-1).float()).sum()
+    ref.backward()
+    np.testing.assert_allclose(got[0], ref.item(), rtol=1e-6)
+    torch.testing.assert_close(got[1], y.grad, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(got[2], emb.token_emb.weight.grad, rtol=1e-5, atol=1e-7)
+
+    # and without the checkpoint the hook does see a chunk's logits
+    saved.clear()
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append((tuple(t.shape), t.dtype)) or t, lambda t: t):
+        emb.forward_logits(y.reshape(-1, D)[:chunk]).logsumexp(dim=-1).sum()
+    assert ((chunk, V), torch.float32) in saved
