@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels of egom2p_torch/csrc with nvcc (sm_90a), one nvcc
-   per source, all started together.
+   per source, all started together; prints ptxas's registers, spills and
+   remarks per kernel instance and counts the wgmma (HGMMA) instructions in
+   the SASS: every head_dim-64 attention instance must hold them.
 2. Serving kernel phase: the flash64 kernel against its plain PyTorch version
    at the rgb2depth main path's shapes (B=8, 12 heads of 64), in both softmax
    modes; prints the max abs error and the time of each, beside the time of
@@ -36,12 +38,17 @@
    gradient norms, first-step losses near ln V and that every parameter
    moved; prints step time, tokens/s, peak memory and model FLOP/s.  Then a
    profiler trace of one step (device time by kernel class, idle share) and,
-   at B=1, the loss and gradients with the kernels against the same model
-   with the plain versions swapped in.
+   on one batch, the loss and gradients with the kernels against the same
+   model with the plain versions swapped in.
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
    dq + dk/dv kernels' and the plain version's.
+   Three fused runs give bitwise equal dk and dv.  Then the three backward
+   kernels at ragged lengths on both sides of their 128-row blocks and
+   64-row tiles, one row, 1707 and 2000, N != M too, with no mask, key padding
+   (one batch row fully blocked: exact zeros) and segments, both softmax
+   forms, at a small batch.
 7. CE backward kernel phase: the fused CE backward kernel against the
    plain chunked backward at R = 16384, D = 768, V = 64000 with about half
    the rows at weight 0 (as in training), and at R = 1000, V = 64007.
@@ -49,7 +56,7 @@
    EGOM2P_F64T_FUSED_BWD=1 and EGOM2P_CE_PALLAS_BWD=1 set for this phase
    only: 36 forward, 36 fused dq/dk/dv, 0 dq, 0 dk/dv, 2 CE forward and 2 CE
    backward launches per step, the same checks, its step time beside the
-   default run's, and the B=1 kernels-vs-plain check.
+   default run's, and the one-batch kernels-vs-plain check.
 9. Stock-route kernel phase: padding_flash_attention and
    segment_flash_attention (the forward kernel and the fused backward
    kernel at head_dim 80 for EgoM2P-large's heads of 68, and at 64)
@@ -60,7 +67,7 @@
    attention on the stock route (72 forward and 72 backward launches per
    step, no flash64_train and no flash-CE launch: flash CE needs the model
    dim to be a multiple of 128), finite losses near ln V, every parameter
-   moved; step time, tokens/s, peak memory, a profiled step and a B=1
+   moved; step time, tokens/s, peak memory, a profiled step and a one-batch
    kernels-vs-plain check.
 11. Prints the kernel JSON line (per kernel: launches on its main path, max
    error, kernel / plain / library times and the card's bound for the same
@@ -98,7 +105,7 @@ TRAIN_L2_ATOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
 CE_LOGZ_RTOL = 1e-5            # fp32 logits and sums in another order (1.9e-6 abs)
 CE_GOLD_ATOL = 1e-4
-# the B=1 training step, bf16 activations, kernels vs plain versions: the
+# one training step on a batch, bf16 activations, kernels vs plain versions: the
 # same math in another order, amplified by the bf16 roundings downstream
 # (loss 8.8e-6 relative; gradients 1.3e-2 relative L2)
 STEP_LOSS_RTOL = 1e-4
@@ -123,6 +130,9 @@ SM_COUNT, EXP2_PER_SM_CLOCK = 132, 16   # H100 SXM; special-function results per
 SM_CLOCK_MHZ = 1980.0          # H100 SXM boost clock; main() takes the card's clocks.max.sm
 # the forward kernel's tile edges: lengths on both sides of each, one row,
 # and the main paths' ragged lengths
+# where a gradient is rounding noise only (one live key: softmax's gradient is
+# zero, the plain version leaves 5e-7), the relative tolerance needs a floor
+RAGGED_GRAD_ATOL = 1e-5
 RAGGED_SELF = (1, 63, 64, 65, 127, 128, 129, 1707, 2000)
 RAGGED_CROSS = ((1, 129), (129, 1), (63, 2000), (2000, 65), (127, 128), (128, 127), (65, 1707))
 
@@ -584,6 +594,10 @@ def fused_bwd_phase(dev):
                 err[g_name] = (g.float() - r.float()).abs().max().item()
                 if err[g_name] > TRAIN_GRAD_TOL * r.float().abs().max().item():
                     raise AssertionError(f"fused {name} {mode}: {g_name} error {err[g_name]}")
+            for _ in range(2):  # dq's atomic adds change order; dk and dv may not move
+                _, dk2, dv2 = ft.flash64_train_dqkv(*args)
+                if not (torch.equal(dk2, got[1]) and torch.equal(dv2, got[2])):
+                    raise AssertionError(f"fused {name} {mode}: dk or dv differ between runs")
             ms = _cuda_time_ms(lambda: ft.flash64_train_dqkv(*args), 10)
             split_ms = _cuda_time_ms(lambda: (ft.flash64_train_dq(*args),
                                               ft.flash64_train_dkv(*args)), 10)
@@ -595,6 +609,65 @@ def fused_bwd_phase(dev):
                          "split_ms": split_ms, "plain_ms": plain_ms})
         del q, k, v, do
     return rows
+
+
+def ragged_bwd_phase(dev):
+    """The dq, dk/dv and fused kernels against their plain versions at
+    lengths around their 128-row blocks and 64-row streamed tiles:
+    self-attention views of one qkv projection with no mask, key padding
+    (batch row 1 fully blocked: every gradient there is exact zeros) and
+    segments with -1; N != M with no mask and key padding.  Both softmax
+    forms.  Returns the number of cases."""
+    import egom2p_torch.ops.flash64_train as ft
+
+    b, heads = 2, 2
+    C = heads * 64
+    rng = np.random.default_rng(5)
+    randn = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape, np.float32)).to(dev, torch.bfloat16)
+    ids = np.array([31433, 17061, 7210, -1], np.int32)
+    cases = []
+    for n in RAGGED_SELF:
+        qkv = randn(b, n, 3 * C)
+        kvb = torch.from_numpy(rng.uniform(size=(b, n)) < 0.3)
+        kvb[1] = True
+        seg = torch.from_numpy(ids[np.sort(rng.integers(0, 4, (b, n)), axis=1)]).to(dev)
+        for mode, mk, sg in (("none", None, None), ("kp", kvb.to(dev), None), ("seg", None, seg)):
+            cases.append((f"{n}^2 {mode}", qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:],
+                          randn(b, n, C), mk, sg))
+    for n_q, n_kv in RAGGED_CROSS:
+        q, kv = randn(b, n_q, 3 * C)[..., :C], randn(b, n_kv, 2 * C)
+        kvb = torch.from_numpy(rng.uniform(size=(b, n_kv)) < 0.3)
+        kvb[1] = True
+        for mode, mk in (("none", None), ("kp", kvb.to(dev))):
+            cases.append((f"{n_q}x{n_kv} {mode}", q, kv[..., :C], kv[..., C:], randn(b, n_q, C),
+                          mk, None))
+    n_cases, worst = 0, 0.0
+    for name, q, k, v, do, mk, sg in cases:
+        for safemax in (False, True):
+            ro, rl2 = ft.flash64_train_reference_fwd(q, k, v, mk, sg, safemax)
+            args = (q, k, v, do, rl2, ft.row_dot(do, ro), mk, sg, safemax)
+            dq = ft.flash64_train_dq(*args)
+            dk, dv = ft.flash64_train_dkv(*args)
+            fused = ft.flash64_train_dqkv(*args)
+            torch.cuda.synchronize()
+            ref = ft.flash64_train_reference_dqkv(*args)
+            for g_name, g, r in zip(("dq", "dk", "dv", "fused dq", "fused dk", "fused dv"),
+                                    (dq, dk, dv) + tuple(fused), ref + ref):
+                scale = r.float().abs().max().item()
+                err = (g.float() - r.float()).abs().max().item()
+                if not torch.isfinite(g).all() or err > TRAIN_GRAD_TOL * scale + RAGGED_GRAD_ATOL:
+                    raise AssertionError(f"ragged backward {name} safemax={safemax}: {g_name} "
+                                         f"error {err} against max |ref| {scale}")
+                if mk is not None and not (g[1] == 0).all():
+                    raise AssertionError(f"ragged backward {name}: {g_name} of a fully blocked "
+                                         f"batch row is not exact zeros")
+                worst = max(worst, err / (TRAIN_GRAD_TOL * scale + RAGGED_GRAD_ATOL))
+            n_cases += 1
+    print(f"flash64_train backward (dq, dk/dv, fused), ragged lengths {RAGGED_SELF} and "
+          f"{RAGGED_CROSS}: {n_cases} cases, largest error {worst:.3f} of its tolerance "
+          f"({TRAIN_GRAD_TOL} of the gradient's max + {RAGGED_GRAD_ATOL})")
+    return n_cases
 
 
 def ce_bwd_phase(dev):
@@ -759,14 +832,14 @@ def _reset_counts():
 
 def _kernel_class(name: str) -> str:
     # template arguments: flash64_fwd_kernel<SAFEMAX, SEG, L2>,
-    # flash64_dkv_kernel<CLAMP, MODE, HD, FUSED>
+    # flash64_dkv_kernel<CLAMP, SEG, FUSED>
     if "flash80_fwd_kernel" in name:
         return "stock route fwd (hd 80)"
+    if "flash80_bwd_kernel" in name:
+        return "stock route fused bwd (hd 80)"
     if "flash64_fwd_kernel" in name:
         return "flash64 fwd"
     if "flash64_dkv_kernel" in name:
-        if ", 80, true>" in name:
-            return "stock route fused bwd (hd 80)"
         return "flash64_train dq/dk/dv (fused)" if ", true>" in name else "flash64_train dk/dv"
     for key, cls in (("flash64_dq_kernel", "flash64_train dq"),
                      ("flash_ce_fwd_kernel", "flash-CE fwd"),
@@ -872,8 +945,13 @@ def _plain_versions(kind: str):
 
 
 def step_check(model, batch, expected, swaps):
-    """Loss and gradients of one B=1 step, kernels vs plain versions (the
-    wrappers in `swaps` replaced by their plain versions)."""
+    """Loss and gradients of one step on `batch`, kernels vs plain versions
+    (the wrappers in `swaps` replaced by their plain versions).  The batch is
+    a whole training batch: the loss is a mean per modality, and on a single
+    sample, where a modality may hold few targets, the bf16 noise of one
+    attention route against the other moved EgoM2P-large's loss by 5e-6 to
+    1.4e-4 from run to run with unchanged kernels (single samples: up to
+    1.0e-3; the batch of 4: 7e-6 to 4e-5; NVIDIA H100 80GB HBM3, 700 W)."""
 
     def run():
         model.zero_grad(set_to_none=True)
@@ -897,7 +975,8 @@ def step_check(model, batch, expected, swaps):
     num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(grads_k, grads_p)))
     den = math.sqrt(sum((b ** 2).sum().item() for b in grads_p))
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"B=1 step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+    n = next(iter(next(iter(batch.values())).values())).shape[0]
+    print(f"B={n} step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
           f"(rel {loss_err:.2e}), gradient rel L2 difference {num / den:.2e}")
     if not math.isfinite(loss_k) or loss_err > STEP_LOSS_RTOL or num / den > STEP_GRAD_REL_L2:
         raise AssertionError("the training step with the kernels disagrees with the plain one")
@@ -906,7 +985,7 @@ def step_check(model, batch, expected, swaps):
 
 def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_kind):
     """TRAIN_STEPS steps of the port's trainer at cfgs/egom2p/main_mod4.yaml's
-    settings, checked; then a profiled step and the B=1 step check.
+    settings, checked; then a profiled step and the one-batch step check.
     Returns (launch totals, median step ms)."""
     from egom2p_torch.cli import run_training
     from egom2p_torch.data.loader import batch_to_device
@@ -976,10 +1055,9 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     data = batch_to_device(next(it), dev)
     it.close()
     profile_step(model, out["optimizer"], data, step_ms)
-    one = {m: {k: v[:1] for k, v in d.items()} for m, d in data.items()}
-    del out, data
-    step_check(model, one, expected, _plain_versions(plain_kind))
-    del model, one
+    del out
+    step_check(model, data, expected, _plain_versions(plain_kind))
+    del model, data
     torch.cuda.empty_cache()
     return totals, step_ms
 
@@ -1009,23 +1087,50 @@ def large_train_phase(dev):
                      "large")
 
 
+# instances of the head_dim-64 attention kernels: SAFEMAX/SEG/L2 combinations
+# of the forward, CLAMP x SEG of dq, CLAMP x SEG x FUSED of dk/dv
+WGMMA64_INSTANCES = {"flash64_fwd_kernel": 6, "flash64_dq_kernel": 4, "flash64_dkv_kernel": 8}
+
+
+def _demangled(names):
+    """{mangled: demangled} by the toolkit's cu++filt (the mangled name where
+    it is missing)."""
+    from egom2p_torch.ops import _build
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    names = list(names)
+    if not names or not os.path.exists(filt):
+        return {n: n for n in names}
+    out = subprocess.run([filt, *names], capture_output=True, text=True, check=True).stdout
+    def short(line):  # "void ns::kernel<(bool)1, 64>(args)" -> "kernel<1, 64>"
+        line = line.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+        line = line.replace("(bool)", "").replace("(int)", "").replace("void ", "")
+        return line.split(">(")[0] + ">" if ">(" in line else line.split("(")[0]
+
+    return dict(zip(names, map(short, out.splitlines())))
+
+
 def check_build(ptxas_log: str, library) -> None:
-    """Prints ptxas's registers, spills and remarks, and the count of wgmma
-    (HGMMA) instructions in the forward kernel's SASS.  Raises if the
-    head_dim-64 forward kernel spills, if ptxas says it serialises its wgmma,
-    or if its SASS holds no HGMMA."""
-    entry, faults, remarks = "", [], set()
+    """Prints ptxas's registers, spills and remarks per kernel instance, and
+    the count of wgmma (HGMMA) instructions in the SASS of the head_dim-64
+    attention kernels (forward, dq, dk/dv and fused).  Raises if an instance
+    of these spills, if ptxas says it serialises its wgmma, or if its SASS
+    holds no HGMMA."""
+    entry, faults, remarks, per_entry = "", [], set(), {}
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-            if "flash64_fwd_kernel" in entry and "spill" in line and "0 bytes spill stores" not in line:
+            per_entry.setdefault(entry, []).append(line.strip().replace("ptxas info    : ", ""))
+            if (any(k in entry for k in WGMMA64_INSTANCES) and "spill" in line
+                    and "0 bytes spill stores" not in line):
                 faults.append(f"{entry}: {line.strip()}")
         if "Potential Performance Loss" in line:
             remarks.add(line.strip()[:300])
-            if "flash64_fwd_kernel" in line:
+            if any(k in line for k in WGMMA64_INSTANCES):
                 faults.append(line.strip())
+    names = _demangled(per_entry)
+    for entry, lines in per_entry.items():
+        print(f"  ptxas {names[entry]}: " + "; ".join(lines))
     for line in sorted(remarks):
         print(f"  ptxas remark: {line}")
     from egom2p_torch.ops import _build
@@ -1039,16 +1144,19 @@ def check_build(ptxas_log: str, library) -> None:
                 fn = line.split("Function :")[1].strip()
             elif "HGMMA" in line:
                 counts[fn] = counts.get(fn, 0) + 1
-        fwd = {k: v for k, v in counts.items() if "flash64_fwd_kernel" in k}
-        print(f"  SASS: HGMMA (wgmma) instructions: flash64_fwd_kernel {sorted(fwd.values())} "
-              f"over {len(fwd)} instances, flash_ce_bwd_kernel "
-              f"{sorted(v for k, v in counts.items() if 'flash_ce_bwd_kernel' in k)}")
-        if len(fwd) != 6:
-            faults.append(f"{len(fwd)} of the 6 flash64_fwd_kernel instances hold HGMMA")
+        by_kernel = lambda key: sorted(v for k, v in counts.items() if key in k)  # noqa: E731
+        print(f"  SASS: HGMMA (wgmma) instructions per instance: flash64_fwd_kernel "
+              f"{by_kernel('flash64_fwd_kernel')}, flash64_dq_kernel "
+              f"{by_kernel('flash64_dq_kernel')}, flash64_dkv_kernel "
+              f"{by_kernel('flash64_dkv_kernel')}, flash_ce_bwd_kernel "
+              f"{by_kernel('flash_ce_bwd_kernel')}")
+        for key, want in WGMMA64_INSTANCES.items():
+            if len(by_kernel(key)) != want:
+                faults.append(f"{len(by_kernel(key))} of the {want} {key} instances hold HGMMA")
     else:
         print("  SASS: cuobjdump not found, wgmma instructions not counted")
     if faults:
-        raise AssertionError("forward kernel build: " + "; ".join(faults))
+        raise AssertionError("kernel build: " + "; ".join(faults))
 
 
 def main() -> int:
@@ -1087,6 +1195,7 @@ def main() -> int:
     ce_rows = phase(ce_phase, dev)
     train_launches, default_ms = phase(train_slice_phase, dev)
     fused_rows = phase(fused_bwd_phase, dev)
+    phase(ragged_bwd_phase, dev)
     ce_bwd_rows = phase(ce_bwd_phase, dev)
     fused_launches, _ = phase(fused_train_phase, dev, default_ms)
     stock_rows = phase(stock_kernel_phase, dev)
@@ -1145,7 +1254,7 @@ def main() -> int:
         stock_rows[0]["plain_ms"]["fwd"],
         attention_bound_ms(2, B, LARGE_HEADS, 2048, 2048, LARGE_HD),
         stock_rows[0]["library_ms"]["fwd"])
-    add("stock_flash_bwd", "flash64_train.cu", "flash_attention.py:93",
+    add("stock_flash_bwd", "flash80_bwd.cu", "flash_attention.py:93",
         large_launches["stock_bwd"], stock_errs("dq", "dk", "dv"), stock_rows[0]["ms"]["bwd"],
         stock_rows[0]["plain_ms"]["bwd"],
         attention_bound_ms(5, B, LARGE_HEADS, 2048, 2048, LARGE_HD, 4, 4),

@@ -6,8 +6,9 @@ not ported are ignored), the token-budget derivation of epochs
 and warmup, the cosine / inverse-sqrt / constant LR schedules, AdamW, the
 training loop (aborting on a non-finite loss), a JSON line per epoch in
 <output_dir>/log.txt and a final checkpoint-final.pth holding the model's
-and the optimizer's state dicts.  It runs on the first CUDA device, or on
-the CPU when there is none.
+and the optimizer's state dicts.  It runs on the first CUDA device
+(--device cuda, the default) and raises when there is none; --device cpu
+asks for the CPU (tiny smoke runs and tests).
 
 Smoke run without data (the config's settings as arguments):
     python -m egom2p_torch.cli.run_training --synthetic_data \
@@ -62,6 +63,8 @@ def get_args(argv=None):
                    help="random token streams instead of tar shards")
     p.add_argument("--scaled_modalities", action="store_true",
                    help="tiny vocab/grid modality registry (CPU smoke runs)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to train; cuda raises when no CUDA device is found")
     p.add_argument("--output_dir", default="output/egom2p")
     p.add_argument("--print_freq", type=int, default=10)
     return parse_args_with_config(p, argv)
@@ -145,7 +148,10 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
     from egom2p_torch.models.egom2p import create_model
     from egom2p_torch.train.egom2p_train import make_train_step
 
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found: the trainer runs on the first CUDA device; "
+                           "pass --device cpu to train on the CPU")
+    device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
     loader, domains = setup_data(args)
     sched = lr_schedule(args)
     global_batch = args.batch_size * args.accum_steps

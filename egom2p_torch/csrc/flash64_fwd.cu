@@ -367,21 +367,6 @@ struct Operand {
   long long batch_stride, row_stride;  // elements
 };
 
-// The tensor map of a (B, rows, H * 64) bf16 view: boxes of 128 rows x 64
-// columns.
-int operand_map(CUtensorMap* map, const Operand& t, int batch, int heads) {
-  const uint64_t dims[3] = {static_cast<uint64_t>(heads) * kHD, static_cast<uint64_t>(t.rows),
-                            static_cast<uint64_t>(batch)};
-  // a batch of one has no batch stride to honour
-  const uint64_t row_bytes = static_cast<uint64_t>(t.row_stride) * 2;
-  const uint64_t strides[2] = {row_bytes,
-                               batch > 1 ? static_cast<uint64_t>(t.batch_stride) * 2
-                                         : row_bytes * t.rows};
-  const uint32_t box[2] = {kHD, kBlockQ};
-  static_assert(kBlockQ == kBlockK, "one box shape for q, k and v");
-  return make_tensor_map(map, t.ptr, 3, dims, strides, box);
-}
-
 template <bool kSafemax, bool kSeg, bool kL2>
 cudaError_t launch_fwd(dim3 grid, cudaStream_t st, const CUtensorMap (&maps)[3], const FwdArgs& a) {
   auto kernel = flash64_fwd_kernel<kSafemax, kSeg, kL2>;
@@ -406,7 +391,9 @@ int run(const void* q, const void* k, const void* v, const void* kv_blocked, con
   CUtensorMap maps[3];
   const Operand ops[3] = {{q, n_q, q_sb, q_sn}, {k, n_kv, k_sb, k_sn}, {v, n_kv, v_sb, v_sn}};
   for (int i = 0; i < 3; ++i) {
-    const int rc = operand_map(&maps[i], ops[i], batch, heads);
+    static_assert(kBlockQ == kBlockK, "one box shape for q, k and v");
+    const int rc = attention_operand_map(&maps[i], ops[i].ptr, ops[i].rows, ops[i].batch_stride,
+                                         ops[i].row_stride, batch, heads, kBlockQ);
     if (rc != 0) return rc;
   }
   FwdArgs a;

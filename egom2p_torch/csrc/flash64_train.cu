@@ -1,16 +1,17 @@
-// Backward of training attention for Hopper (sm_90a): the split pair (dq,
-// and dk/dv) at head_dim 64, and the fused one-pass dq/dk/dv kernel at
-// head_dim 64 and 80.  Called from egom2p_torch/ops/flash64_train.py.
+// Backward of training attention at head_dim 64 for Hopper (sm_90a): the
+// split pair (dq, and dk/dv) and the fused one-pass dq/dk/dv kernel, all on
+// wgmma, TMA and warp specialisation.  Called from
+// egom2p_torch/ops/flash64_train.py.  The head_dim-80 instance of the fused
+// kernel (the stock route for heads of 65..80) is csrc/flash80_bwd.cu.
 //
 // Replaces the Pallas TPU kernels egom2p_tpu/ops/flash64_train.py
 // `_dq_kernel` and `_dkv_kernel` (the split backward of
 // `flash64_train_attention`, its default), `_dqkv_kernel` (the fused backward,
-// EGOM2P_F64T_FUSED_BWD=1), and the backward of the stock
-// jax.experimental.pallas.ops.tpu flash_attention that
-// egom2p_tpu/ops/flash_attention.py reaches (the stock route: the fused
-// kernel in its safemax form, at HD = 64, or at HD = 80 for heads of 65..80
-// that the caller zero-pads; the padding gives zero gradient columns).  The
-// forward is the L2 instance of csrc/flash64_fwd.cu.
+// EGOM2P_F64T_FUSED_BWD=1), and, at heads of up to 64, the backward of the
+// stock jax.experimental.pallas.ops.tpu flash_attention that
+// egom2p_tpu/ops/flash_attention.py reaches (the fused kernel in its safemax
+// form with the true head's scale).  The forward is the L2 instance of
+// csrc/flash64_fwd.cu.
 //
 // Math (identical to the TPU kernels), per (batch, head), with
 // scale = hd^-0.5 * log2 e (hd the true head dim) and the forward's mask:
@@ -21,204 +22,246 @@
 //   dp = fp32(do . v),   ds = bf16(p * (dp - D)),   D = rowsum(do * o)
 //   dq = hd^-0.5 * sum_k ds k
 //   dk = bf16(hd^-0.5 * sum_q ds q),   dv = bf16(sum_q bf16(p) do)
-// The split dq kernel rounds dq to bf16; the fused kernel adds each key
-// block's fp32 contribution into a zeroed fp32 buffer, which the caller casts.
+// The split dq kernel rounds dq to bf16; the fused kernel adds each 64 keys'
+// fp32 contribution into a zeroed fp32 buffer, which the caller casts.
 // Queries past N and keys past M match nothing: queries past N carry
 // L2 = +1e30 (p = 0) and zero do, keys past M the -1e30 bias, both from
 // bounds checks, never from a pad segment value.
 //
 // What bounds it on this card: arithmetic.  At the training step's shapes
-// (B = 8, H = 12, N = M = 2048) the split backward does about 3.5x the
-// forward's tensor-core products: dq recomputes S and dP and adds dS K (3
-// products of 2*N*M*64), dk/dv recomputes S and dP^T and adds P^T dO and
-// dS^T Q (4 more).  The fused kernel does the 5 distinct products once, and
-// pays instead with fp32 atomic adds of dq: every key block adds a 64 x HD
-// tile for every query tile, M/64 adds per dq element, served by L2.  The
-// operands of one (batch, head) are 0.25 MB each, so they are re-read from
-// L2, not from device memory.
+// (B = 8, H = 12, N = M = 2048) dq runs 3 products of 2*N*M*64 per (batch,
+// head) (S, dP, dS K), dk/dv 4 (S^T, dP^T, P^T dO, dS^T Q), the fused kernel
+// the 5 distinct ones, plus one exp2 per score on the special function units
+// (a third to a half of the tensor time).  The fused kernel pays for its two
+// saved products with fp32 adds into dq, served by L2: every key block adds
+// a 64 x 64 tile for every query tile.  The operands of one (batch, head) are
+// 0.25 MB each, so they are re-read from L2, not from device memory.
 //
-// What the design does about it.  Split pair, no atomics: a dq block owns 64
-// query rows (four warps of 16) and walks all key tiles; a dk/dv block owns
-// 64 keys and walks all query tiles, computing the transposed products
-// S^T = K Q^T and dP^T = V dO^T so that each warp's 16 keys are the rows of
-// its accumulators.  Fused: the dk/dv block, plus, per query tile, dS^T
-// rounded to bf16 into shared memory, read back as the A operand of
-// dQ_tile = dS K with ldmatrix.trans (each warp takes 16 query rows, all 64
-// keys), and added to dq with vectorised fp32 atomics (float2 atomicAdd,
-// sm_90).  The sum order of dq then changes from run to run, so the fused
-// kernel's dq is not bitwise deterministic (dk and dv are).  Every block's
-// own operand is loaded once into registers as mma A fragments; the walked
-// operands stream through shared memory in double-buffered cp.async tiles
-// of 64 rows.  Each product is mma.sync m16n8k16 (bf16 in, fp32
-// accumulate).  P and dS go from their fp32 accumulators straight into the
-// next product's A fragments in registers (the flash64 forward's trick), and
-// the second operand of P^T dO, dS K and dS^T Q comes from ldmatrix.trans.
-// Dynamic shared memory: dq 55 KB, dk/dv 55 KB, fused 64 KB (HD 64) and
-// 78 KB (HD 80).  wgmma, TMA and warp specialisation are later work.
+// What the design does about it (the forward's, csrc/flash64_fwd.cu):
+//   * a block owns 128 rows of one (batch, head): queries in the dq kernel,
+//     keys in the dk/dv kernel.  Two consumer warpgroups take 64 rows each,
+//     one producer warp loads.  The block's own operands (Q and dO, or K and
+//     V) arrive once by TMA as 128-byte-swizzled K-major tiles; the walked
+//     operands (K and V, or Q and dO) stream in tiles of 64 rows through a
+//     ring of 4 stages, each with a full and an empty mbarrier.  The producer
+//     also writes the stage's per-row values (the key bias and segment ids, or
+//     L2, D and the query's segment ids; rows past N carry L2 = +1e30, D = 0)
+//     and TMA delivers rows past N or M as zeros.
+//   * every product is wgmma m64n64k16 with operands read by the tensor cores
+//     through descriptors, never by load instructions.  S and dP (dq kernel)
+//     or S^T = K Q^T and dP^T = V dO^T (dk/dv kernel) take both operands
+//     K-major from shared memory.  P and dS go from their fp32 accumulators
+//     into the A fragments of the next product in registers, and that
+//     product's second operand (K in dQ += dS K; dO in dV += P^T dO, Q in
+//     dK += dS^T Q) is the same streamed tile read again MN-major (the depth
+//     runs across its 64 rows).  The transposed formulation of the dk/dv
+//     kernel keeps P and dS out of shared memory: its accumulator rows are
+//     keys (the key bias and segment id are registers) and its columns are
+//     queries (L2, D and the query's segment id come from the stage's rows).
+//   * overlap inside a warpgroup: S and dP are issued together and only S is
+//     waited for, so the exp2 pass runs under dP.  The dq kernel issues tile
+//     t-1's dS K in the same batch, so that it too runs under tile t's exp2
+//     pass; the dk/dv kernel runs P^T dO under the dS pass.  The two
+//     warpgroups interleave on top.
+//   * what the compiler dictates (CUDA 12.8).  Every thread gets the
+//     registers that the launch bounds leave at entry (168 at 384 threads),
+//     whatever setmaxnreg says later: four accumulators of 32 plus two sets
+//     of A fragments fill them, so the dk/dv kernel cannot defer a product to
+//     the next tile or hold a dQ accumulator (ptxas: C7512, an accumulator in
+//     local memory).  And no wgmma may be in flight across a loop's back
+//     edge: ptxas then serialises every wgmma of the loop (C7515; 0.43 ->
+//     0.33 ms for dq and 0.55 -> 0.47 ms for dk/dv at the training step's
+//     shapes once none was, H100 SXM, 700 W).
+//   * fused form: the consumers also store dS^T (their 64 keys x 64 queries,
+//     bf16) into a double-buffered tile in shared memory, by hand in the
+//     swizzled layout (16-byte chunk c of row r at c ^ (r % 8)), then
+//     fence.proxy.async and an mbarrier.  The third warpgroup, whose first
+//     warp stays the producer (three tiles ahead), computes dQ_tile = dS K
+//     in one chain over the block's 128 keys: a wgmma whose A operand is the
+//     dS^T tile read MN-major and whose B operand is the block's K read
+//     MN-major.  The 64 x 64 fp32 tile goes to a double-buffered staging tile
+//     (two swizzled boxes of 32 dims) and one thread adds each box into dq
+//     with cp.reduce.async.bulk.tensor (a tensor map over the fp32 buffer;
+//     rows past N are dropped): M/128 adds per dq element, 0.8 GB a launch at
+//     these shapes.  L2 performs the adds in no fixed order, so the fused
+//     kernel's dq is not bitwise deterministic (dk and dv are).  As float2
+//     atomic adds from the consumers' registers (M/64 per element) the adds
+//     took 0.53 ms of a 1.11 ms launch; as reduce-adds issued by the
+//     consumers 0.25 of 0.83; from the third warpgroup the launch takes 0.65.
+// Dynamic shared memory: dq 99 KB, dk/dv 99 KB, fused 163 KB; one block per
+// SM (the registers allow no more).
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace egom2p;
 
-constexpr int kTile = 64;                    // rows per block and per streamed tile
-constexpr int kThreads = 128;                // 4 warps x 16 rows
+constexpr int kHD = 64;
+constexpr int kBlock = 128;                  // rows a block owns: 2 warpgroups x 64
+constexpr int kStep = 64;                    // rows of a streamed tile
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 384;                // 2 consumer warpgroups + the producer's
+constexpr int kOwnBytes = kBlock * kHD * 2;  // 16 KB
+constexpr int kStepBytes = kStep * kHD * 2;  // 8 KB
+constexpr uint64_t kStageStep = kStepBytes >> 4;  // descriptor units between stages
+constexpr uint64_t kMnStep = 2048 >> 4;      // an MN-major k-step: 16 rows of 128 bytes
 constexpr float kNegInf = -1e30f;
 constexpr float kDeadL2 = 1e30f;
 constexpr float kClamp = 80.f;
 constexpr double kLog2e = 1.4426950408889634;
 
-enum MaskMode { kNone = 0, kKeyPad = 1, kSegment = 2 };
 enum Which { kDq = 0, kDkv = 1, kDqkv = 2 };
 
 struct Args {
-  const __nv_bfloat16 *q, *k, *v, *dout;
   const float *l2, *dvec;                    // (B, H, N) fp32, contiguous
-  const uint8_t* kv_blocked;                 // (B, M) bytes, batch stride m_sb
-  const int* segments;                       // (B, N) int32, batch stride m_sb
-  __nv_bfloat16 *dq, *dk, *dv;               // contiguous (B, N|M, H*HD)
-  float* dq_acc;                             // fused: zeroed fp32 (B, N, H*HD)
+  const uint8_t* kv_blocked;                 // (B, M) bytes, batch stride m_sb, or null
+  const int* segments;                       // (B, N) int32, batch stride m_sb, or null
+  __nv_bfloat16 *dq, *dk, *dv;               // contiguous (B, N|M, H*64); the fused kernel's
+                                             // fp32 dq goes through its tensor map
   int n_q, n_kv, heads;
-  int64_t q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, do_sb, do_sn, m_sb;
+  int64_t m_sb;
   float scale, nat_scale;
 };
 
-// A 64-row bf16 tile with padded rows (HD + 8: 144 bytes at 64, 176 at 80).
-template <int kHD>
-using Tile = __nv_bfloat16[kTile][kHD + 8];
-
-// Rows row0.. of a 64 x HD bf16 tile, HD / 16 chunks of 16 bytes per
-// thread; rows at or past `rows` are zero-filled.
-template <int kHD>
-__device__ __forceinline__ void load_tile(Tile<kHD>& dst, const __nv_bfloat16* src, int64_t stride,
-                                          int row0, int rows, int tid) {
-#pragma unroll
-  for (int i = 0; i < kHD / 16; ++i) {
-    // int, not unsigned as in the forward: with an unsigned index nvcc schedules
-    // these kernels slower (key-padding dk/dv 1.02 against 0.77 ms at the
-    // training step's shapes, H100 SXM, CUDA 12.8)
-    const int chunk = tid + i * kThreads;
-    const int r = chunk / (kHD / 8), col = (chunk % (kHD / 8)) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(&dst[r][col], src + (ok ? row0 + r : 0) * stride + col, ok);
-  }
+// p = exp2(min(x, 80) - L2) (no clamp under safemax)
+template <bool kClampMode>
+__device__ __forceinline__ float prob(float x, float l2) {
+  if (kClampMode) x = fminf(x, kClamp);
+  return exp2_approx(x - l2);
 }
 
-// A fragments of this warp's 16 rows of a resident tile, for the HD / 16
-// k-steps over head_dim.
-template <int kHD>
-__device__ __forceinline__ void load_rows_frags(uint32_t (&f)[kHD / 16][4], const Tile<kHD>& t,
-                                                int warp, int gid, int tig) {
-  const int r = warp * 16 + gid;
-#pragma unroll
-  for (int kk = 0; kk < kHD / 16; ++kk) {
-    load_a_frag(f[kk], &t[r][kk * 16 + tig * 2], &t[r + 8][kk * 16 + tig * 2]);
-  }
-}
-
-// acc (16 x 64) = A (this warp's 16 rows, HD / 16 k-steps) . T^T, where the
-// 64 rows of smem tile T are the product's columns (T is the "col" B operand).
-template <int kHD>
-__device__ __forceinline__ void product_nt(float (&acc)[8][4], const uint32_t (&a)[kHD / 16][4],
-                                           const Tile<kHD>& t, int gid, int tig) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const __nv_bfloat16* row = t[j * 8 + gid];
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk) {
-      mma_16816(acc[j], a[kk], ld_smem_u32(row + kk * 16 + tig * 2),
-                ld_smem_u32(row + kk * 16 + 8 + tig * 2));
-    }
-  }
-}
-
-// acc (16 x HD dims) += X (16 x 64, fp32 accumulator, rounded to bf16) . T,
-// where T's 64 rows are the contraction index.
-template <int kHD>
-__device__ __forceinline__ void product_nn_acc(float (&acc)[kHD / 8][4], const float (&x)[8][4],
-                                               const Tile<kHD>& t, int lane) {
-  const int mat = lane >> 3, mrow = lane & 7;
+// An fp32 accumulator of 64 columns, rounded to bf16, as the A fragments of
+// the 4 k-steps over those columns: column tiles 2kk and 2kk + 1 are exactly
+// k-step kk's fragment.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    acc_to_a_frag(a, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int jd = 0; jd < kHD / 16; ++jd) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &t[kk * 16 + (mat & 1) * 8 + mrow][jd * 16 + (mat >> 1) * 8]);
-      mma_16816(acc[2 * jd], a, b[0], b[1]);
-      mma_16816(acc[2 * jd + 1], a, b[2], b[3]);
-    }
+    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
-template <int kHD>
-__device__ __forceinline__ void zero(float (&acc)[kHD / 8][4]) {
+// acc = A B^T over head_dim, A and B K-major tiles of 64 rows
+__device__ __forceinline__ void product_kk(float (&acc)[32], uint64_t a, uint64_t b) {
 #pragma unroll
-  for (int j = 0; j < kHD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int kk = 0; kk < kHD / 16; ++kk) wgmma_ss<0, 0>(acc, a + 2 * kk, b + 2 * kk, kk > 0);
+  wgmma_commit();
 }
 
-// Store this warp's 16 rows x HD dims, times `mul`, as bf16 rows of `out`.
-template <int kHD>
-__device__ __forceinline__ void store_rows(const float (&acc)[kHD / 8][4], float mul,
-                                           __nv_bfloat16* out, int64_t row_stride, int row0,
-                                           int rows, int tig) {
+// acc += A B over the 64 rows of tile B (read MN-major), A from registers
+__device__ __forceinline__ void product_rs(float (&acc)[32], const uint32_t (&a)[4][4],
+                                           uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk) wgmma_rs<1>(acc, a[kk], b + kk * kMnStep, 1);
+  wgmma_commit();
+}
+
+// This warp's rows row0, row0 + 8 (where below `rows`) x 64 dims, times
+// `mul`, as bf16 rows of `out`.
+__device__ __forceinline__ void store_rows(const float (&acc)[32], float mul, __nv_bfloat16* out,
+                                           int64_t row_stride, int row0, int rows, int tig) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + i * 8;
     if (row >= rows) continue;
     __nv_bfloat16* o = out + row * row_stride;
 #pragma unroll
-    for (int j = 0; j < kHD / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<uint32_t*>(o + j * 8 + tig * 2) =
-          pack_bf16(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
+          pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
     }
   }
 }
 
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// ------------------------------------------------------------------------ dq
 struct DqSmem {
-  Tile<64> q, dout, k[2], v[2];
-  float bias[2][kTile];
-  int seg[2][kTile];
+  __nv_bfloat16 q[kBlock * kHD], dout[kBlock * kHD];  // tiles first: multiples of 1024 bytes
+  __nv_bfloat16 k[kStages][kStep * kHD], v[kStages][kStep * kHD];
+  float bias[kStages][kStep];
+  int seg[kStages][kStep];
+  int masked[kStages];                       // the stage's tile has a blocked key
+  uint64_t full[kStages], empty[kStages], own_full;
 };
 
-// One block: 64 query rows of one (batch, head); walks every key tile.
-template <bool kClampMode, int kMode>
-__global__ void __launch_bounds__(kThreads) flash64_dq_kernel(const Args a) {
-  constexpr int kHD = 64;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  DqSmem& sm = *reinterpret_cast<DqSmem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * kTile, head = blockIdx.y, batch = blockIdx.z;
-  const int64_t hoff = head * kHD;
+// One block: 128 query rows of one (batch, head); walks every key tile.
+// kSeg: block where segments[q] != segments[k] (self-attention).
+template <bool kClampMode, bool kSeg>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash64_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(align1024(smem_raw));
 
-  const __nv_bfloat16* kb = a.k + batch * a.k_sb + hoff;
-  const __nv_bfloat16* vb = a.v + batch * a.v_sb + hoff;
-  const uint8_t* mb = kMode == kKeyPad ? a.kv_blocked + batch * a.m_sb : nullptr;
-  const int* sb = kMode == kSegment ? a.segments + batch * a.m_sb : nullptr;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int q0 = blockIdx.x * kBlock;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int n_tiles = (a.n_kv + kStep - 1) / kStep;
 
-  auto load_kv = [&](int tile, int stage) {
-    const int k0 = tile * kTile;
-    load_tile<kHD>(sm.k[stage], kb, a.k_sn, k0, a.n_kv, tid);
-    load_tile<kHD>(sm.v[stage], vb, a.v_sn, k0, a.n_kv, tid);
-    if (tid < kTile) {
-      const int key = k0 + tid;
-      const bool blocked = key >= a.n_kv || (kMode == kKeyPad && mb[key] != 0);
-      sm.bias[stage][tid] = blocked ? kNegInf : 0.f;
-      if (kMode == kSegment) sm.seg[stage][tid] = key < a.n_kv ? sb[key] : 0;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 32);               // the producer warp's lanes (+ the TMA bytes)
+      mbar_init(&sm.empty[i], kConsumerWarps);  // one lane of each consumer warp
     }
-  };
+    mbar_init(&sm.own_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_tile<kHD>(sm.q, a.q + batch * a.q_sb + hoff, a.q_sn, q0, a.n_q, tid);
-  load_tile<kHD>(sm.dout, a.dout + batch * a.do_sb + hoff, a.do_sn, q0, a.n_q, tid);
-  load_kv(0, 0);
-  cp_async_commit();
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (tid >= 2 * 128 + 32) return;
+    const int lane = tid & 31;
+    const uint8_t* mb = a.kv_blocked == nullptr ? nullptr : a.kv_blocked + batch * a.m_sb;
+    const int* sb = kSeg ? a.segments + batch * a.m_sb : nullptr;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.own_full, 2 * kOwnBytes);
+      tma_load_3d(sm.q, &map_q, &sm.own_full, head * kHD, q0, batch);
+      tma_load_3d(sm.dout, &map_do, &sm.own_full, head * kHD, q0, batch);
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % kStages;
+      if (t >= kStages) mbar_wait(&sm.empty[stage], (t / kStages - 1) & 1);
+      const int k0 = t * kStep;
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < kStep / 32; ++i) {
+        const int c = lane + i * 32, key = k0 + c;
+        const bool blocked = key >= a.n_kv || (mb != nullptr && mb[key] != 0);
+        sm.bias[stage][c] = blocked ? kNegInf : 0.f;
+        if (kSeg) sm.seg[stage][c] = key < a.n_kv ? sb[key] : 0;
+        any |= blocked;
+      }
+      any = __any_sync(0xffffffffu, any);
+      if (lane == 0) {
+        sm.masked[stage] = (any || kSeg) ? 1 : 0;
+        mbar_arrive_expect_tx(&sm.full[stage], 2 * kStepBytes);
+        tma_load_3d(sm.k[stage], &map_k, &sm.full[stage], head * kHD, k0, batch);
+        tma_load_3d(sm.v[stage], &map_v, &sm.full[stage], head * kHD, k0, batch);
+      } else {
+        mbar_arrive(&sm.full[stage]);
+      }
+    }
+    return;
+  }
 
-  // This thread's rows r0, r0 + 8: L2 and D (rows past N: p = 0), segment.
-  const int r0 = q0 + warp * 16 + gid;
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<232>();
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // accumulator row group / column pair
+  const int r0 = q0 + wg * 64 + warp * 16 + gid;  // this thread's rows: r0 and r0 + 8
   const int64_t lbase = (static_cast<int64_t>(batch) * a.heads + head) * a.n_q;
   float l2r[2], dr[2];
   int segq[2] = {0, 0};
@@ -228,99 +271,251 @@ __global__ void __launch_bounds__(kThreads) flash64_dq_kernel(const Args a) {
     const bool ok = row < a.n_q;
     l2r[i] = ok ? a.l2[lbase + row] : kDeadL2;
     dr[i] = ok ? a.dvec[lbase + row] : 0.f;
-    if (kMode == kSegment) segq[i] = ok ? sb[row] : 0;
+    if (kSeg) segq[i] = ok ? a.segments[batch * a.m_sb + row] : 0;
   }
+  const float scale = a.scale;
 
-  uint32_t qf[4][4], dof[4][4];
-  float acc[8][4];
-  zero<kHD>(acc);
-
-  const int n_tiles = (a.n_kv + kTile - 1) / kTile;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-      load_rows_frags<kHD>(qf, sm.q, warp, gid, tig);
-      load_rows_frags<kHD>(dof, sm.dout, warp, gid, tig);
-    }
-
-    float s[8][4], dp[8][4];
-    product_nt<kHD>(s, qf, sm.k[stage], gid, tig);     // S  = Q K^T
-    product_nt<kHD>(dp, dof, sm.v[stage], gid, tig);   // dP = dO V^T
+  float s[32], dp[32], acc[32];  // S then P then dS; dP; dQ: 64 rows x 64 per warpgroup
+  uint32_t dsa[4][4];            // bf16 dS as the A fragments of dS K
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  const uint64_t desc_q = smem_desc(sm.q + wg * 64 * kHD, 16, 1024);
+  const uint64_t desc_do = smem_desc(sm.dout + wg * 64 * kHD, 16, 1024);
+  const uint64_t desc_k0 = smem_desc(sm.k[0], 16, 1024);
+  const uint64_t desc_v0 = smem_desc(sm.v[0], 16, 1024);
+
+  // s (S of `stage`, done) -> P in place
+  auto to_p = [&](int stage) {
+    if (sm.masked[stage] != 0) {
+      // scale, then the mask bias (the TPU kernel's order)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = j * 8 + tig * 2 + (e & 1);
-        float b = sm.bias[stage][c];
-        if (kMode == kSegment && segq[i] != sm.seg[stage][c]) b = kNegInf;
-        float x = s[j][e] * a.scale + b;
-        if (kClampMode) x = fminf(x, kClamp);
-        const float p = exp2_approx(x - l2r[i]);
-        s[j][e] = p * (dp[j][e] - dr[i]);          // dS, fp32 (rounded to bf16 below)
+      for (int j = 0; j < 8; ++j) {
+        const int c = j * 8 + tig * 2;
+        const float2 b = *reinterpret_cast<const float2*>(&sm.bias[stage][c]);
+        float b00 = b.x, b01 = b.y;  // row gid
+        float b10 = b.x, b11 = b.y;  // row gid + 8
+        if (kSeg) {
+          const int2 ks = *reinterpret_cast<const int2*>(&sm.seg[stage][c]);
+          if (segq[0] != ks.x) b00 = kNegInf;
+          if (segq[0] != ks.y) b01 = kNegInf;
+          if (segq[1] != ks.x) b10 = kNegInf;
+          if (segq[1] != ks.y) b11 = kNegInf;
+        }
+        s[4 * j + 0] = prob<kClampMode>(s[4 * j + 0] * scale + b00, l2r[0]);
+        s[4 * j + 1] = prob<kClampMode>(s[4 * j + 1] * scale + b01, l2r[0]);
+        s[4 * j + 2] = prob<kClampMode>(s[4 * j + 2] * scale + b10, l2r[1]);
+        s[4 * j + 3] = prob<kClampMode>(s[4 * j + 3] * scale + b11, l2r[1]);
       }
-    }
-    product_nn_acc<kHD>(acc, s, sm.k[stage], lane);    // dQ += dS K
-    __syncthreads();  // every warp is done with `stage` before it is refilled
-  }
-  store_rows<kHD>(acc, a.nat_scale,
-                  a.dq + (static_cast<int64_t>(batch) * a.n_q) * (a.heads * kHD) + hoff,
-                  a.heads * kHD, r0, a.n_q, tig);
-}
-
-template <int kHD, bool kFused>
-struct DkvSmem {
-  Tile<kHD> k, v, q[2], dout[2];
-  __nv_bfloat16 ds[kFused ? kTile : 1][kFused ? kTile + 8 : 1];  // dS^T: keys x queries
-  float l2[2][kTile], d[2][kTile];
-  int seg[2][kTile];
-};
-
-// One block: 64 keys of one (batch, head); walks every query tile.  kFused
-// adds dQ (the `_dqkv_kernel` of the TPU package) by fp32 atomics.
-template <bool kClampMode, int kMode, int kHD, bool kFused>
-__global__ void __launch_bounds__(kThreads) flash64_dkv_kernel(const Args a) {
-  using Smem = DkvSmem<kHD, kFused>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * kTile, head = blockIdx.y, batch = blockIdx.z;
-  const int64_t hoff = head * kHD;
-  const int64_t row_stride = a.heads * kHD;
-
-  const __nv_bfloat16* qb = a.q + batch * a.q_sb + hoff;
-  const __nv_bfloat16* db = a.dout + batch * a.do_sb + hoff;
-  const int* sb = kMode == kSegment ? a.segments + batch * a.m_sb : nullptr;
-  const int64_t lbase = (static_cast<int64_t>(batch) * a.heads + head) * a.n_q;
-
-  auto load_q = [&](int tile, int stage) {
-    const int r0 = tile * kTile;
-    load_tile<kHD>(sm.q[stage], qb, a.q_sn, r0, a.n_q, tid);
-    load_tile<kHD>(sm.dout[stage], db, a.do_sn, r0, a.n_q, tid);
-    if (tid < kTile) {
-      const int row = r0 + tid;
-      const bool ok = row < a.n_q;
-      sm.l2[stage][tid] = ok ? a.l2[lbase + row] : kDeadL2;
-      sm.d[stage][tid] = ok ? a.dvec[lbase + row] : 0.f;
-      if (kMode == kSegment) sm.seg[stage][tid] = ok ? sb[row] : 0;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = prob<kClampMode>(s[i] * scale, l2r[(i >> 1) & 1]);
     }
   };
+  // s (P) -> dS in place, fp32; dP must be done
+  auto to_ds = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - dr[(i >> 1) & 1];
+  };
 
-  load_tile<kHD>(sm.k, a.k + batch * a.k_sb + hoff, a.k_sn, k0, a.n_kv, tid);
-  load_tile<kHD>(sm.v, a.v + batch * a.v_sb + hoff, a.v_sn, k0, a.n_kv, tid);
-  load_q(0, 0);
-  cp_async_commit();
+  // Tile t's S and dP are issued together with tile t-1's dS K; only S is
+  // waited for, so the exp2 pass runs while the other two are in flight.
+  // Nothing is in flight across the loop's back edge: ptxas serialises every
+  // wgmma of a loop that carries one over it (C7515).
+  mbar_wait(&sm.own_full, 0);
+  mbar_wait(&sm.full[0], 0);
+  wgmma_fence();
+  product_kk(s, desc_q, desc_k0);    // S  = Q K^T
+  product_kk(dp, desc_do, desc_v0);  // dP = dO V^T
+  wgmma_wait<1>();
+  fence_regs(s);
+  to_p(0);
+  wgmma_wait<0>();
+  fence_regs(dp);
+  to_ds();
+  pack_a(dsa, s);
+  for (int t = 1; t < n_tiles; ++t) {
+    const int stage = t % kStages, prev = (t - 1) % kStages;
+    mbar_wait(&sm.full[stage], (t / kStages) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    product_kk(s, desc_q, desc_k0 + stage * kStageStep);
+    product_kk(dp, desc_do, desc_v0 + stage * kStageStep);
+    product_rs(acc, dsa, desc_k0 + prev * kStageStep);  // dQ += dS K, K read again MN-major
+    wgmma_wait<2>();  // S is there
+    fence_regs(s);
+    to_p(stage);
+    wgmma_wait<1>();  // dP is there
+    fence_regs(dp);
+    to_ds();
+    wgmma_wait<0>();  // dS K has read dsa and stage prev
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);
+    pack_a(dsa, s);
+  }
+  wgmma_fence();
+  product_rs(acc, dsa, desc_k0 + ((n_tiles - 1) % kStages) * kStageStep);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  store_rows(acc, a.nat_scale,
+             a.dq + (static_cast<int64_t>(batch) * a.n_q) * (a.heads * kHD) + head * kHD,
+             a.heads * kHD, r0, a.n_q, tig);
+}
 
-  // This thread's keys c0, c0 + 8: bias (past M or padding) and segment.
-  const int c0 = k0 + warp * 16 + gid;
+// --------------------------------------------------------------------- dk/dv
+template <bool kFused>
+struct DkvSmem {
+  __nv_bfloat16 k[kBlock * kHD], v[kBlock * kHD];  // tiles first: multiples of 1024 bytes
+  __nv_bfloat16 q[kStages][kStep * kHD], dout[kStages][kStep * kHD];
+  // fused: dS^T of a query tile (the block's 128 keys x 64 queries, bf16),
+  // double-buffered, and the dQ tile on its way to dq, double-buffered, as
+  // two swizzled boxes of 64 queries x 32 dims (128-byte rows)
+  __nv_bfloat16 ds[kFused ? 2 : 1][kFused ? kBlock * kStep : 8];
+  float dqs[kFused ? 2 : 1][kFused ? kStep * kHD : 4];
+  float l2[kStages][kStep], d[kStages][kStep];
+  int seg[kStages][kStep];
+  uint64_t full[kStages], empty[kStages], own_full;
+  uint64_t ds_full[2], ds_empty[2];          // fused: a dS^T buffer is written / has been read
+};
+
+// One block: 128 keys of one (batch, head); walks every query tile.  kFused
+// adds dQ (the `_dqkv_kernel` of the TPU package) by bulk reduce-adds, from
+// the third warpgroup, whose first warp stays the producer.
+template <bool kClampMode, bool kSeg, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash64_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const __grid_constant__ CUtensorMap map_dq, const Args a) {
+  using Smem = DkvSmem<kFused>;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int k0 = blockIdx.x * kBlock;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int n_tiles = (a.n_q + kStep - 1) / kStep;
+  const int64_t lbase = (static_cast<int64_t>(batch) * a.heads + head) * a.n_q;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.full[i], 32);
+      mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    mbar_init(&sm.own_full, 1);
+    if (kFused) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(&sm.ds_full[i], kConsumerWarps);  // one lane of each consumer warp
+        mbar_init(&sm.ds_empty[i], 4);              // one lane of each warp of the dQ warpgroup
+      }
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wrow = warp * 16 + gid;         // this thread's rows in the warpgroup: wrow, wrow + 8
+
+  if (wg == 2) {
+    // --------------------------------------- producer (and, fused, dQ) warpgroup
+    // registers after setmaxnreg: 2 x 232 + 40, or, fused, 2 x 216 + 72, of 3 x 168
+    setmaxnreg_dec<kFused ? 72 : 40>();
+    if (!kFused && warp != 0) return;
+    const int* sb = kSeg ? a.segments + batch * a.m_sb : nullptr;
+    // warp 0: fills the ring's stage of query tile t
+    auto produce = [&](int t) {
+      const int stage = t % kStages;
+      if (t >= kStages) mbar_wait(&sm.empty[stage], (t / kStages - 1) & 1);
+      const int row0 = t * kStep;
+#pragma unroll
+      for (int i = 0; i < kStep / 32; ++i) {
+        const int c = lane + i * 32, row = row0 + c;
+        const bool ok = row < a.n_q;
+        sm.l2[stage][c] = ok ? a.l2[lbase + row] : kDeadL2;
+        sm.d[stage][c] = ok ? a.dvec[lbase + row] : 0.f;
+        if (kSeg) sm.seg[stage][c] = ok ? sb[row] : 0;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[stage], 2 * kStepBytes);
+        tma_load_3d(sm.q[stage], &map_q, &sm.full[stage], head * kHD, row0, batch);
+        tma_load_3d(sm.dout[stage], &map_do, &sm.full[stage], head * kHD, row0, batch);
+      } else {
+        mbar_arrive(&sm.full[stage]);
+      }
+    };
+    if (tid == 2 * 128) {
+      mbar_arrive_expect_tx(&sm.own_full, 2 * kOwnBytes);
+      tma_load_3d(sm.k, &map_k, &sm.own_full, head * kHD, k0, batch);
+      tma_load_3d(sm.v, &map_v, &sm.own_full, head * kHD, k0, batch);
+    }
+    if constexpr (!kFused) {
+      for (int t = 0; t < n_tiles; ++t) produce(t);
+    } else {
+      // Warp 0 keeps the ring kStages - 1 tiles ahead.  Then, per query
+      // tile: dQ_tile (64 queries x 64 dims) = dS K in one chain over the
+      // block's 128 keys, A = the tile's dS^T read MN-major from the buffer
+      // the consumers filled, B = the block's K read MN-major; the fp32 tile
+      // goes to a staging buffer and one thread adds it into dq with a bulk
+      // reduce-add per box of 32 dims (rows past N are dropped).
+      constexpr int kAhead = kStages - 1;
+      if (warp == 0) {
+        for (int t = 0; t < kAhead && t < n_tiles; ++t) produce(t);
+      }
+      const bool elected = (tid & 127) == 0;
+      const uint64_t desc_k = smem_desc(sm.k, 16, 1024);
+      const uint64_t desc_ds0 = smem_desc(sm.ds[0], 16, 1024);
+      float dq[32];
+      mbar_wait(&sm.own_full, 0);
+      for (int t = 0; t < n_tiles; ++t) {
+        if (warp == 0 && t + kAhead < n_tiles) produce(t + kAhead);
+        const int buf = t & 1;
+        mbar_wait(&sm.ds_full[buf], (t >> 1) & 1);
+        const uint64_t d = desc_ds0 + buf * (kOwnBytes >> 4);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlock / 16; ++kk) {
+          wgmma_ss<1, 1>(dq, d + kk * kMnStep, desc_k + kk * kMnStep, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        if (lane == 0) mbar_arrive(&sm.ds_empty[buf]);
+        // the reduce that read this staging buffer, two tiles ago, is done
+        if (elected) bulk_wait_read<1>();
+        named_barrier_sync(1, 128);
+        // 16-byte chunk c of row r at c ^ (r % 8), as a TMA load would lay it out
+        float* stg = sm.dqs[buf];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int chunk = (j & 3) * 2 + (tig >> 1);
+          unsigned char* p = reinterpret_cast<unsigned char*>(stg) + (j >> 2) * (kStep * 128) +
+                             wrow * 128 + ((chunk ^ gid) << 4) + (tig & 1) * 8;
+          *reinterpret_cast<float2*>(p) =
+              make_float2(dq[4 * j + 0] * a.nat_scale, dq[4 * j + 1] * a.nat_scale);
+          *reinterpret_cast<float2*>(p + 8 * 128) =
+              make_float2(dq[4 * j + 2] * a.nat_scale, dq[4 * j + 3] * a.nat_scale);
+        }
+        fence_proxy_async();
+        named_barrier_sync(1, 128);
+        if (elected) {
+          tma_reduce_add_3d(&map_dq, stg, head * kHD, t * kStep, batch);
+          tma_reduce_add_3d(&map_dq, stg + kStep * 32, head * kHD + 32, t * kStep, batch);
+          bulk_commit();
+        }
+      }
+      if (elected) bulk_wait_read<0>();  // shared memory stays until the reduces have read it
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kFused ? 216 : 232>();
+  const int c0 = k0 + wg * 64 + wrow;       // this thread's keys: c0 and c0 + 8
   float kbias[2];
   int segk[2] = {0, 0};
 #pragma unroll
@@ -328,142 +523,143 @@ __global__ void __launch_bounds__(kThreads) flash64_dkv_kernel(const Args a) {
     const int key = c0 + i * 8;
     const bool ok = key < a.n_kv;
     bool blocked = !ok;
-    if (kMode == kKeyPad && ok) blocked = a.kv_blocked[batch * a.m_sb + key] != 0;
+    if (a.kv_blocked != nullptr && ok) blocked = a.kv_blocked[batch * a.m_sb + key] != 0;
     kbias[i] = blocked ? kNegInf : 0.f;
-    if (kMode == kSegment) segk[i] = ok ? sb[key] : 0;
+    if (kSeg) segk[i] = ok ? a.segments[batch * a.m_sb + key] : 0;
   }
+  const float scale = a.scale;
+  const int64_t row_stride = a.heads * kHD;
 
-  uint32_t kf[kHD / 16][4], vf[kHD / 16][4];
-  float dk[kHD / 8][4], dv[kHD / 8][4];
-  zero<kHD>(dk);
-  zero<kHD>(dv);
-  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: this lane's matrix and row
+  float s[32], dp[32], dk[32], dv[32];  // S^T then P^T then dS^T; dP^T; dK; dV
+  uint32_t pa[4][4], dsa[4][4];         // bf16 P^T and dS^T as A fragments
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
 
-  const int n_tiles = (a.n_q + kTile - 1) / kTile;
+  const uint64_t desc_k = smem_desc(sm.k + wg * 64 * kHD, 16, 1024);
+  const uint64_t desc_v = smem_desc(sm.v + wg * 64 * kHD, 16, 1024);
+  const uint64_t desc_q0 = smem_desc(sm.q[0], 16, 1024);
+  const uint64_t desc_do0 = smem_desc(sm.dout[0], 16, 1024);
+  // fused: this thread's first row of dS^T in buffer 0 (keys wg * 64 + wrow, + 8)
+  unsigned char* ds_row = reinterpret_cast<unsigned char*>(sm.ds[0]) + (wg * 64 + wrow) * 128 +
+                          tig * 4;
+
+  // s (S^T of `stage`, done) -> P^T in place
+  auto to_p = [&](int stage) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j * 8 + tig * 2;
+      const float2 l2c = *reinterpret_cast<const float2*>(&sm.l2[stage][c]);
+      float b00 = kbias[0], b01 = kbias[0];  // key c0
+      float b10 = kbias[1], b11 = kbias[1];  // key c0 + 8
+      if (kSeg) {
+        const int2 qs = *reinterpret_cast<const int2*>(&sm.seg[stage][c]);
+        if (segk[0] != qs.x) b00 = kNegInf;
+        if (segk[0] != qs.y) b01 = kNegInf;
+        if (segk[1] != qs.x) b10 = kNegInf;
+        if (segk[1] != qs.y) b11 = kNegInf;
+      }
+      s[4 * j + 0] = prob<kClampMode>(s[4 * j + 0] * scale + b00, l2c.x);
+      s[4 * j + 1] = prob<kClampMode>(s[4 * j + 1] * scale + b01, l2c.y);
+      s[4 * j + 2] = prob<kClampMode>(s[4 * j + 2] * scale + b10, l2c.x);
+      s[4 * j + 3] = prob<kClampMode>(s[4 * j + 3] * scale + b11, l2c.y);
+    }
+  };
+  // s (P^T) -> dS^T in place; dP^T must be done
+  auto to_ds = [&](int stage) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j * 8 + tig * 2;
+      const float2 dc = *reinterpret_cast<const float2*>(&sm.d[stage][c]);
+      s[4 * j + 0] *= dp[4 * j + 0] - dc.x;
+      s[4 * j + 1] *= dp[4 * j + 1] - dc.y;
+      s[4 * j + 2] *= dp[4 * j + 2] - dc.x;
+      s[4 * j + 3] *= dp[4 * j + 3] - dc.y;
+    }
+  };
+  // fused: dS^T of tile t into its buffer for the dQ warpgroup, in the
+  // swizzled layout: row r, 16-byte chunk j at chunk j ^ (r % 8); r % 8 == gid
+  // for both of this thread's rows
+  auto hand_ds = [&](int t) {
+    const int buf = t & 1;
+    if (t >= 2) mbar_wait(&sm.ds_empty[buf], ((t >> 1) - 1) & 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      unsigned char* p = ds_row + buf * kOwnBytes + ((j ^ gid) << 4);
+      *reinterpret_cast<uint32_t*>(p) = dsa[j >> 1][(j & 1) * 2];
+      *reinterpret_cast<uint32_t*>(p + 8 * 128) = dsa[j >> 1][(j & 1) * 2 + 1];
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.ds_full[buf]);
+  };
+
+  // S^T and dP^T are issued together and only S^T is waited for, so the exp2
+  // pass runs under dP^T, the dS pass under P^T dO, and (fused) the dS^T
+  // hand-over under dS^T Q.  Every tile ends with all its products done: ptxas
+  // serialises every wgmma of a loop that carries one over its back edge
+  // (C7515), and the registers (four accumulators of 32 and two sets of A
+  // fragments) leave no room to defer a product to the next tile instead, nor
+  // for a dQ accumulator (C7512, spills): hence dQ in the third warpgroup.
+  mbar_wait(&sm.own_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_q(t + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-      load_rows_frags<kHD>(kf, sm.k, warp, gid, tig);
-      load_rows_frags<kHD>(vf, sm.v, warp, gid, tig);
-    }
-
-    float p[8][4], dpt[8][4];
-    product_nt<kHD>(p, kf, sm.q[stage], gid, tig);       // S^T  = K Q^T  (keys x queries)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = j * 8 + tig * 2 + (e & 1);
-        float b = kbias[i];
-        if (kMode == kSegment && segk[i] != sm.seg[stage][c]) b = kNegInf;
-        float x = p[j][e] * a.scale + b;
-        if (kClampMode) x = fminf(x, kClamp);
-        p[j][e] = exp2_approx(x - sm.l2[stage][c]);
-      }
-    }
-    product_nn_acc<kHD>(dv, p, sm.dout[stage], lane);    // dV += P^T dO
-    product_nt<kHD>(dpt, vf, sm.dout[stage], gid, tig);  // dP^T = V dO^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + tig * 2 + (e & 1);
-        p[j][e] = p[j][e] * (dpt[j][e] - sm.d[stage][c]);  // dS^T, fp32
-      }
-    }
-    product_nn_acc<kHD>(dk, p, sm.q[stage], lane);       // dK += dS^T Q
-    if (kFused) {
-      // dS^T (this warp's 16 keys x 64 queries) to shared memory as bf16 ...
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + tig * 2;
-        const int r = warp * 16 + gid;
-        *reinterpret_cast<uint32_t*>(&sm.ds[r][c]) = pack_bf16(p[j][0], p[j][1]);
-        *reinterpret_cast<uint32_t*>(&sm.ds[r + 8][c]) = pack_bf16(p[j][2], p[j][3]);
-      }
-      __syncthreads();
-      // ... then dQ (this warp's 16 queries x HD) = dS K over the block's 64
-      // keys: dS's A fragments are ldmatrix.trans of the keys-major tile.
-      float dq[kHD / 8][4];
-      zero<kHD>(dq);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        ldmatrix_x4_trans(af, &sm.ds[kk * 16 + (mat >> 1) * 8 + mrow][warp * 16 + (mat & 1) * 8]);
-#pragma unroll
-        for (int jd = 0; jd < kHD / 16; ++jd) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, &sm.k[kk * 16 + (mat & 1) * 8 + mrow][jd * 16 + (mat >> 1) * 8]);
-          mma_16816(dq[2 * jd], af, b[0], b[1]);
-          mma_16816(dq[2 * jd + 1], af, b[2], b[3]);
-        }
-      }
-      const int qrow = t * kTile + warp * 16 + gid;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = qrow + i * 8;
-        if (row >= a.n_q) continue;
-        float* o = a.dq_acc + (static_cast<int64_t>(batch) * a.n_q + row) * row_stride + hoff;
-#pragma unroll
-        for (int j = 0; j < kHD / 8; ++j) {
-          atomicAdd(reinterpret_cast<float2*>(o + j * 8 + tig * 2),
-                    make_float2(dq[j][2 * i] * a.nat_scale, dq[j][2 * i + 1] * a.nat_scale));
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with `stage` (and ds) before it is refilled
+    const int stage = t % kStages;
+    mbar_wait(&sm.full[stage], (t / kStages) & 1);
+    const uint64_t tq = desc_q0 + stage * kStageStep, tdo = desc_do0 + stage * kStageStep;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    product_kk(s, desc_k, tq);    // S^T  = K Q^T  (keys x queries)
+    product_kk(dp, desc_v, tdo);  // dP^T = V dO^T
+    wgmma_wait<1>();
+    fence_regs(s);
+    to_p(stage);
+    pack_a(pa, s);
+    wgmma_fence();
+    product_rs(dv, pa, tdo);  // dV += P^T dO, dO read again MN-major
+    wgmma_wait<1>();
+    fence_regs(dp);
+    to_ds(stage);
+    pack_a(dsa, s);
+    wgmma_fence();
+    product_rs(dk, dsa, tq);  // dK += dS^T Q, Q read again MN-major
+    if (kFused) hand_ds(t);
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);  // this warp is done with the stage
   }
-  const int64_t obase = static_cast<int64_t>(batch) * a.n_kv * row_stride + hoff;
-  store_rows<kHD>(dk, a.nat_scale, a.dk + obase, row_stride, c0, a.n_kv, tig);
-  store_rows<kHD>(dv, 1.f, a.dv + obase, row_stride, c0, a.n_kv, tig);
+  fence_regs(dk);
+  fence_regs(dv);
+  const int64_t obase = static_cast<int64_t>(batch) * a.n_kv * row_stride + head * kHD;
+  store_rows(dk, a.nat_scale, a.dk + obase, row_stride, c0, a.n_kv, tig);
+  store_rows(dv, 1.f, a.dv + obase, row_stride, c0, a.n_kv, tig);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st, const Args& a) {
-  // above 48 KB, dynamic shared memory needs the opt-in (cheap, idempotent)
+template <typename Kernel, typename... Maps>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st, const Args& a,
+                   const Maps&... maps) {
+  smem += 1024;  // the base is rounded up to 1024 bytes
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  kernel<<<grid, kThreads, smem, st>>>(maps..., a);
   return cudaGetLastError();
 }
 
-template <int kMode, int kHD>
-cudaError_t dispatch_fused(bool clamp, cudaStream_t st, const Args& a, int batch) {
-  const dim3 grid((a.n_kv + kTile - 1) / kTile, a.heads, batch);
-  const size_t smem = sizeof(DkvSmem<kHD, true>);
-  if constexpr (kHD != 64) {  // the stock route: safemax only
-    return launch(flash64_dkv_kernel<false, kMode, kHD, true>, grid, smem, st, a);
-  } else {
-    return clamp ? launch(flash64_dkv_kernel<true, kMode, kHD, true>, grid, smem, st, a)
-                 : launch(flash64_dkv_kernel<false, kMode, kHD, true>, grid, smem, st, a);
-  }
-}
-
-template <int kMode>
-cudaError_t dispatch(Which which, bool clamp, int head_dim, cudaStream_t st, const Args& a,
+// maps: q, k, v, do, and the fused kernel's fp32 dq
+template <bool kClampMode, bool kSeg>
+cudaError_t dispatch(Which which, cudaStream_t st, const CUtensorMap (&m)[5], const Args& a,
                      int batch) {
-  if (which == kDqkv) {
-    return head_dim == 80 ? dispatch_fused<kMode, 80>(clamp, st, a, batch)
-                          : dispatch_fused<kMode, 64>(clamp, st, a, batch);
-  }
+  const int rows = which == kDq ? a.n_q : a.n_kv;
+  const dim3 grid((rows + kBlock - 1) / kBlock, a.heads, batch);
   if (which == kDq) {
-    const dim3 grid((a.n_q + kTile - 1) / kTile, a.heads, batch);
-    return clamp ? launch(flash64_dq_kernel<true, kMode>, grid, sizeof(DqSmem), st, a)
-                 : launch(flash64_dq_kernel<false, kMode>, grid, sizeof(DqSmem), st, a);
+    return launch(flash64_dq_kernel<kClampMode, kSeg>, grid, sizeof(DqSmem), st, a, m[0], m[1],
+                  m[2], m[3]);
   }
-  const dim3 grid((a.n_kv + kTile - 1) / kTile, a.heads, batch);
-  const size_t smem = sizeof(DkvSmem<64, false>);
-  return clamp ? launch(flash64_dkv_kernel<true, kMode, 64, false>, grid, smem, st, a)
-               : launch(flash64_dkv_kernel<false, kMode, 64, false>, grid, smem, st, a);
+  if (which == kDkv) {
+    return launch(flash64_dkv_kernel<kClampMode, kSeg, false>, grid, sizeof(DkvSmem<false>), st,
+                  a, m[0], m[1], m[2], m[3], m[4]);
+  }
+  return launch(flash64_dkv_kernel<kClampMode, kSeg, true>, grid, sizeof(DkvSmem<true>), st, a,
+                m[0], m[1], m[2], m[3], m[4]);
 }
 
 int run(Which which, const void* q, const void* k, const void* v, const void* dout,
@@ -472,56 +668,67 @@ int run(Which which, const void* q, const void* k, const void* v, const void* do
         long long q_sb, long long q_sn, long long k_sb, long long k_sn, long long v_sb,
         long long v_sn, long long do_sb, long long do_sn, long long m_sb, int safemax,
         int head_dim, float sm_scale, void* stream) {
-  const bool hd_ok = head_dim == 64 || (which == kDqkv && head_dim == 80 && safemax);
   if (batch <= 0 || n_q <= 0 || n_kv <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
       (kv_blocked != nullptr && segments != nullptr) || (segments != nullptr && n_q != n_kv) ||
-      !hd_ok) {
+      head_dim != kHD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // q, k, v, do: the block's own operand in boxes of 128 rows, the walked one in boxes of 64
+  const int q_box = which == kDq ? kBlock : kStep, k_box = which == kDq ? kStep : kBlock;
+  CUtensorMap maps[5] = {};
+  int rc = attention_operand_map(&maps[0], q, n_q, q_sb, q_sn, batch, heads, q_box);
+  if (rc == 0) rc = attention_operand_map(&maps[1], k, n_kv, k_sb, k_sn, batch, heads, k_box);
+  if (rc == 0) rc = attention_operand_map(&maps[2], v, n_kv, v_sb, v_sn, batch, heads, k_box);
+  if (rc == 0) rc = attention_operand_map(&maps[3], dout, n_q, do_sb, do_sn, batch, heads, q_box);
+  if (rc == 0 && which == kDqkv) {
+    // dq (B, N, H*64) fp32, contiguous: boxes of 64 queries x 32 dims
+    const uint64_t row_bytes = static_cast<uint64_t>(heads) * kHD * 4;
+    const uint64_t dims[3] = {static_cast<uint64_t>(heads) * kHD, static_cast<uint64_t>(n_q),
+                              static_cast<uint64_t>(batch)};
+    const uint64_t strides[2] = {row_bytes, row_bytes * n_q};
+    const uint32_t box[2] = {32, kStep};
+    rc = make_tensor_map(&maps[4], out0, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  }
+  if (rc != 0) return rc;
   Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
   a.l2 = static_cast<const float*>(l2);
   a.dvec = static_cast<const float*>(dvec);
   a.kv_blocked = static_cast<const uint8_t*>(kv_blocked);
   a.segments = static_cast<const int*>(segments);
   a.dq = which == kDq ? static_cast<__nv_bfloat16*>(out0) : nullptr;
-  a.dq_acc = which == kDqkv ? static_cast<float*>(out0) : nullptr;
   a.dk = which == kDq ? nullptr : static_cast<__nv_bfloat16*>(out1);
   a.dv = which == kDq ? nullptr : static_cast<__nv_bfloat16*>(out2);
   a.n_q = n_q;
   a.n_kv = n_kv;
   a.heads = heads;
-  a.q_sb = q_sb; a.q_sn = q_sn; a.k_sb = k_sb; a.k_sn = k_sn;
-  a.v_sb = v_sb; a.v_sn = v_sn; a.do_sb = do_sb; a.do_sn = do_sn; a.m_sb = m_sb;
+  a.m_sb = m_sb;
   a.scale = static_cast<float>(static_cast<double>(sm_scale) * kLog2e);  // hd^-0.5 * log2(e)
   a.nat_scale = sm_scale;                                                 // hd^-0.5
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool clamp = safemax == 0;
+  const bool seg = segments != nullptr;
   cudaError_t err;
-  if (segments != nullptr) {
-    err = dispatch<kSegment>(which, clamp, head_dim, st, a, batch);
-  } else if (kv_blocked != nullptr) {
-    err = dispatch<kKeyPad>(which, clamp, head_dim, st, a, batch);
+  if (safemax == 0) {
+    err = seg ? dispatch<true, true>(which, st, maps, a, batch)
+              : dispatch<true, false>(which, st, maps, a, batch);
   } else {
-    err = dispatch<kNone>(which, clamp, head_dim, st, a, batch);
+    err = seg ? dispatch<false, true>(which, st, maps, a, batch)
+              : dispatch<false, false>(which, st, maps, a, batch);
   }
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// C entry points, bound with ctypes.  q/k/v are (B, N|M, H*hd) bf16 rows with
-// unit stride inside a row and the given batch/row strides (views of fused
-// projections are fine); dout is (B, N, H*hd) bf16; l2 and dvec are
-// contiguous (B, H, N) fp32 (the forward's L2 and rowsum(do * o)); at most one
-// of kv_blocked ((B, M) bytes) and segments ((B, N) int32, N == M) is given,
-// with batch stride m_sb.  head_dim is 64 (the fused kernel also takes 80, in
-// its safemax form); sm_scale is the true head's hd^-0.5.  Outputs are
-// contiguous: dq bf16 (B, N, H*hd), dk and dv bf16 (B, M, H*hd); the fused
-// kernel adds dq into a zeroed fp32 (B, N, H*hd) buffer.  Each returns the
+// C entry points, bound with ctypes.  q/k/v are (B, N|M, H*64) bf16 rows with
+// unit stride inside a row and the given batch/row strides in elements (views
+// of fused projections are fine); dout is (B, N, H*64) bf16 with its own
+// strides; all four are read by TMA, so bases and strides are multiples of 8
+// elements (16 bytes).  l2 and dvec are contiguous (B, H, N) fp32 (the
+// forward's L2 and rowsum(do * o)); at most one of kv_blocked ((B, M) bytes)
+// and segments ((B, N) int32, N == M) is given, with batch stride m_sb.
+// head_dim is 64; sm_scale is the true head's hd^-0.5.  Outputs are
+// contiguous: dq bf16 (B, N, H*64), dk and dv bf16 (B, M, H*64); the fused
+// kernel adds dq into a zeroed, contiguous fp32 (B, N, H*64) buffer.  Each returns the
 // CUDA error of the launch (0 on success).
 extern "C" int egom2p_flash64_train_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const void* l2, const void* dvec,

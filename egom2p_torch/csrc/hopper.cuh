@@ -98,14 +98,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Host side: a tensor map over a bf16 tensor of up to 3 dims (innermost
+// One thread adds a box of fp32 values in shared memory (laid out as a TMA
+// load of the same box would lay it out) into the tensor of a tensor map;
+// elements outside the tensor are dropped.  The adds happen in L2, in no
+// fixed order.  The copy belongs to the thread's current bulk group.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's bulk groups still read
+// their shared-memory source.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Host side: a tensor map over a bf16 (or fp32) tensor of up to 3 dims (innermost
 // first: dims[0] contiguous columns, then rows, then batches; strides in
 // bytes for dims 1 and 2), cut into boxes of box[0] x box[1] (x 1), 128-byte
 // swizzle.  cuTensorMapEncodeTiled is looked up in the loaded libcuda at run
 // time (cudaGetDriverEntryPoint), so the link line names no libcuda.  Returns
 // 0 or a nonzero error code.
 inline int make_tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+                           const uint64_t* strides, const uint32_t* box,
+                           CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -131,11 +156,28 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, int rank, const u
     gbox[i] = i < 2 ? box[i] : 1;
     if (i > 0) gstride[i - 1] = strides[i - 1];
   }
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult rc = encode(map, dtype, rank, const_cast<void*>(base),
                              gdim, gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor map of a (B, rows, H * 64) bf16 attention operand given by its
+// base and its batch and row strides in elements (a view of a fused
+// projection is fine): boxes of box_rows rows x 64 columns, addressed as
+// (head * 64, row, batch).
+inline int attention_operand_map(CUtensorMap* map, const void* base, int rows,
+                                 long long batch_stride, long long row_stride, int batch,
+                                 int heads, int box_rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(heads) * 64, static_cast<uint64_t>(rows),
+                            static_cast<uint64_t>(batch)};
+  // a batch of one has no batch stride to honour
+  const uint64_t row_bytes = static_cast<uint64_t>(row_stride) * 2;
+  const uint64_t strides[2] = {row_bytes, batch > 1 ? static_cast<uint64_t>(batch_stride) * 2
+                                                    : row_bytes * rows};
+  const uint32_t box[2] = {64, static_cast<uint32_t>(box_rows)};
+  return make_tensor_map(map, base, 3, dims, strides, box);
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -179,9 +221,10 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // D (64 x N fp32, N = 2 * the array's length) = A . B + (scale_d ? D : 0)
-// over a depth of 16, bf16 operands.  wgmma_ss: A (64 x 16, K-major) and B
-// through descriptors; wgmma_rs: A from registers (the m16n8k16 A fragment
-// of this warp's 16 rows).  kTransB = 1: B is MN-major.  Thread t of the
+// over a depth of 16, bf16 operands.  wgmma_ss: A (64 x 16, K-major unless
+// kTransA = 1) and B through descriptors; wgmma_rs: A from registers (the
+// m16n8k16 A fragment of this warp's 16 rows).  kTransB = 1: B is MN-major.
+// Thread t of the
 // warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 (+ 8) and, for each
 // 8-column tile j, columns 8j + 2 * (t % 4) (+ 1): d[4j], d[4j + 1] for the
 // first row, d[4j + 2], d[4j + 3] for the second, as mma.sync m16n8.
@@ -198,6 +241,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// m64n64k16 with both operands in shared memory.  kTransA = 1 reads A
+// MN-major too (bf16 allows a transposed A from shared memory): its 64 rows
+// are then the contiguous dimension and the depth runs across tile rows.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 template <int kTransB>

@@ -17,10 +17,12 @@ It is a torch.autograd.Function.  The forward launches the forward kernel
 (csrc/flash64_fwd.cu, its L2 instance: wgmma, 128-row query tiles, 128-key
 stages, any N and M) and keeps o and L2; the backward forms
 D = rowsum(do * o) per head in fp32 and launches the dq kernel and the dk/dv
-kernel (csrc/flash64_train.cu), or, when EGOM2P_F64T_FUSED_BWD=1 at the time
-the backward runs, the one fused dq/dk/dv kernel.  The fused kernel sums dq
-in fp32 with atomic adds, in an order that changes from run to run, so its
-dq is not bitwise deterministic; dq then leaves fp32 in q's dtype (the JAX
+kernel (csrc/flash64_train.cu: wgmma, blocks of 128 query rows or 128 keys,
+streamed tiles of 64 rows, any N and M), or, when EGOM2P_F64T_FUSED_BWD=1 at
+the time the backward runs, the one fused dq/dk/dv kernel.  The fused kernel
+sums dq in fp32 with adds that L2 performs in an order that changes from run
+to run (bulk reduce-adds of 64 x 32 tiles; float2 atomics at head_dim 80), so
+its dq is not bitwise deterministic; dq then leaves fp32 in q's dtype (the JAX
 package's fused kernel does the same), where the split kernel rounds it to
 bf16 first.  On CUDA tensors the wrappers `flash64_train_fwd`,
 `flash64_train_dq`, `flash64_train_dkv` and `flash64_train_dqkv` launch
@@ -30,9 +32,9 @@ split kernels' three gradients).  Each wrapper's `.launches` counts its CUDA
 launches.  No gradient goes to the mask or the segments.
 
 The forward and fused kernels also serve ops/flash_attention.py (the stock
-route); at head_dim 80 the forward is csrc/flash80_fwd.cu (mma.sync, 64-row
-tiles).  Every function here takes `hd` (the kernel's head
-dim, 64 or 80) and `sm_scale` (the true head's natural scale, hd^-0.5 by
+route); at head_dim 80 the forward is csrc/flash80_fwd.cu and the fused
+backward csrc/flash80_bwd.cu (mma.sync, 64-row tiles).  Every function here
+takes `hd` (the kernel's head dim, 64 or 80) and `sm_scale` (the true head's natural scale, hd^-0.5 by
 default) as keywords.
 """
 from __future__ import annotations
@@ -164,7 +166,7 @@ def flash64_train_dkv(q, k, v, do, l2, d, kv_blocked=None, segments=None,
 def flash64_train_dqkv(q, k, v, do, l2, d, kv_blocked=None, segments=None,
                        safemax=False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in q's, k's and v's dtypes from the one fused kernel;
-    dq is summed in fp32 by atomic adds (not bitwise deterministic)."""
+    dq is summed in fp32 by reduce-adds in L2 (not bitwise deterministic)."""
     if q.device.type == "cpu":
         return flash64_train_reference_dqkv(q, k, v, do, l2, d, kv_blocked, segments, safemax)
     out = launch("dqkv", q, k, v, kv_blocked, segments, safemax, do, l2, d)
@@ -245,8 +247,9 @@ def launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
                     result = (dk.to(k.dtype), dv.to(v.dtype))
                 else:
                     dq = torch.zeros((B, N, C), dtype=torch.float32, device=q.device)
-                    rc = lib.egom2p_flash64_train_dqkv(*common, dq.data_ptr(), dk.data_ptr(),
-                                                       dv.data_ptr(), *tail)
+                    # head_dim 64: the wgmma kernel; 80 (the stock route): its own file
+                    bwd = lib.egom2p_flash80_bwd if hd == 80 else lib.egom2p_flash64_train_dqkv
+                    rc = bwd(*common, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail)
                     result = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
     if rc != 0:
         raise RuntimeError(f"flash64_train {which} kernel launch failed with CUDA error {rc}")

@@ -72,6 +72,11 @@ def _port(monkeypatch, q, k, v, do, kvb, seg, safemax):
     ("kp", 300, 200),
     ("seg", 256, 256),
     ("seg", 300, 300),     # ragged: queries and keys past N match nothing
+    # both sides of the backward kernels' 128-row blocks and 64-row tiles
+    ("none", 129, 127),
+    ("kp", 127, 129),
+    ("seg", 129, 129),
+    ("kp", 65, 191),
 ])
 def test_fused_bwd_plain_matches_jax_fused_kernel(monkeypatch, safemax, mode, N, M):
     inputs = _inputs(np.random.default_rng(0), 2, N, M, 2, mode)

@@ -96,6 +96,11 @@ def _assert_close(got, ref):
     ("kp", 300, 200),
     ("seg", 256, 256),
     ("seg", 300, 300),     # ragged: queries and keys past N match nothing
+    # both sides of the backward kernels' 128-row blocks and 64-row tiles
+    ("none", 129, 127),
+    ("kp", 127, 129),
+    ("seg", 129, 129),
+    ("kp", 65, 191),
 ])
 def test_flash64_train_plain_matches_jax_kernels(safemax, mode, N, M):
     rng = np.random.default_rng(0)

@@ -179,9 +179,20 @@ def _train_inputs(rng, B, N, M, H, mode, device):
     return q, k, v, do, kvb, seg
 
 
+# the backward kernels' blocks of 128 rows fed by TMA and streamed tiles of 64
+# rows: the forward's ragged lengths in the three mask modes (segments are
+# self-attention only)
+BWD_RAGGED = ([(mode, n, n) for n in RAGGED_SELF for mode in ("none", "kp", "seg")]
+              + [(mode, n, m) for n, m in RAGGED_CROSS for mode in ("none", "kp")])
+# where a gradient is rounding noise only (one live key: softmax's gradient is
+# zero and the plain version leaves 5e-7), the relative tolerance needs a floor
+GRAD_ATOL = 1e-5
+
+
 @pytest.mark.parametrize("safemax", [False, True])
 @pytest.mark.parametrize("mode,N,M", [("none", 64, 64), ("none", 300, 333), ("kp", 300, 200),
-                                      ("kp", 256, 256), ("seg", 300, 300), ("seg", 1024, 1024)])
+                                      ("kp", 256, 256), ("seg", 300, 300), ("seg", 1024, 1024)]
+                         + BWD_RAGGED)
 def test_flash64_train_kernels_match_plain(cuda, safemax, mode, N, M):
     """Forward, dq and dk/dv kernels against their plain versions; fully
     blocked rows give exact zeros in the output and every gradient."""
@@ -203,7 +214,7 @@ def test_flash64_train_kernels_match_plain(cuda, safemax, mode, N, M):
     for g, r in zip((dq, dk, dv), ft.flash64_train_reference_bwd(q, k, v, ro, rl2, do, kvb,
                                                                  seg, safemax)):
         assert g.dtype == torch.bfloat16
-        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max()
+        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max() + GRAD_ATOL
     if kvb is not None:
         dead = kvb.all(dim=1)
         for t in (o, dq, dk, dv):
@@ -312,10 +323,11 @@ def test_flash_ce_kernel_rejects_what_it_cannot_take(cuda):
 # ------------------------------------------------- fused attention backward
 @pytest.mark.parametrize("safemax", [False, True])
 @pytest.mark.parametrize("mode,N,M", [("none", 300, 333), ("kp", 300, 200), ("kp", 256, 256),
-                                      ("seg", 300, 300), ("seg", 1024, 1024)])
+                                      ("seg", 300, 300), ("seg", 1024, 1024)] + BWD_RAGGED)
 def test_flash64_train_dqkv_kernel_matches_plain(cuda, safemax, mode, N, M):
     """The fused dq/dk/dv kernel against its plain version; fully blocked
-    rows give exact zeros in every gradient."""
+    rows give exact zeros in every gradient; three runs give bitwise equal
+    dk and dv (dq's adds happen in L2 in no fixed order)."""
     import egom2p_torch.ops.flash64_train as ft
     rng = np.random.default_rng(2)
     q, k, v, do, kvb, seg = _train_inputs(rng, 2, N, M, 4, mode, cuda)
@@ -328,11 +340,16 @@ def test_flash64_train_dqkv_kernel_matches_plain(cuda, safemax, mode, N, M):
     ref = ft.flash64_train_reference_dqkv(q, k, v, do, rl2, d, kvb, seg, safemax)
     for g, r in zip(got, ref):
         assert g.dtype == torch.bfloat16
-        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max()
+        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max() + GRAD_ATOL
     if kvb is not None:
         dead = kvb.all(dim=1)
         for t in got:
             assert (t[dead] == 0).all(), "fully blocked rows must be exact zeros"
+    for _ in range(2):
+        again = ft.flash64_train_dqkv(q, k, v, do, rl2, d, kvb, seg, safemax)
+        assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+        assert (again[0].float() - ref[0].float()).abs().max() <= (
+            1e-2 * ref[0].float().abs().max() + GRAD_ATOL)
 
 
 def test_flash64_train_fused_switch_on_the_card(cuda, monkeypatch):

@@ -48,6 +48,34 @@ def test_forward_kernel_sources_are_split_by_head_dim():
     assert "wgmma_ss" in (csrc / "flash_ce_bwd.cu").read_text()
 
 
+def test_backward_kernel_sources_are_split_by_head_dim():
+    """The head_dim-64 backward (dq, dk/dv, fused) is on wgmma and TMA and
+    holds no mma.sync product and no cp.async tile load; the head_dim-80
+    fused backward keeps the mma.sync design in its own file with its own
+    entry point, which the launcher picks by head_dim."""
+    csrc = REPO / "egom2p_torch" / "csrc"
+    bwd64, bwd80 = (csrc / "flash64_train.cu").read_text(), (csrc / "flash80_bwd.cu").read_text()
+    for name in ("wgmma_ss", "wgmma_rs", "tma_load_3d", "tma_reduce_add_3d", "setmaxnreg_inc"):
+        assert name in bwd64, name
+    assert "mma_16816" not in bwd64 and "cp_async16" not in bwd64 and "atomicAdd" not in bwd64
+    for entry in ("egom2p_flash64_train_dq", "egom2p_flash64_train_dkv",
+                  "egom2p_flash64_train_dqkv"):
+        assert f'extern "C" int {entry}(' in bwd64
+    assert "mma_16816" in bwd80 and 'extern "C" int egom2p_flash80_bwd(' in bwd80
+    assert "wgmma" not in bwd80.split('#include "common.cuh"')[1]
+    launcher = (REPO / "egom2p_torch" / "ops" / "flash64_train.py").read_text()
+    assert "lib.egom2p_flash80_bwd if hd == 80 else lib.egom2p_flash64_train_dqkv" in launcher
+
+
+def test_tensor_map_helpers_are_shared():
+    """One helper builds the tensor maps of q, k, v and do for the forward
+    and the backward kernels (TMA's layout rules hold for all four)."""
+    csrc = REPO / "egom2p_torch" / "csrc"
+    assert "inline int attention_operand_map(" in (csrc / "hopper.cuh").read_text()
+    for name in ("flash64_fwd.cu", "flash64_train.cu"):
+        assert "attention_operand_map(" in (csrc / name).read_text(), name
+
+
 # The table of PERF.md: the card's bound for each kernel at its main path's
 # shape, on 989 TFLOP/s dense bf16 and 3.35 TB/s
 @pytest.mark.parametrize("got,want_ms", [

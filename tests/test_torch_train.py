@@ -374,7 +374,7 @@ def test_trainer_runs_three_cpu_steps(tmp_path):
         "--synthetic_data", "--scaled_modalities", "--model", NAME,
         "--num_input_tokens", "32", "--num_target_tokens", "32", "--batch_size", "2",
         "--epochs", "1", "--epoch_size", "6", "--lr_schedule", "constant", "--blr", "1e-2",
-        "--output_dir", str(tmp_path), "--print_freq", "1"])
+        "--device", "cpu", "--output_dir", str(tmp_path), "--print_freq", "1"])
     seen = []
     out = run_training.main(args, on_step=lambda step, m, sec: seen.append((step, m, sec)))
     assert [s for s, _, _ in seen] == [0, 1, 2]
@@ -391,6 +391,32 @@ def test_trainer_runs_three_cpu_steps(tmp_path):
     init.init_random_(torch.Generator().manual_seed(0))
     moved = [not torch.equal(ckpt["model"][k], v) for k, v in init.state_dict().items()]
     assert sum(moved) > len(moved) // 2
+
+
+def test_trainer_default_device_raises_without_cuda(tmp_path, monkeypatch):
+    """--device defaults to cuda; where no CUDA device is found the trainer
+    raises, naming the option, before it loads data or builds a model."""
+    import egom2p_torch.models.egom2p as port_models
+
+    def no_build(*a, **k):
+        raise AssertionError("no model may be built")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(run_training, "setup_data", no_build)
+    monkeypatch.setattr(port_models, "create_model", no_build)
+    args = run_training.get_args(["--synthetic_data", "--scaled_modalities", "--model", NAME,
+                                  "--output_dir", str(tmp_path)])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        run_training.main(args)
+    assert not list(tmp_path.iterdir())
+
+
+def test_trainer_device_choices():
+    """--device takes cuda or cpu, nothing else."""
+    assert run_training.get_args(["--device", "cpu"]).device == "cpu"
+    with pytest.raises(SystemExit):
+        run_training.get_args(["--device", "tpu"])
 
 
 def test_trainer_args_and_config(tmp_path):
