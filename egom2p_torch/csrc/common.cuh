@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels (sm_90a): cp.async tile loads,
-// the bf16 mma.sync m16n8k16 tensor-core product, ldmatrix, exp2 and bf16
-// packing.  Header-only; every function is inline.
+// the bf16 mma.sync m16n8k16 tensor-core product, exp2 and bf16 packing.
+// Header-only; every function is inline.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,12 +36,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -67,17 +61,6 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const __nv_bfloat1
   a[1] = ld_smem_u32(row8);
   a[2] = ld_smem_u32(row0 + 8);
   a[3] = ld_smem_u32(row8 + 8);
-}
-
-// An accumulator tile of 16 rows x 64 columns held as 8 n-tiles of 8 columns
-// is, two n-tiles at a time, the A operand of the next product over those 64
-// columns: s[2kk], s[2kk+1] are k-step kk's A fragment, rounded to bf16.
-__device__ __forceinline__ void acc_to_a_frag(uint32_t (&a)[4], const float (&lo)[4],
-                                              const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
 }
 
 }  // namespace egom2p

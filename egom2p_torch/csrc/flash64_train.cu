@@ -1,17 +1,17 @@
 // Backward of training attention at head_dim 64 for Hopper (sm_90a): the
 // split pair (dq, and dk/dv) and the fused one-pass dq/dk/dv kernel, all on
-// wgmma, TMA and warp specialisation.  Called from
-// egom2p_torch/ops/flash64_train.py.  The head_dim-80 instance of the fused
-// kernel (the stock route for heads of 65..80) is csrc/flash80_bwd.cu.
+// wgmma, TMA and warp specialisation; the fused kernel also at head_dim 80
+// (the stock route for heads of 65..80 zero-padded to 80).  Called from
+// egom2p_torch/ops/flash64_train.py.
 //
 // Replaces the Pallas TPU kernels egom2p_tpu/ops/flash64_train.py
 // `_dq_kernel` and `_dkv_kernel` (the split backward of
 // `flash64_train_attention`, its default), `_dqkv_kernel` (the fused backward,
-// EGOM2P_F64T_FUSED_BWD=1), and, at heads of up to 64, the backward of the
-// stock jax.experimental.pallas.ops.tpu flash_attention that
+// EGOM2P_F64T_FUSED_BWD=1), and the backward of the stock
+// jax.experimental.pallas.ops.tpu flash_attention that
 // egom2p_tpu/ops/flash_attention.py reaches (the fused kernel in its safemax
-// form with the true head's scale).  The forward is the L2 instance of
-// csrc/flash64_fwd.cu.
+// form with the true head's scale, at head width 64 or 80).  The forward is
+// the L2 instance of csrc/flash64_fwd.cu.
 //
 // Math (identical to the TPU kernels), per (batch, head), with
 // scale = hd^-0.5 * log2 e (hd the true head dim) and the forward's mask:
@@ -88,8 +88,9 @@
 //     atomic adds from the consumers' registers (M/64 per element) the adds
 //     took 0.53 ms of a 1.11 ms launch; as reduce-adds issued by the
 //     consumers 0.25 of 0.83; from the third warpgroup the launch takes 0.65.
-// Dynamic shared memory: dq 99 KB, dk/dv 99 KB, fused 163 KB; one block per
-// SM (the registers allow no more).
+// Dynamic shared memory: dq 99 KB, dk/dv 99 KB, fused 163 KB (196 KB at head
+// width 80, whose design stands above the dk/dv kernel); one block per SM
+// (the registers allow no more).
 
 #include "hopper.cuh"
 
@@ -98,6 +99,7 @@ namespace {
 using namespace egom2p;
 
 constexpr int kHD = 64;
+constexpr int kHD0 = kHD;                    // columns of a head's first (128-byte) box
 constexpr int kBlock = 128;                  // rows a block owns: 2 warpgroups x 64
 constexpr int kStep = 64;                    // rows of a streamed tile
 constexpr int kStages = 4;
@@ -132,12 +134,13 @@ __device__ __forceinline__ float prob(float x, float l2) {
   return exp2_approx(x - l2);
 }
 
-// An fp32 accumulator of 64 columns, rounded to bf16, as the A fragments of
-// the 4 k-steps over those columns: column tiles 2kk and 2kk + 1 are exactly
-// k-step kk's fragment.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+// An fp32 accumulator of 16 kK columns, rounded to bf16, as the A fragments
+// of the kK k-steps over those columns: column tiles 2kk and 2kk + 1 are
+// exactly k-step kk's fragment.
+template <int kK>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[kK][4], const float (&x)[8 * kK]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kK; ++kk) {
     a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
     a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
     a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
@@ -160,9 +163,10 @@ __device__ __forceinline__ void product_rs(float (&acc)[32], const uint32_t (&a)
   wgmma_commit();
 }
 
-// This warp's rows row0, row0 + 8 (where below `rows`) x 64 dims, times
-// `mul`, as bf16 rows of `out`.
-__device__ __forceinline__ void store_rows(const float (&acc)[32], float mul, __nv_bfloat16* out,
+// This warp's rows row0, row0 + 8 (where below `rows`) x kN / 2 dims (64, or
+// the 16 of a second box), times `mul`, as bf16 rows of `out`.
+template <int kN>
+__device__ __forceinline__ void store_rows(const float (&acc)[kN], float mul, __nv_bfloat16* out,
                                            int64_t row_stride, int row0, int rows, int tig) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -170,7 +174,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[32], float mul, __
     if (row >= rows) continue;
     __nv_bfloat16* o = out + row * row_stride;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kN / 4; ++j) {
       *reinterpret_cast<uint32_t*>(o + j * 8 + tig * 2) =
           pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
     }
@@ -363,32 +367,75 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // --------------------------------------------------------------------- dk/dv
-template <bool kFused>
+// A head of 80 (the stock route's fused kernel): every tile is two TMA boxes,
+// columns 0-63 with the 128-byte swizzle and columns 64-79 as 32-byte rows
+// with the 32-byte swizzle (hopper.cuh), and the queries go by in steps of
+// 32 rows (walk_rows) through 8 stages, so that S^T and dP^T are 64 x 32 (16
+// registers each) beside dK and dV of 64 x 80 (40 each): 128 registers of
+// accumulators and A fragments, where steps of 64 rows would need 176 of the
+// 168 a thread gets.  The dQ warpgroup still takes 64 queries at a time, from
+// the dS^T halves of two steps.  On an H100 (700 W) at 15 heads of 68 packed
+// to 80, B = 8, 2048^2: 1.22 ms, against 2.03 for the earlier mma.sync
+// kernel and 1.84 for cuDNN's backward on the same padded heads.
+__host__ __device__ constexpr int walk_rows(int hd) { return hd == 80 ? 32 : kStep; }
+__host__ __device__ constexpr int walk_stages(int hd) { return hd == 80 ? 8 : kStages; }
+constexpr int kBox2 = 16;                    // columns of the second box of a head of 80
+constexpr int kDsBytes = kBlock * kStep * 2; // a dS^T buffer: 128 keys x 64 queries, 16 KB
+
+// The second boxes of a head of 80: own K and V, the walked Q and dO stages,
+// and the staging of dq's columns 64-79 (64 queries x 16 fp32, plain rows).
+template <int kHD>
+struct DkvWide {};
+template <>
+struct alignas(1024) DkvWide<80> {
+  __nv_bfloat16 k[kBlock * kBox2], v[kBlock * kBox2];
+  __nv_bfloat16 q[walk_stages(80)][walk_rows(80) * kBox2];
+  __nv_bfloat16 dout[walk_stages(80)][walk_rows(80) * kBox2];
+  float dqs[2][kStep * kBox2];
+};
+
+template <int kHD, bool kFused>
 struct DkvSmem {
-  __nv_bfloat16 k[kBlock * kHD], v[kBlock * kHD];  // tiles first: multiples of 1024 bytes
-  __nv_bfloat16 q[kStages][kStep * kHD], dout[kStages][kStep * kHD];
+  static constexpr int kW = walk_rows(kHD), kS = walk_stages(kHD);
+  __nv_bfloat16 k[kBlock * kHD0], v[kBlock * kHD0];  // tiles first: multiples of 1024 bytes
+  __nv_bfloat16 q[kS][kW * kHD0], dout[kS][kW * kHD0];
   // fused: dS^T of a query tile (the block's 128 keys x 64 queries, bf16),
   // double-buffered, and the dQ tile on its way to dq, double-buffered, as
   // two swizzled boxes of 64 queries x 32 dims (128-byte rows)
   __nv_bfloat16 ds[kFused ? 2 : 1][kFused ? kBlock * kStep : 8];
-  float dqs[kFused ? 2 : 1][kFused ? kStep * kHD : 4];
-  float l2[kStages][kStep], d[kStages][kStep];
-  int seg[kStages][kStep];
-  uint64_t full[kStages], empty[kStages], own_full;
+  float dqs[kFused ? 2 : 1][kFused ? kStep * kHD0 : 4];
+  float l2[kS][kW], d[kS][kW];
+  int seg[kS][kW];
+  uint64_t full[kS], empty[kS], own_full;
   uint64_t ds_full[2], ds_empty[2];          // fused: a dS^T buffer is written / has been read
+  DkvWide<kHD> w;
 };
 
 // One block: 128 keys of one (batch, head); walks every query tile.  kFused
 // adds dQ (the `_dqkv_kernel` of the TPU package) by bulk reduce-adds, from
-// the third warpgroup, whose first warp stays the producer.
-template <bool kClampMode, bool kSeg, bool kFused>
+// the third warpgroup, whose first warp stays the producer.  kHD: 64, or 80
+// (fused, safemax; map_q2 .. map_dq2 are then the second boxes' maps, unused
+// at 64).
+template <int kHD, bool kClampMode, bool kSeg, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
     flash64_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
                        const __grid_constant__ CUtensorMap map_do,
-                       const __grid_constant__ CUtensorMap map_dq, const Args a) {
-  using Smem = DkvSmem<kFused>;
+                       const __grid_constant__ CUtensorMap map_dq,
+                       const __grid_constant__ CUtensorMap map_q2,
+                       const __grid_constant__ CUtensorMap map_k2,
+                       const __grid_constant__ CUtensorMap map_v2,
+                       const __grid_constant__ CUtensorMap map_do2,
+                       const __grid_constant__ CUtensorMap map_dq2, const Args a) {
+  static_assert(kHD == 64 || (kHD == 80 && kFused), "heads of 64, or 80 in the fused form");
+  constexpr bool kWide = kHD == 80;
+  constexpr int kW = walk_rows(kHD), kS = walk_stages(kHD);  // walked rows a tile; stages
+  constexpr int kWalkBytes = kW * kHD0 * 2, kWalk2Bytes = kW * kBox2 * 2;
+  constexpr uint64_t kWalkStep = kWalkBytes >> 4, kWalk2Step = kWalk2Bytes >> 4;
+  // an MN-major k-step of a second box: 16 rows of 32 bytes
+  constexpr uint64_t kMnStep2 = 512 >> 4;
+  using Smem = DkvSmem<kHD, kFused>;
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(align1024(smem_raw));
 
@@ -396,12 +443,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = tid >> 7;
   const int k0 = blockIdx.x * kBlock;
   const int head = blockIdx.y, batch = blockIdx.z;
-  const int n_tiles = (a.n_q + kStep - 1) / kStep;
+  const int n_tiles = (a.n_q + kW - 1) / kW;
   const int64_t lbase = (static_cast<int64_t>(batch) * a.heads + head) * a.n_q;
 
   if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < kS; ++i) {
       mbar_init(&sm.full[i], 32);
       mbar_init(&sm.empty[i], kConsumerWarps);
     }
@@ -409,7 +456,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (kFused) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        mbar_init(&sm.ds_full[i], kConsumerWarps);  // one lane of each consumer warp
+        // one lane of each consumer warp (at 80: for each of the buffer's two halves)
+        mbar_init(&sm.ds_full[i], kWide ? 2 * kConsumerWarps : kConsumerWarps);
         mbar_init(&sm.ds_empty[i], 4);              // one lane of each warp of the dQ warpgroup
       }
     }
@@ -424,16 +472,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 2) {
     // --------------------------------------- producer (and, fused, dQ) warpgroup
     // registers after setmaxnreg: 2 x 232 + 40, or, fused, 2 x 216 + 72, of 3 x 168
-    setmaxnreg_dec<kFused ? 72 : 40>();
+    // (a head of 80: 2 x 208 + 88)
+    setmaxnreg_dec<kFused ? (kWide ? 88 : 72) : 40>();
     if (!kFused && warp != 0) return;
     const int* sb = kSeg ? a.segments + batch * a.m_sb : nullptr;
     // warp 0: fills the ring's stage of query tile t
     auto produce = [&](int t) {
-      const int stage = t % kStages;
-      if (t >= kStages) mbar_wait(&sm.empty[stage], (t / kStages - 1) & 1);
-      const int row0 = t * kStep;
+      const int stage = t % kS;
+      if (t >= kS) mbar_wait(&sm.empty[stage], (t / kS - 1) & 1);
+      const int row0 = t * kW;
 #pragma unroll
-      for (int i = 0; i < kStep / 32; ++i) {
+      for (int i = 0; i < kW / 32; ++i) {
         const int c = lane + i * 32, row = row0 + c;
         const bool ok = row < a.n_q;
         sm.l2[stage][c] = ok ? a.l2[lbase + row] : kDeadL2;
@@ -441,28 +490,39 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (kSeg) sm.seg[stage][c] = ok ? sb[row] : 0;
       }
       if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.full[stage], 2 * kStepBytes);
+        mbar_arrive_expect_tx(&sm.full[stage], 2 * (kWide ? kWalkBytes + kWalk2Bytes : kWalkBytes));
         tma_load_3d(sm.q[stage], &map_q, &sm.full[stage], head * kHD, row0, batch);
         tma_load_3d(sm.dout[stage], &map_do, &sm.full[stage], head * kHD, row0, batch);
+        if constexpr (kWide) {
+          tma_load_3d(sm.w.q[stage], &map_q2, &sm.full[stage], head * kHD + kHD0, row0, batch);
+          tma_load_3d(sm.w.dout[stage], &map_do2, &sm.full[stage], head * kHD + kHD0, row0, batch);
+        }
       } else {
         mbar_arrive(&sm.full[stage]);
       }
     };
     if (tid == 2 * 128) {
-      mbar_arrive_expect_tx(&sm.own_full, 2 * kOwnBytes);
+      mbar_arrive_expect_tx(&sm.own_full, 2 * (kWide ? kOwnBytes + kBlock * kBox2 * 2 : kOwnBytes));
       tma_load_3d(sm.k, &map_k, &sm.own_full, head * kHD, k0, batch);
       tma_load_3d(sm.v, &map_v, &sm.own_full, head * kHD, k0, batch);
+      if constexpr (kWide) {
+        tma_load_3d(sm.w.k, &map_k2, &sm.own_full, head * kHD + kHD0, k0, batch);
+        tma_load_3d(sm.w.v, &map_v2, &sm.own_full, head * kHD + kHD0, k0, batch);
+      }
     }
     if constexpr (!kFused) {
       for (int t = 0; t < n_tiles; ++t) produce(t);
     } else {
-      // Warp 0 keeps the ring kStages - 1 tiles ahead.  Then, per query
-      // tile: dQ_tile (64 queries x 64 dims) = dS K in one chain over the
-      // block's 128 keys, A = the tile's dS^T read MN-major from the buffer
-      // the consumers filled, B = the block's K read MN-major; the fp32 tile
-      // goes to a staging buffer and one thread adds it into dq with a bulk
-      // reduce-add per box of 32 dims (rows past N are dropped).
-      constexpr int kAhead = kStages - 1;
+      // Warp 0 keeps the ring kS - 1 tiles ahead.  Then, per query tile of
+      // 64: dQ_tile (64 queries x 64 dims, or 80) = dS K in one chain over
+      // the block's 128 keys, A = the tile's dS^T read MN-major from the
+      // buffer the consumers filled, B = the block's K read MN-major; the
+      // fp32 tile goes to a staging buffer and one thread adds it into dq
+      // with a bulk reduce-add per box of 32 dims (and one of 16 at 80; rows
+      // past N are dropped).
+      constexpr int kAhead = kS - 1;
+      constexpr int kPer = kStep / kW;      // walked tiles per dQ tile: 1, or 2 at 80
+      const int n_dq = (n_tiles + kPer - 1) / kPer;
       if (warp == 0) {
         for (int t = 0; t < kAhead && t < n_tiles; ++t) produce(t);
       }
@@ -470,20 +530,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint64_t desc_k = smem_desc(sm.k, 16, 1024);
       const uint64_t desc_ds0 = smem_desc(sm.ds[0], 16, 1024);
       float dq[32];
+      float dq2[kWide ? 8 : 1];              // a head of 80: dims 64-79
       mbar_wait(&sm.own_full, 0);
-      for (int t = 0; t < n_tiles; ++t) {
-        if (warp == 0 && t + kAhead < n_tiles) produce(t + kAhead);
+      for (int t = 0; t < n_dq; ++t) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          if (warp == 0 && kPer * t + i + kAhead < n_tiles) produce(kPer * t + i + kAhead);
+        }
         const int buf = t & 1;
         mbar_wait(&sm.ds_full[buf], (t >> 1) & 1);
-        const uint64_t d = desc_ds0 + buf * (kOwnBytes >> 4);
+        const uint64_t d = desc_ds0 + buf * (kDsBytes >> 4);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBlock / 16; ++kk) {
           wgmma_ss<1, 1>(dq, d + kk * kMnStep, desc_k + kk * kMnStep, kk > 0);
         }
+        if constexpr (kWide) {
+          const uint64_t desc_k2 = smem_desc_sw32(sm.w.k);
+#pragma unroll
+          for (int kk = 0; kk < kBlock / 16; ++kk) {
+            wgmma_ss<1, 1>(dq2, d + kk * kMnStep, desc_k2 + kk * kMnStep2, kk > 0);
+          }
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
+        if constexpr (kWide) fence_regs(dq2);
         if (lane == 0) mbar_arrive(&sm.ds_empty[buf]);
         // the reduce that read this staging buffer, two tiles ago, is done
         if (elected) bulk_wait_read<1>();
@@ -500,11 +572,24 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<float2*>(p + 8 * 128) =
               make_float2(dq[4 * j + 2] * a.nat_scale, dq[4 * j + 3] * a.nat_scale);
         }
+        if constexpr (kWide) {  // dims 64-79: plain rows of 16 fp32
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float* p = sm.w.dqs[buf] + wrow * kBox2 + j * 8 + tig * 2;
+            *reinterpret_cast<float2*>(p) =
+                make_float2(dq2[4 * j + 0] * a.nat_scale, dq2[4 * j + 1] * a.nat_scale);
+            *reinterpret_cast<float2*>(p + 8 * kBox2) =
+                make_float2(dq2[4 * j + 2] * a.nat_scale, dq2[4 * j + 3] * a.nat_scale);
+          }
+        }
         fence_proxy_async();
         named_barrier_sync(1, 128);
         if (elected) {
           tma_reduce_add_3d(&map_dq, stg, head * kHD, t * kStep, batch);
           tma_reduce_add_3d(&map_dq, stg + kStep * 32, head * kHD + 32, t * kStep, batch);
+          if constexpr (kWide) {
+            tma_reduce_add_3d(&map_dq2, sm.w.dqs[buf], head * kHD + kHD0, t * kStep, batch);
+          }
           bulk_commit();
         }
       }
@@ -514,7 +599,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // -------------------------------------------------------------- consumers
-  setmaxnreg_inc<kFused ? 216 : 232>();
+  setmaxnreg_inc<kFused ? (kWide ? 208 : 216) : 232>();
   const int c0 = k0 + wg * 64 + wrow;       // this thread's keys: c0 and c0 + 8
   float kbias[2];
   int segk[2] = {0, 0};
@@ -530,13 +615,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float scale = a.scale;
   const int64_t row_stride = a.heads * kHD;
 
-  float s[32], dp[32], dk[32], dv[32];  // S^T then P^T then dS^T; dP^T; dK; dV
-  uint32_t pa[4][4], dsa[4][4];         // bf16 P^T and dS^T as A fragments
+  // S^T then P^T then dS^T; dP^T (64 keys x kW queries); dK; dV (64 keys x 64 dims)
+  float s[kW / 2], dp[kW / 2], dk[32], dv[32];
+  float dk2[kWide ? 8 : 1], dv2[kWide ? 8 : 1];  // a head of 80: dims 64-79
+  uint32_t pa[kW / 16][4], dsa[kW / 16][4];      // bf16 P^T and dS^T as A fragments
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  if constexpr (kWide) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dk2[i] = dv2[i] = 0.f;
+  }
 
-  const uint64_t desc_k = smem_desc(sm.k + wg * 64 * kHD, 16, 1024);
-  const uint64_t desc_v = smem_desc(sm.v + wg * 64 * kHD, 16, 1024);
+  const uint64_t desc_k = smem_desc(sm.k + wg * 64 * kHD0, 16, 1024);
+  const uint64_t desc_v = smem_desc(sm.v + wg * 64 * kHD0, 16, 1024);
   const uint64_t desc_q0 = smem_desc(sm.q[0], 16, 1024);
   const uint64_t desc_do0 = smem_desc(sm.dout[0], 16, 1024);
   // fused: this thread's first row of dS^T in buffer 0 (keys wg * 64 + wrow, + 8)
@@ -546,7 +637,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // s (S^T of `stage`, done) -> P^T in place
   auto to_p = [&](int stage) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kW / 8; ++j) {
       const int c = j * 8 + tig * 2;
       const float2 l2c = *reinterpret_cast<const float2*>(&sm.l2[stage][c]);
       float b00 = kbias[0], b01 = kbias[0];  // key c0
@@ -567,7 +658,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // s (P^T) -> dS^T in place; dP^T must be done
   auto to_ds = [&](int stage) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kW / 8; ++j) {
       const int c = j * 8 + tig * 2;
       const float2 dc = *reinterpret_cast<const float2*>(&sm.d[stage][c]);
       s[4 * j + 0] *= dp[4 * j + 0] - dc.x;
@@ -578,19 +669,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   // fused: dS^T of tile t into its buffer for the dQ warpgroup, in the
   // swizzled layout: row r, 16-byte chunk j at chunk j ^ (r % 8); r % 8 == gid
-  // for both of this thread's rows
+  // for both of this thread's rows.  At 80 a step fills one half (32
+  // queries, chunks 4 (t & 1) ..) of buffer (t / 2) & 1, and the last step of
+  // an odd count arrives for the half that no step fills (its queries lie
+  // past N: their dq rows are dropped).
   auto hand_ds = [&](int t) {
-    const int buf = t & 1;
-    if (t >= 2) mbar_wait(&sm.ds_empty[buf], ((t >> 1) - 1) & 1);
+    constexpr int kPer = kStep / kW;
+    const int u = t / kPer, buf = u & 1, half = t % kPer;
+    if (u >= 2 && half == 0) mbar_wait(&sm.ds_empty[buf], ((u >> 1) - 1) & 1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      unsigned char* p = ds_row + buf * kOwnBytes + ((j ^ gid) << 4);
+    for (int j = 0; j < kW / 8; ++j) {
+      unsigned char* p = ds_row + buf * kDsBytes + (((half * (kW / 8) + j) ^ gid) << 4);
       *reinterpret_cast<uint32_t*>(p) = dsa[j >> 1][(j & 1) * 2];
       *reinterpret_cast<uint32_t*>(p + 8 * 128) = dsa[j >> 1][(j & 1) * 2 + 1];
     }
     fence_proxy_async();
     __syncwarp();
-    if (lane == 0) mbar_arrive(&sm.ds_full[buf]);
+    if (lane == 0) {
+      mbar_arrive(&sm.ds_full[buf]);
+      if (kPer == 2 && half == 0 && t == n_tiles - 1) mbar_arrive(&sm.ds_full[buf]);
+    }
   };
 
   // S^T and dP^T are issued together and only S^T is waited for, so the exp2
@@ -602,26 +700,65 @@ __global__ void __launch_bounds__(kThreads, 1)
   // for a dQ accumulator (C7512, spills): hence dQ in the third warpgroup.
   mbar_wait(&sm.own_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t % kStages;
-    mbar_wait(&sm.full[stage], (t / kStages) & 1);
-    const uint64_t tq = desc_q0 + stage * kStageStep, tdo = desc_do0 + stage * kStageStep;
+    const int stage = t % kS;
+    mbar_wait(&sm.full[stage], (t / kS) & 1);
+    const uint64_t tq = desc_q0 + stage * kWalkStep, tdo = desc_do0 + stage * kWalkStep;
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    product_kk(s, desc_k, tq);    // S^T  = K Q^T  (keys x queries)
-    product_kk(dp, desc_v, tdo);  // dP^T = V dO^T
-    wgmma_wait<1>();
-    fence_regs(s);
-    to_p(stage);
-    pack_a(pa, s);
-    wgmma_fence();
-    product_rs(dv, pa, tdo);  // dV += P^T dO, dO read again MN-major
-    wgmma_wait<1>();
-    fence_regs(dp);
-    to_ds(stage);
-    pack_a(dsa, s);
-    wgmma_fence();
-    product_rs(dk, dsa, tq);  // dK += dS^T Q, Q read again MN-major
+    if constexpr (kWide) {
+      // S^T = K Q^T and dP^T = V dO^T: four k-steps on the first boxes, a
+      // fifth on the second
+      const uint64_t tq2 = smem_desc_sw32(sm.w.q[0]) + stage * kWalk2Step;
+      const uint64_t tdo2 = smem_desc_sw32(sm.w.dout[0]) + stage * kWalk2Step;
+#pragma unroll
+      for (int kk = 0; kk < kHD0 / 16; ++kk) wgmma_ss<0>(s, desc_k + 2 * kk, tq + 2 * kk, kk > 0);
+      wgmma_ss<0>(s, smem_desc_sw32(sm.w.k + wg * 64 * kBox2), tq2, 1);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kHD0 / 16; ++kk) wgmma_ss<0>(dp, desc_v + 2 * kk, tdo + 2 * kk, kk > 0);
+      wgmma_ss<0>(dp, smem_desc_sw32(sm.w.v + wg * 64 * kBox2), tdo2, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      to_p(stage);
+      pack_a(pa, s);
+      wgmma_fence();
+      // dV += P^T dO: m64n64k16 on dO's first box, m64n16k16 on its second
+#pragma unroll
+      for (int kk = 0; kk < kW / 16; ++kk) {
+        wgmma_rs<1>(dv, pa[kk], tdo + kk * kMnStep, 1);
+        wgmma_rs<1>(dv2, pa[kk], tdo2 + kk * kMnStep2, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dp);
+      to_ds(stage);
+      pack_a(dsa, s);
+      wgmma_fence();
+      // dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < kW / 16; ++kk) {
+        wgmma_rs<1>(dk, dsa[kk], tq + kk * kMnStep, 1);
+        wgmma_rs<1>(dk2, dsa[kk], tq2 + kk * kMnStep2, 1);
+      }
+      wgmma_commit();
+    } else {
+      product_kk(s, desc_k, tq);    // S^T  = K Q^T  (keys x queries)
+      product_kk(dp, desc_v, tdo);  // dP^T = V dO^T
+      wgmma_wait<1>();
+      fence_regs(s);
+      to_p(stage);
+      pack_a(pa, s);
+      wgmma_fence();
+      product_rs(dv, pa, tdo);  // dV += P^T dO, dO read again MN-major
+      wgmma_wait<1>();
+      fence_regs(dp);
+      to_ds(stage);
+      pack_a(dsa, s);
+      wgmma_fence();
+      product_rs(dk, dsa, tq);  // dK += dS^T Q, Q read again MN-major
+    }
     if (kFused) hand_ds(t);
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(&sm.empty[stage]);  // this warp is done with the stage
@@ -631,6 +768,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int64_t obase = static_cast<int64_t>(batch) * a.n_kv * row_stride + head * kHD;
   store_rows(dk, a.nat_scale, a.dk + obase, row_stride, c0, a.n_kv, tig);
   store_rows(dv, 1.f, a.dv + obase, row_stride, c0, a.n_kv, tig);
+  if constexpr (kWide) {
+    fence_regs(dk2);
+    fence_regs(dv2);
+    store_rows(dk2, a.nat_scale, a.dk + obase + kHD0, row_stride, c0, a.n_kv, tig);
+    store_rows(dv2, 1.f, a.dv + obase + kHD0, row_stride, c0, a.n_kv, tig);
+  }
 }
 
 template <typename Kernel, typename... Maps>
@@ -644,22 +787,32 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st, const
   return cudaGetLastError();
 }
 
-// maps: q, k, v, do, and the fused kernel's fp32 dq
+// maps: q, k, v, do, the fused kernel's fp32 dq, and for a head of 80 the
+// second boxes of q, k, v, do and dq
 template <bool kClampMode, bool kSeg>
-cudaError_t dispatch(Which which, cudaStream_t st, const CUtensorMap (&m)[5], const Args& a,
-                     int batch) {
+cudaError_t dispatch(Which which, cudaStream_t st, const CUtensorMap (&m)[10], const Args& a,
+                     int batch, int hd) {
   const int rows = which == kDq ? a.n_q : a.n_kv;
   const dim3 grid((rows + kBlock - 1) / kBlock, a.heads, batch);
+  if (hd == 80) {  // the stock route's fused kernel, safemax only
+    if constexpr (kClampMode) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch(flash64_dkv_kernel<80, false, kSeg, true>, grid, sizeof(DkvSmem<80, true>),
+                    st, a, m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8], m[9]);
+    }
+  }
   if (which == kDq) {
     return launch(flash64_dq_kernel<kClampMode, kSeg>, grid, sizeof(DqSmem), st, a, m[0], m[1],
                   m[2], m[3]);
   }
   if (which == kDkv) {
-    return launch(flash64_dkv_kernel<kClampMode, kSeg, false>, grid, sizeof(DkvSmem<false>), st,
-                  a, m[0], m[1], m[2], m[3], m[4]);
+    return launch(flash64_dkv_kernel<64, kClampMode, kSeg, false>, grid,
+                  sizeof(DkvSmem<64, false>), st, a, m[0], m[1], m[2], m[3], m[4], m[5], m[6],
+                  m[7], m[8], m[9]);
   }
-  return launch(flash64_dkv_kernel<kClampMode, kSeg, true>, grid, sizeof(DkvSmem<true>), st, a,
-                m[0], m[1], m[2], m[3], m[4]);
+  return launch(flash64_dkv_kernel<64, kClampMode, kSeg, true>, grid, sizeof(DkvSmem<64, true>),
+                st, a, m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8], m[9]);
 }
 
 int run(Which which, const void* q, const void* k, const void* v, const void* dout,
@@ -670,26 +823,48 @@ int run(Which which, const void* q, const void* k, const void* v, const void* do
         int head_dim, float sm_scale, void* stream) {
   if (batch <= 0 || n_q <= 0 || n_kv <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
       (kv_blocked != nullptr && segments != nullptr) || (segments != nullptr && n_q != n_kv) ||
-      head_dim != kHD) {
+      !(head_dim == kHD || (head_dim == 80 && which == kDqkv && safemax != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // q, k, v, do: the block's own operand in boxes of 128 rows, the walked one in boxes of 64
-  const int q_box = which == kDq ? kBlock : kStep, k_box = which == kDq ? kStep : kBlock;
-  CUtensorMap maps[5] = {};
-  int rc = attention_operand_map(&maps[0], q, n_q, q_sb, q_sn, batch, heads, q_box);
-  if (rc == 0) rc = attention_operand_map(&maps[1], k, n_kv, k_sb, k_sn, batch, heads, k_box);
-  if (rc == 0) rc = attention_operand_map(&maps[2], v, n_kv, v_sb, v_sn, batch, heads, k_box);
-  if (rc == 0) rc = attention_operand_map(&maps[3], dout, n_q, do_sb, do_sn, batch, heads, q_box);
-  if (rc == 0 && which == kDqkv) {
-    // dq (B, N, H*64) fp32, contiguous: boxes of 64 queries x 32 dims
-    const uint64_t row_bytes = static_cast<uint64_t>(heads) * kHD * 4;
-    const uint64_t dims[3] = {static_cast<uint64_t>(heads) * kHD, static_cast<uint64_t>(n_q),
-                              static_cast<uint64_t>(batch)};
-    const uint64_t strides[2] = {row_bytes, row_bytes * n_q};
-    const uint32_t box[2] = {32, kStep};
-    rc = make_tensor_map(&maps[4], out0, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  // q, k, v, do: the block's own operand in boxes of 128 rows, the walked one
+  // in boxes of 64 (32 at head_dim 80); a head of 80 also in boxes of its
+  // columns 64-79
+  const int walk = walk_rows(head_dim);
+  const int q_box = which == kDq ? kBlock : walk, k_box = which == kDq ? kStep : kBlock;
+  CUtensorMap maps[10] = {};
+  int rc = 0;
+  for (int pass = 0; pass < (head_dim == 80 ? 2 : 1); ++pass) {
+    const int box = pass == 0 ? kHD0 : kBox2, i = 5 * pass, hd = head_dim;
+    if (rc == 0) {
+      rc = attention_operand_map(&maps[i], q, n_q, q_sb, q_sn, batch, heads, q_box, hd, box);
+    }
+    if (rc == 0) {
+      rc = attention_operand_map(&maps[i + 1], k, n_kv, k_sb, k_sn, batch, heads, k_box, hd, box);
+    }
+    if (rc == 0) {
+      rc = attention_operand_map(&maps[i + 2], v, n_kv, v_sb, v_sn, batch, heads, k_box, hd, box);
+    }
+    if (rc == 0) {
+      rc = attention_operand_map(&maps[i + 3], dout, n_q, do_sb, do_sn, batch, heads, q_box, hd,
+                                 box);
+    }
+    if (rc == 0 && which == kDqkv) {
+      // dq (B, N, H*hd) fp32, contiguous: boxes of 64 queries x 32 dims
+      // (128-byte swizzle), and at 80 one of 64 queries x 16 dims (plain rows)
+      const uint64_t row_bytes = static_cast<uint64_t>(heads) * head_dim * 4;
+      const uint64_t dims[3] = {static_cast<uint64_t>(heads) * head_dim, static_cast<uint64_t>(n_q),
+                                static_cast<uint64_t>(batch)};
+      const uint64_t strides[2] = {row_bytes, row_bytes * n_q};
+      const uint32_t dq_box[2] = {box == kHD0 ? 32u : static_cast<uint32_t>(kBox2), kStep};
+      rc = make_tensor_map(&maps[i + 4], out0, 3, dims, strides, dq_box,
+                           CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                           box == kHD0 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+    }
   }
   if (rc != 0) return rc;
+  if (head_dim != 80) {  // the second boxes' places, unused at head_dim 64
+    for (int i = 0; i < 5; ++i) maps[5 + i] = maps[i];
+  }
   Args a;
   a.l2 = static_cast<const float*>(l2);
   a.dvec = static_cast<const float*>(dvec);
@@ -708,11 +883,11 @@ int run(Which which, const void* q, const void* k, const void* v, const void* do
   const bool seg = segments != nullptr;
   cudaError_t err;
   if (safemax == 0) {
-    err = seg ? dispatch<true, true>(which, st, maps, a, batch)
-              : dispatch<true, false>(which, st, maps, a, batch);
+    err = seg ? dispatch<true, true>(which, st, maps, a, batch, head_dim)
+              : dispatch<true, false>(which, st, maps, a, batch, head_dim);
   } else {
-    err = seg ? dispatch<false, true>(which, st, maps, a, batch)
-              : dispatch<false, false>(which, st, maps, a, batch);
+    err = seg ? dispatch<false, true>(which, st, maps, a, batch, head_dim)
+              : dispatch<false, false>(which, st, maps, a, batch, head_dim);
   }
   return static_cast<int>(err);
 }
@@ -726,10 +901,11 @@ int run(Which which, const void* q, const void* k, const void* v, const void* do
 // elements (16 bytes).  l2 and dvec are contiguous (B, H, N) fp32 (the
 // forward's L2 and rowsum(do * o)); at most one of kv_blocked ((B, M) bytes)
 // and segments ((B, N) int32, N == M) is given, with batch stride m_sb.
-// head_dim is 64; sm_scale is the true head's hd^-0.5.  Outputs are
-// contiguous: dq bf16 (B, N, H*64), dk and dv bf16 (B, M, H*64); the fused
-// kernel adds dq into a zeroed, contiguous fp32 (B, N, H*64) buffer.  Each returns the
-// CUDA error of the launch (0 on success).
+// head_dim is 64, or 80 for the fused kernel in safemax form (the stock
+// route; rows are then H*80 wide); sm_scale is the true head's hd^-0.5.
+// Outputs are contiguous: dq bf16 (B, N, H*hd), dk and dv bf16 (B, M, H*hd);
+// the fused kernel adds dq into a zeroed, contiguous fp32 (B, N, H*hd)
+// buffer.  Each returns the CUDA error of the launch (0 on success).
 extern "C" int egom2p_flash64_train_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const void* l2, const void* dvec,
                                        const void* kv_blocked, const void* segments, void* dq,

@@ -45,6 +45,21 @@
 //     mbarrier tells the others.  It issues tile t+1's logits ahead of its
 //     own dl . Z of tile t and makes dl(t+1) while that product runs, so
 //     the other warpgroups never wait for dl in the steady state.
+// Any D a multiple of 128 (the column plan, egom2p_torch/ops/flash_ce.py
+// `bwd_column_plan`, which hands the kernel its group width):
+//   * up to D = 768 one block owns all D columns as above; a remainder of
+//     128 columns goes to a last warpgroup of m64n128k16 (kHalf: D = 128,
+//     384, 640);
+//   * above D = 768 the owned 64 x D tile no longer fits beside the walked
+//     stages (D = 1024: 128 KB + 2 x 64 KB), so a second grid dimension
+//     splits the columns into equal groups of 512, 256 or 128 (D = 1024 and
+//     2048: groups of 512).  A block owns its 64 rows and one group's
+//     columns; its walked stages hold only that group's column blocks, and
+//     the last warpgroup computes the whole logits tile anew (every group
+//     recomputes it) from a ring of kRing stages of (X, Z) 128-column pairs
+//     over all of D that its leader fills by TMA (kStream).  The logits cost
+//     one product per group on top of the group's two, and their ring loop
+//     waits for each stage's product before it refills the stage.
 // Which tiles and blocks of y hold a row of nonzero weight is found by a
 // small scan kernel first, into scratch that the caller provides.
 // Shared memory at D = 768: 96 KB (X) + 2 x 48 KB (Z) + 8 KB (dl) = 201 KB.
@@ -62,7 +77,9 @@ using namespace egom2p;
 
 constexpr int kOwn = 64;          // owned rows per block
 constexpr int kWalk = 32;         // walked rows per tile (the logits tile's columns)
-constexpr int kMaxDim = 768;
+constexpr int kMaxDim = 768;      // widest group; above it the owned tile is streamed
+constexpr int kRing = 4;          // kStream: stages of (X, Z) column pairs for the logits
+constexpr int kPair = 2;          // kStream: 64-column blocks a ring stage holds
 constexpr int kXBlockBytes = kOwn * 128;    // one column block of X: 64 rows x 64 columns
 constexpr int kZBlockBytes = kWalk * 128;   // ... of a Z stage: 32 rows x 64 columns
 constexpr int kAccRegs = 160, kLastRegs = 184;  // D = 768: 2 x 160 + 184 = 3 x 168
@@ -116,25 +133,42 @@ __global__ void __launch_bounds__(1024)
   if (tid == 0) *n_live = base;
 }
 
-template <int kNW>  // warpgroups: D = 256 * kNW
+// kBlocks: 64-column blocks of the group (of D when the owned tile is
+// resident)
+template <int kBlocks, bool kStream>
 struct Smem {
-  __nv_bfloat16 x[4 * kNW][kXBlockBytes / 2];      // the owned tile
-  __nv_bfloat16 z[2][4 * kNW][kZBlockBytes / 2];   // two stages of the walked operand
+  __nv_bfloat16 x[kBlocks][kXBlockBytes / 2];      // the owned tile
+  __nv_bfloat16 z[2][kBlocks][kZBlockBytes / 2];   // two stages of the walked operand
   __nv_bfloat16 dl[kOwn * 64];                     // bf16 dl, K-major: tile t in columns 32 (t & 1) ..
   float lz[2][kWalk], cw[2][kWalk];        // dW instance: the walked rows' logz, weight
   int tg[2][kWalk];                        // ... and target
   uint64_t x_full, z_full[2], dl_full[2], dl_free[2];
 };
 
+// Streamed owned tile: the group's columns of two walked stages, and a ring
+// of (X, Z) column blocks over all of D for the logits.
+template <int kBlocks>
+struct Smem<kBlocks, true> {
+  __nv_bfloat16 z[2][kBlocks][kZBlockBytes / 2];
+  __nv_bfloat16 rx[kRing][kPair * kXBlockBytes / 2], rz[kRing][kPair * kZBlockBytes / 2];
+  __nv_bfloat16 dl[kOwn * 64];
+  float lz[2][kWalk], cw[2][kWalk];
+  int tg[2][kWalk];
+  uint64_t z_full[2], dl_full[2], dl_free[2], ring_full[kRing];
+};
+
 // One block's work: kDw = false owns rows own0 .. of y (map_x) and walks W
 // (map_z); kDw = true owns vocab rows of W and walks the live tiles of y.
-template <bool kDw, int kNW>
+// kNW warpgroups own 256 columns each, but the last only 128 under kHalf;
+// kStream: the block owns one column group (blockIdx.y) of a D above
+// kMaxDim and streams the owned tile for the logits.
+template <bool kDw, int kNW, bool kHalf, bool kStream>
 __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUtensorMap& map_z,
                                              const Args& a, const int own_block) {
   extern __shared__ unsigned char smem_raw[];
-  using Tiles = Smem<kNW>;
+  constexpr int kBlocks = 4 * kNW - (kHalf ? 2 : 0);  // column blocks of the group
+  using Tiles = Smem<kBlocks, kStream>;
   Tiles& sm = *reinterpret_cast<Tiles*>(smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u));
-  constexpr int kBlocks = 4 * kNW;          // column blocks of D
 
   const int tid = threadIdx.x, wg = tid >> 7;  // every warpgroup accumulates, the last also makes dl
   const int warp = (tid & 127) >> 5, lane = tid & 31;
@@ -143,6 +177,9 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
   const int n_own = kDw ? a.vocab : a.n_rows, n_walk = kDw ? a.n_rows : a.vocab;
   const int row_in = warp * 16 + gid;  // this thread's owned rows: row_in, row_in + 8
   const int r0 = own0 + row_in;
+  const int col0 = kStream ? blockIdx.y * kBlocks * 64 : 0;  // the group's first column
+  // this warpgroup's column blocks of the group: wg * 4 ..
+  const int wg_blocks = kHalf && wg == kNW - 1 ? 2 : 4;
 
   // dy instance: a block whose rows all weigh 0 has no tile to walk and
   // leaves its zeroed dy as it is.
@@ -152,7 +189,12 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
   auto tile_row0 = [&](int ti) { return (kDw ? a.live_tiles[ti] : ti) * kWalk; };
 
   if (tid == 0) {
-    mbar_init(&sm.x_full, 1);
+    if constexpr (kStream) {
+#pragma unroll
+      for (int i = 0; i < kRing; ++i) mbar_init(&sm.ring_full[i], 1);  // (+ the TMA bytes)
+    } else {
+      mbar_init(&sm.x_full, 1);
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mbar_init(&sm.z_full[i], kNW);       // the warpgroups' leaders (+ their TMA bytes)
@@ -175,17 +217,19 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
   // stage ti & 1
   auto load_z = [&](int ti) {
     const int z0 = tile_row0(ti), s = ti & 1;
-    mbar_arrive_expect_tx(&sm.z_full[s], 4 * kZBlockBytes);
+    mbar_arrive_expect_tx(&sm.z_full[s], wg_blocks * kZBlockBytes);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = wg * 4 + i;
-      tma_load_2d(sm.z[s][c], &map_z, &sm.z_full[s], c * 64, z0);
+      if (i < wg_blocks) tma_load_2d(sm.z[s][c], &map_z, &sm.z_full[s], col0 + c * 64, z0);
     }
   };
-  if (tid == 0) {
-    mbar_arrive_expect_tx(&sm.x_full, kBlocks * kXBlockBytes);
+  if constexpr (!kStream) {
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&sm.x_full, kBlocks * kXBlockBytes);
 #pragma unroll
-    for (int c = 0; c < kBlocks; ++c) tma_load_2d(sm.x[c], &map_x, &sm.x_full, c * 64, own0);
+      for (int c = 0; c < kBlocks; ++c) tma_load_2d(sm.x[c], &map_x, &sm.x_full, c * 64, own0);
+    }
   }
   if ((tid & 127) == 0) {
     load_z(0);
@@ -198,11 +242,12 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
   // B of dl . Z: this warpgroup's column blocks, MN-major: 16 walked rows
   // are 2048 bytes, the next 64 columns one column block on
   const uint32_t zn16 = (z16 + wg * 4 * kZStep) | (kZStep << 16);
-  // acc (64 x 256) += bf16(dl) (64 owned x 32 walked) . Z (32 walked x 256), stage s
-  auto issue_acc = [&](int s) {
+  // acc (64 x 256, or 64 x 128) += bf16(dl) (64 owned x 32 walked) . Z (32
+  // walked x 256 or 128), stage s
+  auto issue_acc = [&](auto& out, int s) {
 #pragma unroll
     for (int kk = 0; kk < kWalk / 16; ++kk) {
-      wgmma_ss<1>(acc, desc(dl16 + s * (64 >> 4) + 2 * kk, kKMajorHi),
+      wgmma_ss<1>(out, desc(dl16 + s * (64 >> 4) + 2 * kk, kKMajorHi),
                   desc(zn16 + s * kBlocks * kZStep + kk * (2048 >> 4), kKMajorHi), 1);
     }
     wgmma_commit();
@@ -216,41 +261,42 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
       if ((tid & 127) == 0) load_z(ti + 2);
     }
   };
-  auto store_acc = [&]() {
+  auto store_acc = [&](const auto& res) {
+    constexpr int kTiles = sizeof(res) / sizeof(float) / 4;  // 8-column tiles
     float* out = kDw ? a.dw : a.dy;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = r0 + i * 8;
       if (row >= n_own) continue;
-      float* o = out + static_cast<int64_t>(row) * a.dim + wg * 256;
+      float* o = out + static_cast<int64_t>(row) * a.dim + col0 + wg * 256;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < kTiles; ++j) {
         *reinterpret_cast<float2*>(o + j * 8 + tig * 2) =
-            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+            make_float2(res[4 * j + 2 * i], res[4 * j + 2 * i + 1]);
       }
     }
   };
 
   if (wg < kNW - 1) {
     // ------------------------------------------- warpgroups that only accumulate
-    if (kNW == 3) setmaxnreg_dec<kAccRegs>();
+    if (kNW == 3 && !kHalf) setmaxnreg_dec<kAccRegs>();
     for (int ti = 0; ti < n_tiles; ++ti) {
       const int s = ti & 1, phase = (ti >> 1) & 1;
       mbar_wait(&sm.z_full[s], phase);
       mbar_wait(&sm.dl_full[s], phase);
       fence_regs(acc);
       wgmma_fence();
-      issue_acc(s);
+      issue_acc(acc, s);
       wgmma_wait<0>();
       fence_regs(acc);
       release(ti);
     }
-    store_acc();
+    store_acc(acc);
     return;
   }
 
   // ------------------------- the last warpgroup: logits and dl, and its own columns
-  if (kNW == 3) setmaxnreg_inc<kLastRegs>();
+  if (kNW == 3 && !kHalf) setmaxnreg_inc<kLastRegs>();
   // dy instance: the owned rows' logz, weight and target
   float own_lz[2] = {0.f, 0.f}, own_wc[2] = {0.f, 0.f};
   int own_t[2] = {-1, -1};
@@ -265,7 +311,6 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
       }
     }
   }
-  const uint32_t x16 = smem_addr(sm.x[0]) >> 4;
   constexpr uint32_t kXStep = kXBlockBytes >> 4;
   float lg[16];  // logits: 64 owned rows x 32 walked rows
   unsigned char* dl_tile = reinterpret_cast<unsigned char*>(sm.dl);
@@ -282,20 +327,69 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
   };
   // logits (64 owned x 32 walked) = X . Z^T over all of D, both K-major
   auto issue_logits = [&](int s) {
-    // the bases pass through an empty asm for each column block, or the
-    // compiler hoists all 12 x 4 descriptor pairs into registers that this
-    // warpgroup lacks
-    uint32_t xa = x16, za = z16 + s * kBlocks * kZStep;
+    if constexpr (!kStream) {
+      // the bases pass through an empty asm for each column block, or the
+      // compiler hoists all 12 x 4 descriptor pairs into registers that this
+      // warpgroup lacks
+      uint32_t xa = smem_addr(sm.x[0]) >> 4, za = z16 + s * kBlocks * kZStep;
 #pragma unroll
-    for (int c = 0; c < kBlocks; ++c, xa += kXStep, za += kZStep) {
-      asm volatile("" : "+r"(xa), "+r"(za));
+      for (int c = 0; c < kBlocks; ++c, xa += kXStep, za += kZStep) {
+        asm volatile("" : "+r"(xa), "+r"(za));
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_ss<0>(lg, desc(xa + 2 * kk, kKMajorHi), desc(za + 2 * kk, kKMajorHi),
-                    (c | kk) != 0);
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<0>(lg, desc(xa + 2 * kk, kKMajorHi), desc(za + 2 * kk, kKMajorHi),
+                      (c | kk) != 0);
+        }
+      }
+      wgmma_commit();
+    }
+  };
+  // kStream: the (X, Z) column pairs of every walked tile in order, pair g =
+  // tile g / n_kp, columns (g % n_kp) * 128, through the ring (D is a
+  // multiple of 128); the leader loads, and refills a slot once the
+  // warpgroup's product has read it
+  const int n_kp = a.dim / (64 * kPair);
+  const bool leader = (tid & 127) == 0;
+  auto ring_load = [&](int g) {
+    if constexpr (kStream) {
+      const int slot = g % kRing, c = (g % n_kp) * kPair;
+      mbar_arrive_expect_tx(&sm.ring_full[slot], kPair * (kXBlockBytes + kZBlockBytes));
+#pragma unroll
+      for (int i = 0; i < kPair; ++i) {
+        tma_load_2d(sm.rx[slot] + i * (kXBlockBytes / 2), &map_x, &sm.ring_full[slot],
+                    (c + i) * 64, own0);
+        tma_load_2d(sm.rz[slot] + i * (kZBlockBytes / 2), &map_z, &sm.ring_full[slot],
+                    (c + i) * 64, tile_row0(g / n_kp));
       }
     }
-    wgmma_commit();
+  };
+  // kStream: the logits of walked tile ti, one ring stage (two column
+  // blocks) at a time (the product before it, if any, completes at the first
+  // wait)
+  auto stream_logits = [&](int ti) {
+    if constexpr (kStream) {
+      const uint32_t rx16 = smem_addr(sm.rx[0]) >> 4, rz16 = smem_addr(sm.rz[0]) >> 4;
+      for (int c = 0; c < n_kp; ++c) {
+        const int g = ti * n_kp + c, slot = g % kRing;
+        mbar_wait(&sm.ring_full[slot], (g / kRing) & 1);
+        fence_regs(lg);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < kPair; ++i) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_ss<0>(lg, desc(rx16 + (slot * kPair + i) * kXStep + 2 * kk, kKMajorHi),
+                        desc(rz16 + (slot * kPair + i) * kZStep + 2 * kk, kKMajorHi),
+                        (c | i | kk) != 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(lg);
+        named_barrier_sync(6, 128);  // every warp's share of the product has read the slot
+        if (leader && g + kRing < n_tiles * n_kp) ring_load(g + kRing);
+      }
+    }
   };
   // dl = (p - onehot) * weight of tile ti, rounded to bf16 into its half of
   // the swizzled dl tile, then handed to every warpgroup
@@ -337,38 +431,72 @@ __device__ __forceinline__ void ce_bwd_block(const CUtensorMap& map_x, const CUt
     if ((tid & 127) == 0) mbar_arrive(&sm.dl_full[s]);
   };
 
-  mbar_wait(&sm.x_full, 0);
-  load_meta(0);
-  mbar_wait(&sm.z_full[0], 0);
-  wgmma_fence();
-  issue_logits(0);
-  wgmma_wait<0>();
-  fence_regs(lg);
-  make_dl(0);
-  // tile ti + 1's logits go ahead of tile ti's dl . Z, and its dl is made
-  // while that product runs
-  for (int ti = 0; ti + 1 < n_tiles; ++ti) {
-    const int s = ti & 1;
-    load_meta(ti + 1);
-    mbar_wait(&sm.z_full[s ^ 1], ((ti + 1) >> 1) & 1);
-    fence_regs(acc);
-    fence_regs(lg);
+  auto run_last = [&](auto& res) {
+    if constexpr (kStream) {
+      if (leader) {
+        for (int g = 0; g < kRing && g < n_tiles * n_kp; ++g) ring_load(g);
+      }
+      load_meta(0);
+      stream_logits(0);
+      make_dl(0);
+      // tile ti's dl . Z goes ahead of tile ti + 1's logits, and completes
+      // at their first block
+      for (int ti = 0; ti + 1 < n_tiles; ++ti) {
+        const int s = ti & 1;
+        load_meta(ti + 1);
+        mbar_wait(&sm.z_full[s], (ti >> 1) & 1);
+        fence_regs(res);
+        wgmma_fence();
+        issue_acc(res, s);
+        stream_logits(ti + 1);
+        fence_regs(res);
+        make_dl(ti + 1);
+        release(ti);
+      }
+      mbar_wait(&sm.z_full[(n_tiles - 1) & 1], ((n_tiles - 1) >> 1) & 1);
+    } else {
+      mbar_wait(&sm.x_full, 0);
+      load_meta(0);
+      mbar_wait(&sm.z_full[0], 0);
+      wgmma_fence();
+      issue_logits(0);
+      wgmma_wait<0>();
+      fence_regs(lg);
+      make_dl(0);
+      // tile ti + 1's logits go ahead of tile ti's dl . Z, and its dl is made
+      // while that product runs
+      for (int ti = 0; ti + 1 < n_tiles; ++ti) {
+        const int s = ti & 1;
+        load_meta(ti + 1);
+        mbar_wait(&sm.z_full[s ^ 1], ((ti + 1) >> 1) & 1);
+        fence_regs(res);
+        fence_regs(lg);
+        wgmma_fence();
+        issue_logits(s ^ 1);
+        issue_acc(res, s);
+        wgmma_wait<1>();
+        fence_regs(lg);
+        make_dl(ti + 1);
+        wgmma_wait<0>();
+        fence_regs(res);
+        release(ti);
+      }
+    }
+    fence_regs(res);
     wgmma_fence();
-    issue_logits(s ^ 1);
-    issue_acc(s);
-    wgmma_wait<1>();
-    fence_regs(lg);
-    make_dl(ti + 1);
+    issue_acc(res, (n_tiles - 1) & 1);
     wgmma_wait<0>();
-    fence_regs(acc);
-    release(ti);
+    fence_regs(res);
+    store_acc(res);
+  };
+  if constexpr (kHalf) {
+    float acc_half[64];  // 64 owned rows x 128 output columns
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_half[i] = 0.f;
+    run_last(acc_half);
+  } else {
+    run_last(acc);
   }
-  fence_regs(acc);
-  wgmma_fence();
-  issue_acc((n_tiles - 1) & 1);
-  wgmma_wait<0>();
-  fence_regs(acc);
-  store_acc();
 }
 
 // The tensor map of a (rows, D) bf16 matrix with row stride `stride`
@@ -385,7 +513,7 @@ int matrix_map(CUtensorMap* map, const void* ptr, int rows, int dim, long long s
 // last of the (longer) dy blocks leave idle: blocks 0 .. dy_blocks - 1 own
 // rows of y, the rest own vocab rows of W.  owned / walked: the tensor maps
 // of y ([0]) and W ([1]) with boxes of 64 and of 32 rows.
-template <int kNW>
+template <int kNW, bool kHalf, bool kStream>
 __global__ void __launch_bounds__(kNW * 128, 1)
     flash_ce_bwd_kernel(const __grid_constant__ CUtensorMap owned_y,
                         const __grid_constant__ CUtensorMap owned_w,
@@ -394,41 +522,72 @@ __global__ void __launch_bounds__(kNW * 128, 1)
                         const int dy_blocks) {
   const int block = blockIdx.x;
   if (block < dy_blocks) {
-    ce_bwd_block<false, kNW>(owned_y, walked_w, a, block);
+    ce_bwd_block<false, kNW, kHalf, kStream>(owned_y, walked_w, a, block);
   } else {
-    ce_bwd_block<true, kNW>(owned_w, walked_y, a, block - dy_blocks);
+    ce_bwd_block<true, kNW, kHalf, kStream>(owned_w, walked_y, a, block - dy_blocks);
   }
 }
 
-template <int kNW>
+// groups: column groups side by side in the grid's second dimension
+template <int kNW, bool kHalf, bool kStream>
 cudaError_t launch(cudaStream_t st, const CUtensorMap (&owned)[2], const CUtensorMap (&walked)[2],
-                   const Args& a) {
-  constexpr int smem = static_cast<int>(sizeof(Smem<kNW>)) + 1024;  // base rounded up to 1024
-  cudaError_t err = cudaFuncSetAttribute(flash_ce_bwd_kernel<kNW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                   const Args& a, int groups) {
+  constexpr int kBlocks = 4 * kNW - (kHalf ? 2 : 0);
+  // base rounded up to 1024
+  constexpr int smem = static_cast<int>(sizeof(Smem<kBlocks, kStream>)) + 1024;
+  auto kernel = flash_ce_bwd_kernel<kNW, kHalf, kStream>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int dy_blocks = (a.n_rows + kOwn - 1) / kOwn, dw_blocks = (a.vocab + kOwn - 1) / kOwn;
-  flash_ce_bwd_kernel<kNW><<<dy_blocks + dw_blocks, kNW * 128, smem, st>>>(
+  kernel<<<dim3(dy_blocks + dw_blocks, groups), kNW * 128, smem, st>>>(
       owned[0], owned[1], walked[0], walked[1], a, dy_blocks);
   return cudaGetLastError();
+}
+
+// The instance of a group of `group_dim` columns: 256 per warpgroup, the
+// last 128 wide where 256 does not divide it.  The whole of a D up to 768,
+// or (kStream) a group of 512, 256 or 128 columns of a wider D.
+cudaError_t launch_group(cudaStream_t st, const CUtensorMap (&owned)[2],
+                         const CUtensorMap (&walked)[2], const Args& a, int group_dim) {
+  const int groups = a.dim / group_dim;
+  if (a.dim > kMaxDim) {
+    switch (group_dim) {
+      case 128: return launch<1, true, true>(st, owned, walked, a, groups);
+      case 256: return launch<1, false, true>(st, owned, walked, a, groups);
+      case 512: return launch<2, false, true>(st, owned, walked, a, groups);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (group_dim) {
+    case 128: return launch<1, true, false>(st, owned, walked, a, groups);
+    case 256: return launch<1, false, false>(st, owned, walked, a, groups);
+    case 384: return launch<2, true, false>(st, owned, walked, a, groups);
+    case 512: return launch<2, false, false>(st, owned, walked, a, groups);
+    case 640: return launch<3, true, false>(st, owned, walked, a, groups);
+    default: return launch<3, false, false>(st, owned, walked, a, groups);  // 768
+  }
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes.  y (R, D) and w (V, D) are bf16 rows with
 // unit stride inside a row, 16-byte aligned bases and row strides y_s, w_s
-// (elements, multiples of 8); D is a multiple of 256 and at most 768.
-// targets (R,) int32, wc and logz (R,) fp32.  dy (R, D) and dw (V, D) are
-// contiguous fp32 outputs that the caller has zeroed; scratch is int32 of
-// ceil(R / 32) + ceil(R / 64) + 2 elements, written here.  Launches the scan,
-// then both instances as one grid, on `stream`; returns the first CUDA
-// error (0 on success).
+// (elements, multiples of 8); D is a multiple of 128, cut into column groups
+// of group_dim columns (the column plan): group_dim == D up to 768, a
+// multiple of 128 of at most 768 that divides D above.  targets (R,) int32,
+// wc and logz (R,) fp32.  dy (R, D) and dw (V, D) are contiguous fp32
+// outputs that the caller has zeroed; scratch is int32 of ceil(R / 32) +
+// ceil(R / 64) + 2 elements, written here.  Launches the scan, then both
+// instances as one grid, on `stream`; returns the first CUDA error (0 on
+// success).
 extern "C" int egom2p_flash_ce_bwd(const void* y, const void* w, const void* targets,
                                    const void* wc, const void* logz, void* dy, void* dw,
-                                   void* scratch, int n_rows, int vocab, int dim, long long y_s,
-                                   long long w_s, void* stream) {
-  if (n_rows <= 0 || vocab <= 0 || dim <= 0 || dim % 256 != 0 || dim > kMaxDim ||
-      scratch == nullptr) {
+                                   void* scratch, int n_rows, int vocab, int dim, int group_dim,
+                                   long long y_s, long long w_s, void* stream) {
+  if (n_rows <= 0 || vocab <= 0 || dim <= 0 || dim % 128 != 0 || group_dim <= 0 ||
+      group_dim % 128 != 0 || group_dim > kMaxDim || dim % group_dim != 0 ||
+      (dim <= kMaxDim) != (group_dim == dim) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap owned[2], walked[2];  // of y and of w, boxes of 64 and of 32 rows
@@ -456,12 +615,5 @@ extern "C" int egom2p_flash_ce_bwd(const void* y, const void* w, const void* tar
   ce_bwd_scan_kernel<<<1, 1024, 0, st>>>(a.wc, n_rows, live_tiles, n_live, block_live);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dim == 768) {
-    err = launch<3>(st, owned, walked, a);
-  } else if (dim == 512) {
-    err = launch<2>(st, owned, walked, a);
-  } else {
-    err = launch<1>(st, owned, walked, a);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_group(st, owned, walked, a, group_dim));
 }

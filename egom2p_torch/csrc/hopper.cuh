@@ -13,6 +13,12 @@
 //     dimension; transpose flag 1): groups of 8 depth rows SBO = 1024 bytes
 //     apart, a k-step of 16 advances the start by 2048 bytes, and a further
 //     64 columns lie LBO bytes on (the next tile).
+// A head of 80 columns is two tiles: columns 0-63 as above and columns 64-79
+// as rows of 32 bytes written with CU_TENSOR_MAP_SWIZZLE_32B (16-byte chunk c
+// of row r at c ^ ((r / 4) % 2)), 8-row groups of 256 bytes.  Read K-major,
+// one k-step of 16 is the whole row (SBO = 256); read MN-major, its 16
+// columns are the N dimension, 8-row groups SBO = 256 bytes apart, and a
+// k-step of 16 advances the start by 512 bytes (smem_desc_sw32).
 #pragma once
 
 #include <cuda.h>
@@ -130,7 +136,8 @@ __device__ __forceinline__ void bulk_wait_read() {
 // 0 or a nonzero error code.
 inline int make_tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                            const uint64_t* strides, const uint32_t* box,
-                           CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                           CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -158,26 +165,29 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, int rank, const u
   }
   const CUresult rc = encode(map, dtype, rank, const_cast<void*>(base),
                              gdim, gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor map of a (B, rows, H * 64) bf16 attention operand given by its
+// The tensor map of a (B, rows, H * hd) bf16 attention operand given by its
 // base and its batch and row strides in elements (a view of a fused
-// projection is fine): boxes of box_rows rows x 64 columns, addressed as
-// (head * 64, row, batch).
+// projection is fine): boxes of box_rows rows x box_cols columns, addressed
+// as (head * hd + first column, row, batch).  A head of 64 is one box of 64
+// columns (128-byte swizzle); a head of 80 is a box of 64 and one of 16
+// columns (32-byte swizzle), each through its own map.
 inline int attention_operand_map(CUtensorMap* map, const void* base, int rows,
                                  long long batch_stride, long long row_stride, int batch,
-                                 int heads, int box_rows) {
-  const uint64_t dims[3] = {static_cast<uint64_t>(heads) * 64, static_cast<uint64_t>(rows),
+                                 int heads, int box_rows, int hd = 64, int box_cols = 64) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(heads) * hd, static_cast<uint64_t>(rows),
                             static_cast<uint64_t>(batch)};
   // a batch of one has no batch stride to honour
   const uint64_t row_bytes = static_cast<uint64_t>(row_stride) * 2;
   const uint64_t strides[2] = {row_bytes, batch > 1 ? static_cast<uint64_t>(batch_stride) * 2
                                                     : row_bytes * rows};
-  const uint32_t box[2] = {64, static_cast<uint32_t>(box_rows)};
-  return make_tensor_map(map, base, 3, dims, strides, box);
+  const uint32_t box[2] = {static_cast<uint32_t>(box_cols), static_cast<uint32_t>(box_rows)};
+  return make_tensor_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -187,6 +197,13 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo_bytes, int 
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
          (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of a 32-byte-swizzled tile of 16 columns (a head's columns
+// 64-79) starting at `p`: 8-row groups of 256 bytes, K-major or MN-major.
+__device__ __forceinline__ uint64_t smem_desc_sw32(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -333,6 +350,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// m64n16k16 (the 16 columns 64-79 of a head of 80) with both operands in
+// shared memory
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// m64n16k16 with A from registers
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
 }
 
 template <int kTransB>

@@ -31,6 +31,7 @@ from egom2p_torch.models.transformer import (ACTIVATIONS, Block, DecoderBlock,
                                              LayerNorm, Linear)
 from egom2p_torch.ops.attention import SegmentMask
 from egom2p_torch.ops.flash_ce import flash_ce_total, matmul_f32
+from egom2p_torch.ops.flash_ce import takes_dim as flash_ce_takes_dim
 
 SEQ_TYPES = ("seq", "seq_emb", "seq_token")
 
@@ -247,15 +248,17 @@ class EgoM2P(nn.Module):
         """(sum of CE * w, sum of w) of modality `mod`'s head over the
         decoder rows.  Heads of 4096 or more tokens take flash_ce_total (its
         hand-written kernel on CUDA: no (rows, V) logits in device memory)
-        when the model dim is a multiple of 128 (not EgoM2P-large's 1020, as
-        in the JAX package); EGOM2P_FLASH_CE=0 turns it off.  Other heads
-        take a plain logsumexp over chunks of rows, each chunk under
-        torch.utils.checkpoint: its (chunk, V) fp32 logits are recomputed in
-        the backward, not kept (the JAX package's jax.checkpoint around its
-        scan body).  The logits product goes through flash_ce.matmul_f32:
-        its operands are bf16 values widened to fp32, exact in TF32, so on
-        the card the product and its recompute run on the TF32 tensor
-        cores with the same numbers.  EGOM2P_CE_CHUNK overrides the chunk."""
+        when flash_ce.takes_dim says the kernels take the model dim (a
+        multiple of 128: not EgoM2P-large's 1020, as in the JAX package; the
+        kernels' launchers decide by the same function); EGOM2P_FLASH_CE=0
+        turns it off.  Other heads take a plain logsumexp over chunks of
+        rows, each chunk under torch.utils.checkpoint: its (chunk, V) fp32
+        logits are recomputed in the backward, not kept (the JAX package's
+        jax.checkpoint around its scan body).  The logits product goes
+        through flash_ce.matmul_f32: its operands are bf16 values widened to
+        fp32, exact in TF32, so on the card the product and its recompute run
+        on the TF32 tensor cores with the same numbers.  EGOM2P_CE_CHUNK
+        overrides the chunk."""
         chunk = int(os.environ.get("EGOM2P_CE_CHUNK", "0")) or chunk
         flash = os.environ.get("EGOM2P_FLASH_CE", "1") != "0"
         emb_mod = self.decoder_embeddings[mod]
@@ -265,7 +268,7 @@ class EgoM2P(nn.Module):
         # other modalities' targets can exceed this head's vocab: zero them
         t = torch.where(weights.reshape(-1), target_ids.reshape(-1),
                         torch.zeros_like(target_ids.reshape(-1)))
-        if flash and emb_mod.vocab_size >= 4096 and D % 128 == 0:
+        if flash and emb_mod.vocab_size >= 4096 and flash_ce_takes_dim(D):
             return flash_ce_total(yf, emb_mod.token_emb.weight, t, w, chunk=chunk), w.sum()
         head_t = emb_mod.head_weight(y.dtype).t()
         bf16_values = y.dtype == torch.bfloat16

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from egom2p_torch.ops.flash_ce import matmul_f32
 from egom2p_torch.ops.posemb import (build_1d_sincos_posemb,
                                      build_2d_sincos_posemb,
                                      build_3d_sincos_posemb)
@@ -78,9 +79,12 @@ class TokenGridDecoderEmbedding(_TokenGridEmbedding):
         """fp32 logits (..., V) of y (..., D): bf16 operands, fp32 products
         and sums, as the JAX einsum with preferred_element_type=fp32.
         `head_weight` lets a caller that loops over chunks pass
-        `head_weight(y.dtype)` once."""
+        `head_weight(y.dtype)` once.  Under bf16 compute both operands hold
+        bf16 values, which TF32 represents exactly: on the card the product
+        runs on the TF32 tensor cores (flash_ce.matmul_f32) with the numbers
+        of the full fp32 product, up to the order of the sums."""
         w = self.head_weight(y.dtype) if head_weight is None else head_weight
-        return torch.matmul(y.float(), w.t())
+        return matmul_f32(y, w.t(), bf16_values=y.dtype == torch.bfloat16)
 
 
 def _grid_of(spec: Dict) -> Tuple[int, ...]:

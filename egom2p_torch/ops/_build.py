@@ -36,8 +36,6 @@ SIGNATURES = {
     # q, k, v, kv_blocked, segments, out, l2, B, N, M, H, 9 strides, tail
     "egom2p_flash64_train_fwd": ([_c_void_p] * 7 + [_c_int] * 4 + [_c_ll] * 9
                                  + _ATTN_TAIL, _c_int),
-    "egom2p_flash80_fwd": ([_c_void_p] * 7 + [_c_int] * 4 + [_c_ll] * 9
-                           + _ATTN_TAIL, _c_int),
     # q, k, v, do, l2, D, kv_blocked, segments, dq, B, N, M, H, 9 strides, tail
     "egom2p_flash64_train_dq": ([_c_void_p] * 9 + [_c_int] * 4 + [_c_ll] * 9
                                 + _ATTN_TAIL, _c_int),
@@ -47,14 +45,12 @@ SIGNATURES = {
     # ... dq (fp32, zeroed), dk, dv
     "egom2p_flash64_train_dqkv": ([_c_void_p] * 11 + [_c_int] * 4 + [_c_ll] * 9
                                   + _ATTN_TAIL, _c_int),
-    # the same arguments at head_dim 80 (the stock route)
-    "egom2p_flash80_bwd": ([_c_void_p] * 11 + [_c_int] * 4 + [_c_ll] * 9
-                           + _ATTN_TAIL, _c_int),
     # y, w, targets, logz, gold, R, V, D, y row stride, w row stride, stream
     "egom2p_flash_ce_fwd": ([_c_void_p] * 5 + [_c_int] * 3 + [_c_ll] * 2
                             + [_c_void_p], _c_int),
-    # y, w, targets, wc, logz, dy, dw, scratch, R, V, D, y row stride, w row stride, stream
-    "egom2p_flash_ce_bwd": ([_c_void_p] * 8 + [_c_int] * 3 + [_c_ll] * 2
+    # y, w, targets, wc, logz, dy, dw, scratch, R, V, D, group columns, y row stride,
+    # w row stride, stream
+    "egom2p_flash_ce_bwd": ([_c_void_p] * 8 + [_c_int] * 4 + [_c_ll] * 2
                             + [_c_void_p], _c_int),
 }
 

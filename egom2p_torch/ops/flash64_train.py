@@ -21,7 +21,7 @@ kernel (csrc/flash64_train.cu: wgmma, blocks of 128 query rows or 128 keys,
 streamed tiles of 64 rows, any N and M), or, when EGOM2P_F64T_FUSED_BWD=1 at
 the time the backward runs, the one fused dq/dk/dv kernel.  The fused kernel
 sums dq in fp32 with adds that L2 performs in an order that changes from run
-to run (bulk reduce-adds of 64 x 32 tiles; float2 atomics at head_dim 80), so
+to run (bulk reduce-adds of 64 x 32 tiles, and 64 x 16 at head_dim 80), so
 its dq is not bitwise deterministic; dq then leaves fp32 in q's dtype (the JAX
 package's fused kernel does the same), where the split kernel rounds it to
 bf16 first.  On CUDA tensors the wrappers `flash64_train_fwd`,
@@ -32,10 +32,11 @@ split kernels' three gradients).  Each wrapper's `.launches` counts its CUDA
 launches.  No gradient goes to the mask or the segments.
 
 The forward and fused kernels also serve ops/flash_attention.py (the stock
-route); at head_dim 80 the forward is csrc/flash80_fwd.cu and the fused
-backward csrc/flash80_bwd.cu (mma.sync, 64-row tiles).  Every function here
-takes `hd` (the kernel's head dim, 64 or 80) and `sm_scale` (the true head's natural scale, hd^-0.5 by
-default) as keywords.
+route), at head_dim 64 and 80: one template per kernel takes both widths
+(at 80, safemax only; each tile is two TMA boxes of 64 and 16 columns, and
+the fused backward walks the queries in steps of 32 rows).  Every function
+here takes `hd` (the kernel's head dim, 64 or 80) and `sm_scale` (the true
+head's natural scale, hd^-0.5 by default) as keywords.
 """
 from __future__ import annotations
 
@@ -218,9 +219,7 @@ def launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
         if which == "fwd":
             out = torch.empty((B, N, C), dtype=torch.bfloat16, device=q.device)
             lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-            # head_dim 64: the wgmma kernel; 80 (the stock route): its own file
-            fwd = lib.egom2p_flash80_fwd if hd == 80 else lib.egom2p_flash64_train_fwd
-            rc = fwd(
+            rc = lib.egom2p_flash64_train_fwd(
                 qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ptr(mask), ptr(seg),
                 out.data_ptr(), lse.data_ptr(), B, N, M, H, *strides, m_sb,
                 out.stride(0), out.stride(1), int(safemax), hd, nat, stream)
@@ -247,9 +246,8 @@ def launch(which: str, q, k, v, kv_blocked, segments, safemax: bool,
                     result = (dk.to(k.dtype), dv.to(v.dtype))
                 else:
                     dq = torch.zeros((B, N, C), dtype=torch.float32, device=q.device)
-                    # head_dim 64: the wgmma kernel; 80 (the stock route): its own file
-                    bwd = lib.egom2p_flash80_bwd if hd == 80 else lib.egom2p_flash64_train_dqkv
-                    rc = bwd(*common, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail)
+                    rc = lib.egom2p_flash64_train_dqkv(*common, dq.data_ptr(), dk.data_ptr(),
+                                                       dv.data_ptr(), *tail)
                     result = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
     if rc != 0:
         raise RuntimeError(f"flash64_train {which} kernel launch failed with CUDA error {rc}")

@@ -17,21 +17,21 @@ under the A/B kill switches.  The contract is the JAX one:
 q/k/v/do are rounded to bf16 for the products; scores and sums are fp32,
 p is rounded to bf16 for P.V and P^T.dO, dS for dS.K and dS^T.Q.
 
-On the card the route runs hand-written kernels: the forward (safemax,
-with L2) is csrc/flash64_fwd.cu at head_dim 64 (wgmma, 128-row tiles) and
-csrc/flash80_fwd.cu at head_dim 80 (mma.sync, 64-row tiles: a row of 160
-bytes fits no 128-byte swizzle atom, so this instance was not redesigned);
-the backward is the fused dq/dk/dv kernel of csrc/flash64_train.cu
-(safemax), instanced at 64 and 80.  Heads of 65..80 are zero-padded to 80
-(the next multiple of 16 that mma.sync m16n8k16 needs) and heads under 64 to
-64: zero columns change no score and give zero output and gradient columns,
-which are dropped.  The wrapper packs q/k/v (and do) into contiguous
-(B, N, H*hd_kernel) buffers before the launch: a head of 68 bf16 is 136
-bytes, so the heads of a fused projection do not start on the 16-byte
-boundaries that the kernels' tile loads (cp.async, TMA) need.  On
-CPU tensors the wrappers `flash_attention_fwd` / `flash_attention_bwd` run
-the plain versions; each counts its CUDA launches in `.launches`.  The fused
-backward's dq is summed with fp32 atomics, so it is not bitwise
+On the card the route runs hand-written kernels, one template each for
+both head widths: the forward (safemax, with L2) is csrc/flash64_fwd.cu and
+the backward the fused dq/dk/dv kernel of csrc/flash64_train.cu (safemax),
+both wgmma and TMA, instanced at 64 and 80.  A row of 80 bf16 is 160 bytes
+and fits no 128-byte swizzle atom: at 80 every tile is two TMA boxes,
+columns 0-63 (128-byte swizzle) and 64-79 (32-byte swizzle).  Heads of
+65..80 are zero-padded to 80 (a multiple of the 16 columns of a k-step) and
+heads under 64 to 64: zero columns change no score and give zero output and
+gradient columns, which are dropped.  The wrapper packs q/k/v (and do) into
+contiguous (B, N, H*hd_kernel) buffers before the launch: a head of 68 bf16
+is 136 bytes, so the heads of a fused projection do not start on the
+16-byte boundaries that the kernels' TMA tile loads need.  On CPU tensors
+the wrappers `flash_attention_fwd` / `flash_attention_bwd` run the plain
+versions; each counts its CUDA launches in `.launches`.  The fused
+backward's dq is summed with fp32 reduce-adds in L2, so it is not bitwise
 deterministic.  `flash_attention_reference` is the plain forward on
 head-major tensors (dense, in chunks of query rows, with the kernels'
 roundings).

@@ -6,11 +6,16 @@ logits = y @ w_mat.T, with w_mat cast to y's dtype for the products (bf16 in
 training) and fp32 logits.  It is a torch.autograd.Function, differentiable
 in y and w_mat; targets and wts get no gradient.
 
+Both kernels take every model dim the JAX kernels take, any multiple of
+128 (`takes_dim`, which the model's route to flash CE calls too).
+
 Forward: `row_stats(y, w, targets)` -> (logz, gold) per row.  On a CUDA
 tensor it launches the hand-written kernel csrc/flash_ce_fwd.cu (online
 logsumexp over vocab tiles; the logits never reach device memory) or raises;
 on a CPU tensor it runs `row_stats_reference`, the plain version.
-`row_stats.launches` counts the CUDA launches.
+`row_stats.launches` counts the CUDA launches.  `fwd_plan(D)` says how the
+kernel holds y: a block's 128 rows resident in shared memory up to D = 768,
+streamed in 64-column slices beside W's above.
 
 Backward, by default: the chunked recompute of the JAX package's
 `_bwd_chunked`, in plain PyTorch (the JAX package runs it in XLA, not in
@@ -19,11 +24,13 @@ dl = (p - onehot) * wts * g rounded to w's dtype, dy = dl @ w, dW += dl^T @ y
 summed in fp32 and cast to w_mat's dtype.  With EGOM2P_CE_PALLAS_BWD=1 at
 the time the backward runs, `ce_bwd(y, w, targets, wc, logz)` -> (dy, dW),
 both fp32, computes the same in the hand-written kernel
-csrc/flash_ce_bwd.cu (wgmma; a block owns 64 rows and all D output
-columns, so each logits tile is computed once; D a multiple of 256 up to
-768; the logits never reach device memory; a CUDA tensor it cannot take
-raises) or, on a CPU tensor, in `ce_bwd_reference`, the
-chunked recompute with fp32 dy.  `ce_bwd.launches` counts its CUDA calls.
+csrc/flash_ce_bwd.cu (wgmma; a block owns 64 rows and the output
+columns of one column group, `bwd_column_plan(D)`: all D columns up to
+D = 768, so each logits tile is computed once, and above that groups of
+512, 256 or 128 columns side by side in the grid, each recomputing its
+logits tile; the logits never reach device memory; a CUDA tensor it cannot
+take raises) or, on a CPU tensor, in `ce_bwd_reference`, the chunked
+recompute with fp32 dy.  `ce_bwd.launches` counts its CUDA calls.
 """
 from __future__ import annotations
 
@@ -64,13 +71,58 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
         return torch.matmul(a.float(), b.float())
 
 
+# the kernels' column slices: a model dim is a whole number of them (the
+# JAX kernels' 128-lane tiles)
+DIM_STEP = 128
+# the forward kernel keeps a block's 128 rows of y in shared memory up to here
+FWD_RESIDENT_MAX_DIM = 768
+# the backward kernel: all of D up to 768 columns (three warpgroups, each 256
+# columns wide or, the last, 128) in one group; above, groups of 512, 256 or
+# 128 columns, each recomputing the logits from a streamed owned tile
+BWD_RESIDENT_MAX_DIM = 768
+BWD_STREAM_GROUP_DIMS = (512, 256, 128)
+
+
+def takes_dim(D: int) -> bool:
+    """Whether the flash-CE kernels take model dim D: a positive multiple of
+    128, as the JAX package's route asks.  The model's route to flash CE
+    and both launchers decide by this function."""
+    return D > 0 and D % DIM_STEP == 0
+
+
+def _need_dim(D: int) -> None:
+    if not takes_dim(D):
+        raise ValueError(f"the flash_ce kernels take D a multiple of {DIM_STEP}, got {D}")
+
+
+def fwd_plan(D: int) -> str:
+    """How the forward kernel holds a block's 128 rows of y: "resident" in
+    shared memory (D <= 768) or "streamed" in 64-column slices beside W's.
+    Raises where the kernel (and the JAX kernel) refuses D."""
+    _need_dim(D)
+    return "resident" if D <= FWD_RESIDENT_MAX_DIM else "streamed"
+
+
+def bwd_column_plan(D: int) -> Tuple[Tuple[int, ...], ...]:
+    """The backward kernel's column groups for model dim D, each the tuple
+    of its warpgroups' widths (256, and 128 for a remainder): one group of
+    all D columns up to 768, else the fewest equal groups of a width in
+    BWD_STREAM_GROUP_DIMS, each a grid column of blocks that recompute their
+    logits tile.  Raises where the kernel (and the JAX kernel) refuses D."""
+    _need_dim(D)
+    width = D if D <= BWD_RESIDENT_MAX_DIM else next(
+        w for w in BWD_STREAM_GROUP_DIMS if D % w == 0)
+    group = (256,) * (width // 256) + ((128,) if width % 256 else ())
+    return (group,) * (D // width)
+
+
 def _check(y, w, targets):
     if y.dim() != 2 or w.dim() != 2 or y.shape[1] != w.shape[1]:
         raise ValueError(f"flash_ce takes y (R, D) and w (V, D), got {tuple(y.shape)}, "
                          f"{tuple(w.shape)}")
     if tuple(targets.shape) != (y.shape[0],):
         raise ValueError(f"targets must be (R,) = ({y.shape[0]},), got {tuple(targets.shape)}")
-    if y.shape[1] % 128:
+    if not takes_dim(y.shape[1]):
         raise ValueError(f"flash_ce needs the model dim to be a multiple of 128, got {y.shape[1]}")
     for name, t in (("w", w), ("targets", targets)):
         if t.device != y.device:
@@ -107,9 +159,7 @@ def _launch(y, w, targets):
     from egom2p_torch.ops import _build
 
     R, D = y.shape
-    if D > 768:
-        raise ValueError(f"the flash_ce kernel keeps 128 rows of y in shared memory: "
-                         f"D <= 768, got {D}")
+    fwd_plan(D)  # raises on a D the kernel does not take
     yb, wb = _kernel_operand("y", y), _kernel_operand("w", w)
     t = targets.to(torch.int32).contiguous()
     logz = torch.empty(R, dtype=torch.float32, device=y.device)
@@ -123,11 +173,6 @@ def _launch(y, w, targets):
     if rc != 0:
         raise RuntimeError(f"flash_ce kernel launch failed with CUDA error {rc}")
     return logz, gold
-
-
-# the backward kernel's limits: 256 output columns per warpgroup, at most 768
-# columns (three warpgroups; a 64-row operand tile in shared memory)
-BWD_SLICE, BWD_MAX_DIM = 256, 768
 
 
 def ce_bwd(y: torch.Tensor, w: torch.Tensor, targets: torch.Tensor, wc: torch.Tensor,
@@ -154,9 +199,7 @@ def _launch_bwd(y, w, targets, wc, logz):
 
     R, D = y.shape
     V = w.shape[0]
-    if D % BWD_SLICE or D > BWD_MAX_DIM:
-        raise ValueError(f"the flash_ce backward kernel takes D a multiple of {BWD_SLICE} "
-                         f"up to {BWD_MAX_DIM}, got {D}")
+    group_dim = sum(bwd_column_plan(D)[0])  # raises on a D the kernel does not take
     yb, wb = _kernel_operand("y", y), _kernel_operand("w", w)
     t = targets.to(torch.int32).contiguous()
     wcc = wc.to(torch.float32).contiguous()
@@ -172,7 +215,7 @@ def _launch_bwd(y, w, targets, wc, logz):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = lib.egom2p_flash_ce_bwd(yb.data_ptr(), wb.data_ptr(), t.data_ptr(),
                                      wcc.data_ptr(), lz.data_ptr(), dy.data_ptr(),
-                                     dw.data_ptr(), scratch.data_ptr(), R, V, D,
+                                     dw.data_ptr(), scratch.data_ptr(), R, V, D, group_dim,
                                      yb.stride(0), wb.stride(0), stream)
     if rc != 0:
         raise RuntimeError(f"flash_ce backward kernel launch failed with CUDA error {rc}")

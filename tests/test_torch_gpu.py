@@ -266,7 +266,8 @@ def test_flash64_train_kernels_reject_bad_layouts(cuda):
                                                  device=cuda)[..., 1:], l2, l2)
 
 
-@pytest.mark.parametrize("R,D,V", [(16384, 768, 64000), (1000, 768, 64007), (77, 384, 200)])
+@pytest.mark.parametrize("R,D,V", [(16384, 768, 64000), (1000, 768, 64007), (77, 384, 200),
+                                   (1000, 1024, 64007), (300, 2048, 5000), (129, 896, 700)])
 def test_flash_ce_kernel_matches_plain(cuda, R, D, V):
     from egom2p_torch.ops.flash_ce import row_stats, row_stats_reference
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -313,9 +314,9 @@ def test_flash_ce_total_autograd_on_the_card(cuda):
 def test_flash_ce_kernel_rejects_what_it_cannot_take(cuda):
     from egom2p_torch.ops.flash_ce import row_stats
     t = torch.zeros(4, dtype=torch.int32, device=cuda)
-    y = torch.zeros((4, 1024), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):  # the y tile of 128 x 1024 exceeds shared memory
-        row_stats(y, torch.zeros((10, 1024), dtype=torch.bfloat16, device=cuda), t)
+    y = torch.zeros((4, 1000), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # D = 1000: not a multiple of 128 (nor for the JAX kernel)
+        row_stats(y, torch.zeros((10, 1000), dtype=torch.bfloat16, device=cuda), t)
     with pytest.raises(TypeError):  # fp32 y: the kernel takes bf16
         row_stats(y[:, :768].float(), torch.zeros((10, 768), device=cuda), t)
 
@@ -411,6 +412,63 @@ def test_stock_route_kernels_match_plain(cuda, hd, mode, N, M):
             assert (t[dead] == 0).all(), "fully blocked rows must be exact zeros"
 
 
+# the width-80 kernels' edges: forward 128-row query tiles and 128-key
+# stages; backward 128-key blocks, 32-row query steps, 64-query dQ tiles
+WIDE_RAGGED_SELF = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 161, 300)
+WIDE_RAGGED_CROSS = ((1, 129), (129, 1), (33, 200), (200, 33), (95, 128), (128, 97))
+
+
+def _wide_case(rng, B, H, N, M, hd, mode, device):
+    """Packed (B, L, H*80) operands of heads of `hd` (zero columns past it),
+    as the stock route hands them to the kernels, with no mask, key padding
+    (the last batch row fully blocked) or segments with -1."""
+    import egom2p_torch.ops.flash_attention as fa
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(device, torch.bfloat16)
+                   for s in ((B, H, N, hd), (B, H, M, hd), (B, H, M, hd), (B, H, N, hd)))
+    kvb = seg = None
+    if mode == "kp":
+        kvb = torch.from_numpy(rng.uniform(size=(B, M)) < 0.3).to(device)
+        kvb[-1] = True
+    elif mode == "seg":
+        ids = np.array([31433, 17061, 7210, -1], np.int32)
+        seg = torch.from_numpy(ids[np.sort(rng.integers(0, 4, (B, N)), axis=1)]).to(device)
+    return tuple(fa._pack(t, 80) for t in (q, k, v, do)) + (kvb, seg)
+
+
+@pytest.mark.parametrize("mode,N,M", [(mode, n, n) for n in WIDE_RAGGED_SELF
+                                      for mode in ("none", "kp", "seg")]
+                         + [("kp", n, m) for n, m in WIDE_RAGGED_CROSS])
+def test_width80_kernels_ragged(cuda, mode, N, M):
+    """The width-80 instances of the forward and the fused backward against
+    their plain versions at lengths on both sides of their tiles, heads of
+    68 zero-padded to 80: o, L2 and the three gradients; a fully blocked
+    batch row gives exact zeros and L2 = 1e30; the padding columns stay
+    zero."""
+    import egom2p_torch.ops.flash64_train as ft
+    import egom2p_torch.ops.flash_attention as fa
+    rng = np.random.default_rng(N * 1000 + M)
+    q, k, v, do, kvb, seg = _wide_case(rng, 2, 3, N, M, 68, mode, cuda)
+    kw = dict(hd=80, sm_scale=68 ** -0.5)
+    o, l2 = fa.flash_attention_fwd(q, k, v, kvb, seg, **kw)
+    torch.cuda.synchronize()
+    ro, rl2 = ft.flash64_train_reference_fwd(q, k, v, kvb, seg, True, **kw)
+    assert (o.float() - ro.float()).abs().max() <= 1e-2
+    assert (l2 - rl2).abs().max() <= 1e-4
+    args = (q, k, v, do, rl2, ft.row_dot(do, ro, 80), kvb, seg)
+    got = fa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    ref = ft.flash64_train_reference_dqkv(*args, True, **kw)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert (g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max() + GRAD_ATOL
+    for t in (o,) + tuple(got):
+        assert (t.view(*t.shape[:2], 3, 80)[..., 68:] == 0).all(), "padding columns must stay 0"
+    if kvb is not None:
+        assert (o[1] == 0).all() and (l2[1] == 1e30).all()
+        for t in got:
+            assert (t[1] == 0).all(), "a fully blocked batch row must give exact zeros"
+
+
 def test_stock_route_rejects_what_it_cannot_take(cuda):
     import egom2p_torch.ops.flash64_train as ft
     import egom2p_torch.ops.flash_attention as fa
@@ -425,11 +483,15 @@ def test_stock_route_rejects_what_it_cannot_take(cuda):
 
 # ------------------------------------------------------------ CE backward
 @pytest.mark.parametrize("R,D,V", [(2000, 768, 64007), (1000, 768, 64007), (300, 512, 5000),
-                                   (77, 256, 200), (640, 256, 1000)])
+                                   (77, 256, 200), (640, 256, 1000), (300, 128, 5000),
+                                   (300, 384, 5000), (300, 640, 5000), (1000, 1024, 64007),
+                                   (300, 2048, 5000), (130, 896, 700)])
 def test_flash_ce_bwd_kernel_matches_plain(cuda, R, D, V):
     """The CE backward kernel against the chunked recompute, with about half
     of the rows at weight 0 (in blocks, as training lays them out) and a
-    vocab its tiles do not divide."""
+    vocab its tiles do not divide; at every column plan: one group with a
+    128-column warpgroup (128, 384, 640), and column groups that recompute
+    their logits from a streamed owned tile (896, 1024, 2048)."""
     from egom2p_torch.ops.flash_ce import ce_bwd, ce_bwd_reference, row_stats_reference
     gen = torch.Generator(device=cuda).manual_seed(5)
     y = torch.randn((R, D), device=cuda, generator=gen).to(torch.bfloat16)
@@ -449,7 +511,7 @@ def test_flash_ce_bwd_kernel_matches_plain(cuda, R, D, V):
     assert torch.count_nonzero(dy[wc == 0]) == 0
 
 
-@pytest.mark.parametrize("D", [256, 768])
+@pytest.mark.parametrize("D", [256, 768, 384, 1024])
 def test_flash_ce_bwd_kernel_no_live_row(cuda, D):
     """Every row at weight 0: no block has a tile to walk, and both
     gradients are exact zeros."""
@@ -470,9 +532,9 @@ def test_flash_ce_bwd_switch_raises_on_what_it_cannot_take(cuda, monkeypatch):
     monkeypatch.setenv("EGOM2P_CE_PALLAS_BWD", "1")
     t = torch.zeros(4, dtype=torch.int64, device=cuda)
     wts = torch.ones(4, device=cuda)
-    y = torch.randn((4, 384), device=cuda).to(torch.bfloat16).requires_grad_()
-    w = torch.randn((4096, 384), device=cuda).requires_grad_()
-    with pytest.raises(ValueError):  # D = 384: not a multiple of the 256-column slice
+    y = torch.randn((4, 1000), device=cuda).to(torch.bfloat16).requires_grad_()
+    w = torch.randn((4096, 1000), device=cuda).requires_grad_()
+    with pytest.raises(ValueError):  # D = 1000: not a multiple of 128
         fce.flash_ce_total(y, w, t, wts).backward()
     y32 = torch.randn((4, 256), device=cuda).requires_grad_()
     w32 = torch.randn((4096, 256), device=cuda).requires_grad_()

@@ -309,6 +309,43 @@ def test_bf16_compute_dtype_runs():
     assert torch.isfinite(logits).all() and logits.shape == (2, 10, 96)
 
 
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float32])
+def test_forward_logits_matches_jax_head(compute_dtype):
+    """The generation head: fp32 logits of y and the head weight rounded to
+    y's dtype, as the JAX einsum with preferred_element_type=fp32.  Under
+    bf16 compute the product goes to flash_ce.matmul_f32 with bf16_values
+    (TF32 on the card, exact for bf16 values); under fp32 compute in full
+    fp32."""
+    from egom2p_torch.models import embeddings as temb
+    from egom2p_tpu.models import embeddings as jemb
+
+    rng = np.random.default_rng(11)
+    V, D = 333, 96
+    head = temb.TokenGridDecoderEmbedding(V, (4,), D)
+    w = rng.standard_normal((V, D), np.float32) * 0.02
+    with torch.no_grad():
+        head.token_emb.weight.copy_(torch.from_numpy(w))
+    y32 = rng.standard_normal((2, 7, D), np.float32)
+    y = torch.from_numpy(y32).to(compute_dtype)
+    calls = []
+    real = temb.matmul_f32
+
+    def spy(a, b, bf16_values=None):
+        calls.append(bf16_values)
+        return real(a, b, bf16_values=bf16_values)
+
+    with mock.patch.object(temb, "matmul_f32", spy), torch.no_grad():
+        got = head.forward_logits(y)
+    assert calls == [compute_dtype == torch.bfloat16]
+    jdt = jnp.bfloat16 if compute_dtype == torch.bfloat16 else jnp.float32
+    jhead = jemb.TokenGridDecoderEmbedding(V, (4,), D)
+    ref = jhead.apply({"params": {"token_emb": jnp.asarray(w)}},
+                      jnp.asarray(y32).astype(jdt), method="forward_logits")
+    assert got.dtype == torch.float32 and got.shape == (2, 7, V)
+    # fp32 sums of the same products in another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=2e-6)
+
+
 def test_eval_common_smoke_loaders():
     """--smoke weights come from the seeded generator: the same seed gives
     the same model; without --smoke the loaders refuse (checkpoints are not

@@ -14,6 +14,7 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
 import egom2p_torch.ops.flash_ce as fce  # noqa: E402
+from egom2p_torch.tools import sass_diff  # noqa: E402
 from egom2p_torch.ops.flash64 import _kernel_operand  # noqa: E402
 
 PORT_FILES = sorted(p for p in (REPO / "egom2p_torch").rglob("*")
@@ -38,33 +39,37 @@ def test_port_sources_do_not_name(pattern, what):
 
 
 def test_forward_kernel_sources_are_split_by_head_dim():
-    """The head_dim-64 forward is the wgmma kernel and holds no mma.sync
-    product; the head_dim-80 instance has its own file and entry point."""
+    """One wgmma forward template serves heads of 64 and 80 (the stock
+    route's width-80 instances): it holds no mma.sync product, and no
+    separate head_dim-80 source or entry point is left."""
     csrc = REPO / "egom2p_torch" / "csrc"
-    fwd64, fwd80 = (csrc / "flash64_fwd.cu").read_text(), (csrc / "flash80_fwd.cu").read_text()
-    assert "wgmma_ss" in fwd64 and "wgmma_rs" in fwd64 and "tma_load_3d" in fwd64
-    assert "mma_16816" not in fwd64 and "cp_async16" not in fwd64
-    assert "mma_16816" in fwd80 and 'extern "C" int egom2p_flash80_fwd' in fwd80
+    fwd = (csrc / "flash64_fwd.cu").read_text()
+    assert "wgmma_ss" in fwd and "wgmma_rs" in fwd and "tma_load_3d" in fwd
+    assert "mma_16816" not in fwd and "cp_async16" not in fwd
+    assert "template <int kHD, bool kSafemax, bool kSeg, bool kL2>" in fwd
+    assert "launch_fwd<80, true, true, true>" in fwd and "smem_desc_sw32" in fwd
+    assert not (csrc / "flash80_fwd.cu").exists() and "egom2p_flash80" not in fwd
     assert "wgmma_ss" in (csrc / "flash_ce_bwd.cu").read_text()
 
 
 def test_backward_kernel_sources_are_split_by_head_dim():
-    """The head_dim-64 backward (dq, dk/dv, fused) is on wgmma and TMA and
-    holds no mma.sync product and no cp.async tile load; the head_dim-80
-    fused backward keeps the mma.sync design in its own file with its own
-    entry point, which the launcher picks by head_dim."""
+    """The backward (dq, dk/dv, fused) is on wgmma and TMA and holds no
+    mma.sync product, cp.async tile load or atomic add; the fused kernel's
+    template takes heads of 64 and 80, and the launcher calls the same entry
+    points at both widths (no branch on a file)."""
     csrc = REPO / "egom2p_torch" / "csrc"
-    bwd64, bwd80 = (csrc / "flash64_train.cu").read_text(), (csrc / "flash80_bwd.cu").read_text()
-    for name in ("wgmma_ss", "wgmma_rs", "tma_load_3d", "tma_reduce_add_3d", "setmaxnreg_inc"):
-        assert name in bwd64, name
-    assert "mma_16816" not in bwd64 and "cp_async16" not in bwd64 and "atomicAdd" not in bwd64
+    bwd = (csrc / "flash64_train.cu").read_text()
+    for name in ("wgmma_ss", "wgmma_rs", "tma_load_3d", "tma_reduce_add_3d", "setmaxnreg_inc",
+                 "template <int kHD, bool kClampMode, bool kSeg, bool kFused>",
+                 "flash64_dkv_kernel<80, false, kSeg, true>", "smem_desc_sw32"):
+        assert name in bwd, name
+    assert "mma_16816" not in bwd and "cp_async16" not in bwd and "atomicAdd" not in bwd
     for entry in ("egom2p_flash64_train_dq", "egom2p_flash64_train_dkv",
                   "egom2p_flash64_train_dqkv"):
-        assert f'extern "C" int {entry}(' in bwd64
-    assert "mma_16816" in bwd80 and 'extern "C" int egom2p_flash80_bwd(' in bwd80
-    assert "wgmma" not in bwd80.split('#include "common.cuh"')[1]
+        assert f'extern "C" int {entry}(' in bwd
+    assert not (csrc / "flash80_bwd.cu").exists()
     launcher = (REPO / "egom2p_torch" / "ops" / "flash64_train.py").read_text()
-    assert "lib.egom2p_flash80_bwd if hd == 80 else lib.egom2p_flash64_train_dqkv" in launcher
+    assert "flash80" not in launcher and "if hd == 80 else" not in launcher
 
 
 def test_tensor_map_helpers_are_shared():
@@ -123,12 +128,86 @@ def test_attention_operand_layouts_the_tile_loads_cannot_take_raise(make, reason
         _kernel_operand("q", make(t))
 
 
-@pytest.mark.parametrize("D", [128, 384, 1024])
-def test_ce_backward_kernel_dims_it_cannot_take_raise(D):
-    """The CE backward kernel takes D in multiples of 256 up to 768 (one
-    warpgroup per 256 output columns); the launcher raises before any
-    launch on what it does not take."""
-    y, w = torch.zeros((4, D)), torch.zeros((16, D))
-    t = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="multiple of 256"):
-        fce._launch_bwd(y, w, t, torch.ones(4), torch.zeros(4))
+# the backward kernel's column plan: the warpgroup widths of each column group
+CE_PLANS = {128: ((128,),), 384: ((256, 128),), 640: ((256, 256, 128),),
+            768: ((256, 256, 256),), 896: ((128,),) * 7, 1024: ((256, 256),) * 2,
+            1280: ((256,),) * 5, 1536: ((256, 256),) * 3, 2048: ((256, 256),) * 4}
+
+
+@pytest.mark.parametrize("D", list(range(128, 2049, 128)) + [0, 64, 100, 1000, 1020, 2046])
+def test_ce_backward_column_plan(D):
+    """The CE backward kernel's column plan takes every D the JAX kernel
+    takes (a multiple of 128) up to 2048 and raises on any other: one group
+    of all D columns up to 768 (256-column warpgroups, the last 128 wide for
+    a remainder), above that equal groups of 512, 256 or 128 columns."""
+    if D <= 0 or D % 128:
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fce.bwd_column_plan(D)
+        return
+    plan = fce.bwd_column_plan(D)
+    if D in CE_PLANS:
+        assert plan == CE_PLANS[D]
+    width = sum(plan[0])
+    assert all(g == plan[0] for g in plan) and width * len(plan) == D
+    assert (len(plan) == 1) == (D <= 768)
+    assert width <= 768 if D <= 768 else width in (512, 256, 128)
+    assert all(w == 256 for w in plan[0][:-1]) and plan[0][-1] in (128, 256)
+    assert fce.fwd_plan(D) == ("resident" if D <= 768 else "streamed")
+
+
+def test_ce_route_and_launchers_agree_on_every_registry_dim(monkeypatch):
+    """For every registry model's dim, the model's route sends a 64k head to
+    flash CE exactly where the JAX package does (vocab >= 4096 and D % 128 ==
+    0), and both kernel launchers take that D there and raise elsewhere."""
+    from types import SimpleNamespace
+
+    import egom2p_torch.models.egom2p as tm
+    from egom2p_torch.models.embeddings import TokenGridDecoderEmbedding
+
+    routed = []
+    monkeypatch.setattr(tm, "flash_ce_total",
+                        lambda y, *a, **k: routed.append(y.shape[-1]) or y.new_zeros(()))
+    dims = sorted({cfg["dim"] for cfg in tm.MODEL_REGISTRY.values()})
+    assert {768, 1020, 1024, 2046, 2048} <= set(dims)
+    for D in dims:
+        fake = SimpleNamespace(decoder_embeddings={"tok_rgb": TokenGridDecoderEmbedding(4096, (2,), D)})
+        y = torch.zeros((1, 3, D))
+        target = torch.zeros((1, 3), dtype=torch.long)
+        weights = torch.ones((1, 3), dtype=torch.bool)
+        routed.clear()
+        with torch.no_grad():
+            tm.EgoM2P._chunked_masked_ce(fake, y, "tok_rgb", target, weights)
+        jax_takes = D % 128 == 0  # egom2p_tpu/models/egom2p.py:390-391
+        assert (routed == [D]) == jax_takes, D
+        if jax_takes:
+            fce.fwd_plan(D)
+            fce.bwd_column_plan(D)
+        else:
+            for plan in (fce.fwd_plan, fce.bwd_column_plan):
+                with pytest.raises(ValueError):
+                    plan(D)
+
+
+def test_sass_diff_matches_instances_across_a_new_head_width_parameter():
+    """tools/sass_diff.py pairs an instance of a template that gained a
+    leading head-width argument with its old self, skips other widths, and
+    compares instructions without addresses, encodings, constant-bank
+    offsets or branch targets."""
+    old = """
+        Function : _ZN47_GLOBAL__N__f3c81b78_14_flash64_fwd_cu_5156087e18flash64_fwd_kernelILb1ELb0ELb1EEEv14CUtensorMapS1_S1_NS_7FwdArgsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                           /* 0x000fe20000000800 */
+        /*0010*/                   BRA 0x120 ;             /* 0x0000000000007947 */
+        Function : _ZN12_GLOBAL__N_118flash_ce_fwd_kernelILb0EEEvPK13__nv_bfloat16
+        /*0000*/                   EXIT ;                  /* 0x000000000000794d */
+    """
+    new = old.replace("kernelILb1ELb0ELb1E", "kernelILi64ELb1ELb0ELb1E").replace(
+        "c[0x0][0x28]", "c[0x0][0x390]").replace("BRA 0x120", "BRA 0x140")
+    new += """
+        Function : _ZN47_GLOBAL__N__f3c81b78_14_flash64_fwd_cu_5156087e18flash64_fwd_kernelILi80ELb1ELb0ELb1EEEv14CUtensorMap
+        /*0000*/                   NOP ;                   /* 0x0000000000007918 */
+    """
+    a, b = sass_diff.parse(old), sass_diff.parse(new)
+    assert list(a) == list(b) == [("flash64_fwd_kernel", ("1", "0", "1"))]
+    assert a == b and a[("flash64_fwd_kernel", ("1", "0", "1"))] == ["LDC R1, c[P]", "BRA N"]
+    assert sass_diff.parse(new.replace("LDC R1", "LDC R2")) != a
