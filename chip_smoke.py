@@ -6,7 +6,7 @@
 1. Builds the CUDA kernels of egom2p_torch/csrc with nvcc (sm_90a), one nvcc
    per source, all started together; prints ptxas's registers, spills and
    remarks per kernel instance and counts the wgmma (HGMMA) instructions in
-   the SASS: every head_dim-64 attention instance must hold them.
+   the SASS: every attention instance and the CE forward must hold them.
 2. Serving kernel phase: the flash64 kernel against its plain PyTorch version
    at the rgb2depth main path's shapes (B=8, 12 heads of 64), in both softmax
    modes; prints the max abs error and the time of each, beside the time of
@@ -29,9 +29,12 @@
    forward, dq and dk/dv kernels against their plain versions with key
    padding, segments (four modalities and -1 for masked positions), no mask,
    and a ragged N = M = 2000, in both softmax modes; then the flash-CE
-   forward at R = 16384, D = 768, V = 64000, at a vocab its tile does not
-   divide, and at D = 1024 and 2048 (y streamed).  Prints errors and kernel
-   / plain times.
+   forward (wgmma, y streamed beside W, vocab split into S slices for small
+   R) at R = 16384, D = 768, V = 64000 with every row and with half the rows
+   live (dead rows exactly +inf / 0), at a vocab its tile does not divide,
+   at D = 1024 and 2048, and split at R = 2048 and 512 (two runs bitwise
+   equal).  Prints errors, S, kernel / plain times and the bound over the
+   live rows, beside cuBLAS's y @ W^T alone.
 5. Training slice, at full width: the port's trainer
    (egom2p_torch.cli.run_training.main) with cfgs/egom2p/main_mod4.yaml's
    settings as arguments (EgoM2P-base, 4 modalities in and out, 2048 + 2048
@@ -40,7 +43,8 @@
    36 dq, 36 dk/dv and 2 flash-CE launches per step, finite losses and
    gradient norms, first-step losses near ln V and that every parameter
    moved; prints step time, tokens/s, peak memory and model FLOP/s.  Then a
-   profiler trace of one step (device time by kernel class, idle share) and,
+   profiler trace of one step (device time by kernel class, idle share), each
+   64k head's share of live rows on one batch and,
    on one batch, the loss and gradients with the kernels against the same
    model with the plain versions swapped in.
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
@@ -597,32 +601,73 @@ def train_kernel_phase(dev):
     return rows
 
 
-def ce_phase(dev):
-    """The CE forward kernel against its plain version at the base step's
-    D = 768 (and a vocab its tile does not divide), and at the registry's
-    wider models' D = 1024 and 2048, where y streams beside W."""
-    from egom2p_torch.ops.flash_ce import fwd_plan, row_stats, row_stats_reference
+def _step_live_rows(R, dev, gen):
+    """The rows of one 64k head in a training step: each 2048-row sample
+    holds one contiguous run of 1024 of them at a random start, as the
+    decoder's modality blocks lay them out (about half the rows)."""
+    start = torch.randint(0, 1024, (R // 2048 + 1,), device=dev, generator=gen)
+    pos = torch.arange(R, device=dev)
+    return ((pos % 2048) >= start[pos // 2048]) & ((pos % 2048) < start[pos // 2048] + 1024)
 
+
+# flash-CE forward cases (R, V, D, live rows): the base step's head with all
+# rows and with half the rows live, a vocab its tiles do not divide, the
+# wider registry dims, and the split instance at the trainer's B = 1 (R =
+# 2048) and the dim-1024 check step's R = 512
+CE_FWD_CASES = ((16384, 64000, 768, "all"), (1000, 64007, 768, "all"),
+                (16384, 64000, 1024, "all"), (16384, 64000, 2048, "all"),
+                (16384, 64000, 768, "step"), (2048, 64000, 768, "all"),
+                (512, 64000, 768, "all"), (2048, 64000, 1024, "all"),
+                (512, 64000, 1024, "all"))
+
+
+def ce_phase(dev):
+    """The CE forward kernel against its plain version (CE_FWD_CASES): live
+    rows within CE_LOGZ_RTOL / CE_GOLD_ATOL, dead rows exactly +inf / 0; two
+    runs of the split instance bitwise equal; beside cuBLAS's bf16 y @ W^T
+    alone at the full-R shapes (a product that writes the R x V logits, not
+    the same function)."""
+    from egom2p_torch.ops.flash_ce import fwd_plan, fwd_splits, row_stats, row_stats_reference
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for R, V, D in ((16384, 64000, 768), (1000, 64007, 768), (16384, 64000, 1024),
-                    (16384, 64000, 2048)):
-        gen = torch.Generator(device=dev).manual_seed(R)
+    for R, V, D, which in CE_FWD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(R + D)
         y = torch.randn((R, D), device=dev, generator=gen).to(torch.bfloat16)
         w = (torch.randn((V, D), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
         t = torch.randint(0, V, (R,), device=dev, generator=gen, dtype=torch.int32)
-        logz, gold = row_stats(y, w, t)
+        t[-1] = V - 1  # a target in the last real column
+        live = None if which == "all" else _step_live_rows(R, dev, gen)
+        logz, gold = row_stats(y, w, t, live=live)
         torch.cuda.synchronize()
-        rlogz, rgold = row_stats_reference(y, w, t)
-        err = max((logz - rlogz).abs().max().item(), (gold - rgold).abs().max().item())
-        torch.testing.assert_close(logz, rlogz, rtol=CE_LOGZ_RTOL, atol=0)
-        torch.testing.assert_close(gold, rgold, rtol=0, atol=CE_GOLD_ATOL)
-        ms = _cuda_time_ms(lambda: row_stats(y, w, t), 5)
-        plain_ms = _cuda_time_ms(lambda: row_stats_reference(y, w, t), 3, 1)
-        tflops = 2.0 * R * D * V / ms / 1e9
-        print(f"flash_ce_fwd R={R} D={D} V={V} (y {fwd_plan(D)}): max_abs_err {err:.3e}  "
-              f"kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s; bound "
-              f"{ce_fwd_bound_ms(R, D, V)[0]:.3f} ms)  plain {plain_ms:.3f} ms")
-        rows.append({"R": R, "V": V, "D": D, "err": err, "ms": ms, "plain_ms": plain_ms})
+        rlogz, rgold = row_stats_reference(y, w, t, live=live)
+        on = torch.ones(R, dtype=torch.bool, device=dev) if live is None else live
+        err = max((logz[on] - rlogz[on]).abs().max().item(),
+                  (gold[on] - rgold[on]).abs().max().item())
+        torch.testing.assert_close(logz[on], rlogz[on], rtol=CE_LOGZ_RTOL, atol=0)
+        torch.testing.assert_close(gold[on], rgold[on], rtol=0, atol=CE_GOLD_ATOL)
+        if not (torch.all(logz[~on] == math.inf) and torch.all(gold[~on] == 0)):
+            raise AssertionError(f"flash_ce_fwd R={R} D={D}: a dead row is not +inf / 0")
+        splits = fwd_splits(R, D, V, n_sm)
+        if splits > 1:  # the combine pass folds the slices in a fixed order
+            again = row_stats(y, w, t, live=live)
+            if not (torch.equal(again[0], logz) and torch.equal(again[1], gold)):
+                raise AssertionError(f"flash_ce_fwd R={R} D={D}: two runs differ")
+        ms = _cuda_time_ms(lambda: row_stats(y, w, t, live=live), 5)
+        plain_ms = _cuda_time_ms(lambda: row_stats_reference(y, w, t, live=live), 3, 1)
+        matmul_ms = None
+        if R == 16384 and which == "all":
+            matmul_ms = _cuda_time_ms(lambda: torch.matmul(y, w.t()), 5)
+        n_live = int(on.sum().item())
+        tflops = 2.0 * n_live * D * V / ms / 1e9
+        bound = ce_fwd_bound_ms(n_live, D, V)[0]
+        print(f"flash_ce_fwd R={R} D={D} V={V}, {n_live} rows live (y {fwd_plan(D)}, S={splits}"
+              f"{', two runs bitwise equal' if splits > 1 else ''}): max_abs_err {err:.3e}  "
+              f"kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s over the live rows; bound {bound:.3f} "
+              f"ms, {bound / ms:.0%})  plain {plain_ms:.3f} ms"
+              + (f"  cuBLAS y @ W^T alone {matmul_ms:.3f} ms" if matmul_ms else ""))
+        rows.append({"R": R, "V": V, "D": D, "live_rows": n_live, "err": err, "ms": ms,
+                     "plain_ms": plain_ms, "matmul_ms": matmul_ms, "splits": splits})
         del y, w
     return rows
 
@@ -742,11 +787,7 @@ def ce_bwd_phase(dev):
         y = torch.randn((R, D), device=dev, generator=gen).to(torch.bfloat16)
         w = (torch.randn((V, D), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
         t = torch.randint(0, V, (R,), device=dev, generator=gen, dtype=torch.int32)
-        # each 2048-row sample holds one block of this head's rows, as the
-        # decoder's modality blocks lay them out; the weight is 1 / count
-        start = torch.randint(0, 1024, (R // 2048 + 1,), device=dev, generator=gen)
-        pos = torch.arange(R, device=dev)
-        live = ((pos % 2048) >= start[pos // 2048]) & ((pos % 2048) < start[pos // 2048] + 1024)
+        live = _step_live_rows(R, dev, gen)  # the weight is 1 / count
         wc = live.float() / live.sum().clamp(min=1)
         logz, _ = row_stats_reference(y, w, t)
         dy, dw = ce_bwd(y, w, t, wc, logz)
@@ -1120,6 +1161,27 @@ def step_check(model, batch, expected, swaps, n_tokens=2048):
     model.zero_grad(set_to_none=True)
 
 
+def _head_live_shares(model, batch, n_tokens=2048):
+    """[(V, share of live rows)] of each flash-CE call in one forward of the
+    model on `batch` (the rows of weight 0 are the other modalities')."""
+    import egom2p_torch.ops.flash_ce as fce
+    shares, real = [], fce.row_stats
+
+    def record(y, w, targets, live=None):
+        shares.append((w.shape[0], 1.0 if live is None else live.float().mean().item()))
+        return real(y, w, targets, live=live)
+
+    record.launches = real.launches  # `real` counts its launch on the module's row_stats
+    fce.row_stats = record
+    try:
+        with torch.no_grad():
+            model(batch, n_tokens, n_tokens, "mod")
+    finally:
+        fce.row_stats = real
+        real.launches = record.launches
+    return shares
+
+
 def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_kind):
     """TRAIN_STEPS steps of the port's trainer at cfgs/egom2p/main_mod4.yaml's
     settings, checked; then a profiled step and the one-batch step check.
@@ -1193,6 +1255,9 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     it.close()
     profile_step(model, out["optimizer"], data, step_ms)
     del out
+    shares = _head_live_shares(model, data)
+    print(f"{label}: live rows of each flash-CE head on one batch: "
+          + (", ".join(f"V={v} {share:.1%}" for v, share in shares) or "no flash-CE head"))
     step_check(model, data, expected, _plain_versions(plain_kind))
     del model, data
     torch.cuda.empty_cache()
@@ -1271,7 +1336,7 @@ def large_train_phase(dev):
 # at head_dim 80 (the stock route) the safemax L2 forward and the safemax
 # fused backward, each with and without segments
 WGMMA64_INSTANCES = {"flash64_fwd_kernel": 6 + 2, "flash64_dq_kernel": 4,
-                     "flash64_dkv_kernel": 8 + 2}
+                     "flash64_dkv_kernel": 8 + 2, "flash_ce_fwd_kernel": 1}
 
 
 def _demangled(names):
@@ -1294,8 +1359,9 @@ def _demangled(names):
 def check_build(ptxas_log: str, library) -> None:
     """Prints ptxas's registers, spills and remarks per kernel instance, and
     the count of wgmma (HGMMA) instructions in the SASS of the attention
-    kernels (forward, dq, dk/dv and fused, at head_dim 64 and 80).  Raises if
-    an instance of these spills, if ptxas says it serialises its wgmma
+    kernels (forward, dq, dk/dv and fused, at head_dim 64 and 80) and the CE
+    forward.  Raises if an instance of these spills, if ptxas says it
+    serialises its wgmma
     (C7512, C7515, C7520: "Potential Performance Loss"), or if its SASS holds
     no HGMMA."""
     entry, faults, remarks, per_entry = "", [], set(), {}
@@ -1331,7 +1397,8 @@ def check_build(ptxas_log: str, library) -> None:
         print(f"  SASS: HGMMA (wgmma) instructions per instance: flash64_fwd_kernel "
               f"{by_kernel('flash64_fwd_kernel')}, flash64_dq_kernel "
               f"{by_kernel('flash64_dq_kernel')}, flash64_dkv_kernel "
-              f"{by_kernel('flash64_dkv_kernel')}, flash_ce_bwd_kernel "
+              f"{by_kernel('flash64_dkv_kernel')}, flash_ce_fwd_kernel "
+              f"{by_kernel('flash_ce_fwd_kernel')}, flash_ce_bwd_kernel "
               f"{by_kernel('flash_ce_bwd_kernel')}")
         for key, want in WGMMA64_INSTANCES.items():
             if len(by_kernel(key)) != want:
@@ -1423,9 +1490,13 @@ def main() -> int:
         fused_launches["dqkv"], max(r["err"] for r in fused_rows),
         fused_rows[0]["ms"], fused_rows[0]["plain_ms"],
         attention_bound_ms(5, B, HEADS, 2048, 2048, 64, 4, 4), step_lib["bwd"])
+    # ce_rows[0]: R = 16384, D = 768, every row live; no single PyTorch call
+    # computes logsumexp and gold without the logits: matmul_ms is cuBLAS's
+    # y @ W^T alone, which writes them
     add("flash_ce_fwd", "flash_ce_fwd.cu", "flash_ce.py:76", train_launches["ce_fwd"],
         max(r["err"] for r in ce_rows), ce_rows[0]["ms"], ce_rows[0]["plain_ms"],
-        ce_fwd_bound_ms(ce_rows[0]["R"], 768, ce_rows[0]["V"]), None)
+        ce_fwd_bound_ms(ce_rows[0]["R"], 768, ce_rows[0]["V"]), None,
+        matmul_ms=ce_rows[0]["matmul_ms"])
     # no single PyTorch call computes the CE backward: plain_ms is the chunked route
     add("flash_ce_bwd", "flash_ce_bwd.cu", "flash_ce.py:167", fused_launches["ce_bwd"],
         max(r["err"] for r in ce_bwd_rows), ce_bwd_rows[0]["ms"], ce_bwd_rows[0]["plain_ms"],

@@ -61,7 +61,8 @@
 //     one product per group on top of the group's two, and their ring loop
 //     waits for each stage's product before it refills the stage.
 // Which tiles and blocks of y hold a row of nonzero weight is found by a
-// small scan kernel first, into scratch that the caller provides.
+// small scan kernel first (csrc/ce_scan.cuh, shared with the forward), into
+// scratch that the caller provides.
 // Shared memory at D = 768: 96 KB (X) + 2 x 48 KB (Z) + 8 KB (dl) = 201 KB.
 // Registers (ptxas, CUDA 12.8): 184 at D = 256 and 512, no spills.  At
 // D = 768 three warpgroups start at 168 each; setmaxnreg moves 8 from each
@@ -69,6 +70,7 @@
 // spills 144 bytes, and ptxas reports that it serialises wgmma there for
 // want of registers (C7512): the open end of this design.
 
+#include "ce_scan.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -94,44 +96,6 @@ struct Args {
   const int *live_tiles, *n_live, *block_live;
   int n_rows, vocab, dim;
 };
-
-// Which rows of y count: one block.  live_tiles / n_live: the 32-row tiles
-// with a row of nonzero weight, compacted in order (the dW instance walks
-// only these); block_live: whether a 64-row block has one (a dy block
-// without one has nothing to do).
-__global__ void __launch_bounds__(1024)
-    ce_bwd_scan_kernel(const float* __restrict__ wc, int n_rows, int* __restrict__ live_tiles,
-                       int* __restrict__ n_live, int* __restrict__ block_live) {
-  __shared__ int warp_count[32];
-  __shared__ int base;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_t = (n_rows + kWalk - 1) / kWalk;
-  if (tid == 0) base = 0;
-  for (int t0 = 0; t0 < n_t; t0 += 1024) {  // 1024 tiles a round, one tile a thread
-    const int t = t0 + tid;
-    bool live = false;
-    if (t < n_t) {
-      const int lim = min(kWalk, n_rows - t * kWalk);
-      for (int i = 0; i < lim; ++i) live |= wc[t * kWalk + i] != 0.f;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, live);
-    // a 64-row block is two neighbouring tiles: lanes 2k and 2k + 1
-    if (t < n_t && (lane & 1) == 0) block_live[t >> 1] = (ballot >> lane) & 3u ? 1 : 0;
-    if (lane == 0) warp_count[warp] = __popc(ballot);
-    __syncthreads();
-    int before = base;
-    for (int w = 0; w < warp; ++w) before += warp_count[w];
-    if (live) live_tiles[before + __popc(ballot & ((1u << lane) - 1u))] = t;
-    __syncthreads();
-    if (tid == 0) {
-      int total = base;
-      for (int w = 0; w < 32; ++w) total += warp_count[w];
-      base = total;
-    }
-    __syncthreads();
-  }
-  if (tid == 0) *n_live = base;
-}
 
 // kBlocks: 64-column blocks of the group (of D when the owned tile is
 // resident)
@@ -612,7 +576,7 @@ extern "C" int egom2p_flash_ce_bwd(const void* y, const void* w, const void* tar
   a.n_live = n_live;
   a.block_live = block_live;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ce_bwd_scan_kernel<<<1, 1024, 0, st>>>(a.wc, n_rows, live_tiles, n_live, block_live);
+  egom2p::ce_live_scan_kernel<kWalk, float><<<1, 1024, 0, st>>>(a.wc, n_rows, live_tiles, n_live, block_live);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_group(st, owned, walked, a, group_dim));

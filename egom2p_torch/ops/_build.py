@@ -45,8 +45,9 @@ SIGNATURES = {
     # ... dq (fp32, zeroed), dk, dv
     "egom2p_flash64_train_dqkv": ([_c_void_p] * 11 + [_c_int] * 4 + [_c_ll] * 9
                                   + _ATTN_TAIL, _c_int),
-    # y, w, targets, logz, gold, R, V, D, y row stride, w row stride, stream
-    "egom2p_flash_ce_fwd": ([_c_void_p] * 5 + [_c_int] * 3 + [_c_ll] * 2
+    # y, w, targets, live, logz, gold, partial, scratch, R, V, D, vocab slices,
+    # y row stride, w row stride, stream
+    "egom2p_flash_ce_fwd": ([_c_void_p] * 8 + [_c_int] * 4 + [_c_ll] * 2
                             + [_c_void_p], _c_int),
     # y, w, targets, wc, logz, dy, dw, scratch, R, V, D, group columns, y row stride,
     # w row stride, stream

@@ -9,13 +9,18 @@ in y and w_mat; targets and wts get no gradient.
 Both kernels take every model dim the JAX kernels take, any multiple of
 128 (`takes_dim`, which the model's route to flash CE calls too).
 
-Forward: `row_stats(y, w, targets)` -> (logz, gold) per row.  On a CUDA
-tensor it launches the hand-written kernel csrc/flash_ce_fwd.cu (online
-logsumexp over vocab tiles; the logits never reach device memory) or raises;
-on a CPU tensor it runs `row_stats_reference`, the plain version.
-`row_stats.launches` counts the CUDA launches.  `fwd_plan(D)` says how the
-kernel holds y: a block's 128 rows resident in shared memory up to D = 768,
-streamed in 64-column slices beside W's above.
+Forward: `row_stats(y, w, targets, live=None)` -> (logz, gold) per row.  On
+a CUDA tensor it launches the hand-written kernel csrc/flash_ce_fwd.cu
+(wgmma on TMA-loaded chunks of y and W, an online logsumexp over vocab tiles;
+the logits never reach device memory) or raises; on a CPU tensor it runs
+`row_stats_reference`, the plain version.  `row_stats.launches` counts the
+CUDA calls.  `live` (R,) bool marks the rows that count: a dead row gets
+logz = +inf and gold = 0 on every route, and the kernel computes no 128-row
+block whose rows are all dead.  `fwd_plan(D)` says how the kernel holds y
+(streamed beside W in 64-column chunks, for every D), `fwd_splits(R, D, V,
+n_sm)` into how many vocab slices it cuts the vocab so that the (row block,
+slice) pairs fill the card; a combine pass folds the slices in a fixed
+order.
 
 Backward, by default: the chunked recompute of the JAX package's
 `_bwd_chunked`, in plain PyTorch (the JAX package runs it in XLA, not in
@@ -74,8 +79,14 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
 # the kernels' column slices: a model dim is a whole number of them (the
 # JAX kernels' 128-lane tiles)
 DIM_STEP = 128
-# the forward kernel keeps a block's 128 rows of y in shared memory up to here
-FWD_RESIDENT_MAX_DIM = 768
+# the forward kernel (csrc/flash_ce_fwd.cu kRows, kCols): 128 rows of y a
+# block and vocab tiles of 256 columns; vocab slices until the (row block,
+# slice) pairs fill the SMs FWD_WAVES times, each slice at least
+# FWD_MIN_SLICE_STEPS k-steps of 64 columns deep
+FWD_ROWS = 128
+FWD_COLS = 256
+FWD_WAVES = 8
+FWD_MIN_SLICE_STEPS = 24
 # the backward kernel: all of D up to 768 columns (three warpgroups, each 256
 # columns wide or, the last, 128) in one group; above, groups of 512, 256 or
 # 128 columns, each recomputing the logits from a streamed owned tile
@@ -96,11 +107,29 @@ def _need_dim(D: int) -> None:
 
 
 def fwd_plan(D: int) -> str:
-    """How the forward kernel holds a block's 128 rows of y: "resident" in
-    shared memory (D <= 768) or "streamed" in 64-column slices beside W's.
-    Raises where the kernel (and the JAX kernel) refuses D."""
+    """How the forward kernel holds y: "streamed", 128 rows x 64 columns
+    beside each 64-column chunk of W, for every D.  Raises where the kernel
+    (and the JAX kernel) refuses D."""
     _need_dim(D)
-    return "resident" if D <= FWD_RESIDENT_MAX_DIM else "streamed"
+    return "streamed"
+
+
+def fwd_splits(R: int, D: int, V: int, n_sm: int) -> int:
+    """The forward kernel's vocab slices S for R rows, model dim D, V vocab
+    columns on a card of n_sm SMs: 1 once the 128-row blocks alone fill the
+    SMs FWD_WAVES times; else enough slices for the (row block, slice) pairs
+    to do so, each slice a whole number of FWD_COLS-column tiles and at least
+    FWD_MIN_SLICE_STEPS k-steps (tiles x D / 64) deep where V allows, none
+    empty.  Slice s holds tiles s * ceil(tiles / S) onwards."""
+    _need_dim(D)
+    if R <= 0 or V <= 0 or n_sm <= 0:
+        raise ValueError(f"fwd_splits takes positive R, V and n_sm, got {R}, {V}, {n_sm}")
+    blocks = -(-R // FWD_ROWS)
+    tiles = -(-V // FWD_COLS)
+    want = -(-FWD_WAVES * n_sm // blocks)  # slices for the pairs to fill the card
+    min_tiles = -(-FWD_MIN_SLICE_STEPS // (D // 64))
+    per = min(tiles, max(min_tiles, -(-tiles // want)))  # tiles a slice
+    return -(-tiles // per)
 
 
 def bwd_column_plan(D: int) -> Tuple[Tuple[int, ...], ...]:
@@ -129,16 +158,24 @@ def _check(y, w, targets):
             raise ValueError(f"flash_ce {name} is on {t.device}, y on {y.device}")
 
 
-def row_stats(y: torch.Tensor, w: torch.Tensor, targets: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_live(y, live):
+    if live is not None and (tuple(live.shape) != (y.shape[0],) or live.device != y.device):
+        raise ValueError(f"live must be ({y.shape[0]},) on {y.device}, got "
+                         f"{tuple(live.shape)} on {live.device}")
+
+
+def row_stats(y: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+              live: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logz, gold), two fp32 (R,) vectors, of the logits y @ w.T; w has
-    y's dtype.  The kernel on CUDA, the plain version on the CPU."""
+    y's dtype.  live (R,) bool, or None for every row: a dead row gets logz
+    = +inf and gold = 0.  The kernel on CUDA, the plain version on the CPU."""
     _check(y, w, targets)
+    _check_live(y, live)
     if y.device.type == "cpu":
-        return row_stats_reference(y, w, targets)
+        return row_stats_reference(y, w, targets, live=live)
     if y.device.type != "cuda":
         raise RuntimeError(f"flash_ce runs on CUDA or CPU tensors, not {y.device}")
-    out = _launch(y, w, targets)
+    out = _launch(y, w, targets, live)
     row_stats.launches += 1
     return out
 
@@ -155,20 +192,29 @@ def _kernel_operand(name: str, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _launch(y, w, targets):
+def _launch(y, w, targets, live):
     from egom2p_torch.ops import _build
 
     R, D = y.shape
+    V = w.shape[0]
     fwd_plan(D)  # raises on a D the kernel does not take
     yb, wb = _kernel_operand("y", y), _kernel_operand("w", w)
     t = targets.to(torch.int32).contiguous()
+    mark = None if live is None else live.to(torch.uint8).contiguous()
+    splits = fwd_splits(R, D, V, torch.cuda.get_device_properties(y.device).multi_processor_count)
     logz = torch.empty(R, dtype=torch.float32, device=y.device)
     gold = torch.empty(R, dtype=torch.float32, device=y.device)
+    # the slices' partial (max, sum, gold) per row, and the scan's list of
+    # the 128-row blocks that hold a live row with their count
+    partial = torch.empty(3 * splits * R, dtype=torch.float32, device=y.device)
+    scratch = torch.empty(-(-R // FWD_ROWS) + 1, dtype=torch.int32, device=y.device)
     lib = _build.load()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = lib.egom2p_flash_ce_fwd(yb.data_ptr(), wb.data_ptr(), t.data_ptr(),
-                                     logz.data_ptr(), gold.data_ptr(), R, wb.shape[0], D,
+                                     None if mark is None else mark.data_ptr(),
+                                     logz.data_ptr(), gold.data_ptr(), partial.data_ptr(),
+                                     scratch.data_ptr(), R, V, D, splits,
                                      yb.stride(0), wb.stride(0), stream)
     if rc != 0:
         raise RuntimeError(f"flash_ce kernel launch failed with CUDA error {rc}")
@@ -230,17 +276,24 @@ def ce_bwd_reference(y, w, targets, wc, logz, chunk: int = REF_CHUNK):
 
 
 def row_stats_reference(y: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
-                        chunk: int = REF_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+                        chunk: int = REF_CHUNK, live: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: fp32 logits of y and w (both in
-    y's dtype), chunk rows at a time."""
+    y's dtype), chunk rows at a time; rows where `live` is False get logz =
+    +inf and gold = 0."""
     _check(y, w, targets)
+    _check_live(y, live)
     wt = w.to(y.dtype).t()
     logz, gold = [], []
     for r0 in range(0, y.shape[0], chunk):
         logits = matmul_f32(y[r0:r0 + chunk], wt)
         logz.append(torch.logsumexp(logits, dim=-1))
         gold.append(logits.gather(1, targets[r0:r0 + chunk].long()[:, None])[:, 0])
-    return torch.cat(logz), torch.cat(gold)
+    logz, gold = torch.cat(logz), torch.cat(gold)
+    if live is not None:
+        logz = torch.where(live, logz, torch.inf)
+        gold = torch.where(live, gold, 0.0)
+    return logz, gold
 
 
 def flash_ce_total(y: torch.Tensor, w_mat: torch.Tensor, targets: torch.Tensor,
@@ -256,10 +309,13 @@ def flash_ce_total(y: torch.Tensor, w_mat: torch.Tensor, targets: torch.Tensor,
 class _FlashCETotal(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, w_mat, targets, wts, chunk):
-        logz, gold = row_stats(y, w_mat.to(y.dtype), targets)
+        # rows of weight 0 are not computed: logz = +inf, gold = 0 there, so
+        # both backwards see p = exp(s - inf) = 0 and dl = 0 on them
+        live = wts != 0
+        logz, gold = row_stats(y, w_mat.to(y.dtype), targets, live=live)
         ctx.save_for_backward(y, w_mat, targets, wts, logz)
         ctx.chunk = chunk
-        return ((logz - gold) * wts).sum()
+        return (torch.where(live, logz - gold, 0.0) * wts).sum()
 
     @staticmethod
     def backward(ctx, g):

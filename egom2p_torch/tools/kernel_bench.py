@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the forward attention kernel, the attention backward kernels, the
-stock route's kernels at EgoM2P-large's heads, the CE kernels and the serving
+stock route's kernels at EgoM2P-large's heads, the CE kernels (the forward
+also at small R and with half the rows live) and the serving
 slice of one checkout of the port at the main paths' shapes, each kernel
 checked against its plain version first.
 
@@ -170,30 +171,57 @@ def bench_stock(dev, reps):
         del o, l2, ro, rl2, bargs, got, ref
 
 
+def _step_live_rows(R, dev, gen):
+    """One 64k head's rows in a training step: a run of 1024 live rows at a
+    random start in each 2048-row sample (about half the rows)."""
+    start = torch.randint(0, 1024, (R // 2048 + 1,), device=dev, generator=gen)
+    pos = torch.arange(R, device=dev)
+    return ((pos % 2048) >= start[pos // 2048]) & ((pos % 2048) < start[pos // 2048] + 1024)
+
+
+# CE forward cases (R, V, D, rows): chip_smoke.py's; "step" rows have half
+# the rows live, which a checkout whose row_stats takes `live` skips
+CE_FWD_CASES = ((16384, 64000, 768, "all"), (16384, 64000, 1024, "all"),
+                (16384, 64000, 2048, "all"), (16384, 64000, 768, "step"),
+                (1000, 64007, 768, "all"), (2048, 64000, 768, "all"),
+                (512, 64000, 1024, "all"))
+
+
 def bench_ce(dev, reps):
-    """The CE forward kernel at the training step's R = 16384, D = 768, V =
-    64000, and the CE backward kernel there and at D = 512."""
+    """The CE forward kernel at CE_FWD_CASES (errors over the live rows), and
+    the CE backward kernel at the training step's R = 16384, V = 64000, D =
+    768 and 512."""
+    import inspect
+
     from egom2p_torch.ops.flash_ce import (_bwd_chunked, ce_bwd, row_stats,
                                            row_stats_reference)
 
+    takes_live = "live" in inspect.signature(row_stats).parameters
+    for R, V, D, rows in CE_FWD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(R + D)
+        y = torch.randn((R, D), device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn((V, D), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        t = torch.randint(0, V, (R,), device=dev, generator=gen, dtype=torch.int32)
+        live = _step_live_rows(R, dev, gen) if rows == "step" else None
+        kw = {"live": live} if takes_live and live is not None else {}
+        klz, kgold = row_stats(y, w, t, **kw)
+        torch.cuda.synchronize()
+        logz, gold = row_stats_reference(y, w, t)
+        on = torch.ones(R, dtype=torch.bool, device=dev) if live is None else live
+        yield {"kernel": "flash_ce_fwd", "case": f"R {R} D {D} V {V}, {int(on.sum())} rows live",
+               "dead_rows_skipped": bool(kw),
+               "ms": cuda_ms(lambda: row_stats(y, w, t, **kw), reps, 1),
+               "max_abs_err": max((klz[on] - logz[on]).abs().max().item(),
+                                  (kgold[on] - gold[on]).abs().max().item())}
+        del y, w
     R, V = 16384, 64000
     for D in (768, 512):
         gen = torch.Generator(device=dev).manual_seed(R + 1)
         y = torch.randn((R, D), device=dev, generator=gen).to(torch.bfloat16)
         w = (torch.randn((V, D), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
         t = torch.randint(0, V, (R,), device=dev, generator=gen, dtype=torch.int32)
-        # each 2048-row sample holds one block of this head's rows (half the rows live)
-        start = torch.randint(0, 1024, (R // 2048 + 1,), device=dev, generator=gen)
-        pos = torch.arange(R, device=dev)
-        live = ((pos % 2048) >= start[pos // 2048]) & ((pos % 2048) < start[pos // 2048] + 1024)
-        logz, gold = row_stats_reference(y, w, t)
-        if D == 768:
-            klz, kgold = row_stats(y, w, t)
-            torch.cuda.synchronize()
-            yield {"kernel": "flash_ce_fwd", "case": f"R {R} D {D} V {V}",
-                   "ms": cuda_ms(lambda: row_stats(y, w, t), reps, 1),
-                   "max_abs_err": max((klz - logz).abs().max().item(),
-                                      (kgold - gold).abs().max().item())}
+        live = _step_live_rows(R, dev, gen)
+        logz, _ = row_stats_reference(y, w, t)
         for name, wc in (("half the rows live", live.float() / live.sum()),
                          ("all rows live", torch.full((R,), 1.0 / R, device=dev))):
             dy, dw = ce_bwd(y, w, t, wc, logz)

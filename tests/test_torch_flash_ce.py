@@ -94,6 +94,53 @@ def test_flash_ce_bf16_operands_match_jax():
     assert np.abs(wt.grad.numpy() - dw_ref).max() <= GRAD_TOL * np.abs(dw_ref).max()
 
 
+def test_row_stats_live_rows():
+    """`live`: a dead row's logz is +inf and its gold 0; a live row's values
+    do not depend on the others (chunks cut across the dead runs)."""
+    y, w, t, _ = _inputs(np.random.default_rng(4), 300, 128, 700)
+    args = (torch.from_numpy(y), torch.from_numpy(w), torch.from_numpy(t))
+    pos = torch.arange(300)
+    live = (pos < 40) | ((pos >= 170) & (pos < 171)) | (pos >= 260)
+    logz, gold = row_stats(*args, live=live)
+    assert torch.all(logz[~live] == float("inf")) and torch.all(gold[~live] == 0)
+    whole = row_stats_reference(*args, chunk=64)
+    assert torch.equal(logz[live], whole[0][live]) and torch.equal(gold[live], whole[1][live])
+    dead = row_stats_reference(*args, chunk=7, live=torch.zeros(300, dtype=torch.bool))
+    assert torch.all(dead[0] == float("inf")) and torch.all(dead[1] == 0)
+    with pytest.raises(ValueError):
+        row_stats(*args, live=live[:-1])
+
+
+@pytest.mark.parametrize("pattern", ["dead runs", "all dead", "one live row"])
+def test_flash_ce_total_with_dead_rows_matches_jax(pattern):
+    """flash_ce_total where runs of rows weigh 0, as the decoder lays out the
+    other modalities' rows (the port computes no logz for them), against
+    the JAX package's flash_ce_total: total, dy and dW."""
+    R, D, V = 300, 128, 700
+    y, w, t, _ = _inputs(np.random.default_rng(5), R, D, V)
+    pos = np.arange(R)
+    wts = {"dead runs": ((pos // 100) % 2 == 0) * 0.5 + (pos == 150) * 2.0,
+           "all dead": np.zeros(R), "one live row": (pos == 233) * 1.0}[pattern]
+    wts = wts.astype(np.float32)
+    yt, wt = torch.from_numpy(y).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    total = flash_ce_total(yt, wt, torch.from_numpy(t), torch.from_numpy(wts), chunk=64)
+    total.backward()
+
+    def jtotal(a, b):
+        return jax_fce.flash_ce_total(a, b, jnp.asarray(t), jnp.asarray(wts), chunk=64,
+                                      interpret=True)
+
+    j_total, (j_dy, j_dw) = jax.value_and_grad(jtotal, argnums=(0, 1))(jnp.asarray(y),
+                                                                      jnp.asarray(w))
+    assert np.isfinite(total.item())
+    np.testing.assert_allclose(total.item(), float(j_total), rtol=TOTAL_RTOL, atol=0)
+    for name, g, r in (("dy", yt.grad, j_dy), ("dW", wt.grad, j_dw)):
+        r = np.asarray(r)
+        assert torch.isfinite(g).all(), name
+        assert np.abs(g.numpy() - r).max() <= GRAD_TOL * np.abs(r).max(), name
+    assert torch.count_nonzero(yt.grad[torch.from_numpy(wts) == 0]) == 0
+
+
 def test_row_stats_reference_chunks_and_counts():
     """Chunking does not change the result, and CPU calls count no launch."""
     y, w, t, _ = _inputs(np.random.default_rng(3), 100, 128, 300)

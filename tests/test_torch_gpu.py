@@ -266,14 +266,24 @@ def test_flash64_train_kernels_reject_bad_layouts(cuda):
                                                  device=cuda)[..., 1:], l2, l2)
 
 
-@pytest.mark.parametrize("R,D,V", [(16384, 768, 64000), (1000, 768, 64007), (77, 384, 200),
-                                   (1000, 1024, 64007), (300, 2048, 5000), (129, 896, 700)])
-def test_flash_ce_kernel_matches_plain(cuda, R, D, V):
-    from egom2p_torch.ops.flash_ce import row_stats, row_stats_reference
-    gen = torch.Generator(device=cuda).manual_seed(0)
+def _ce_inputs(cuda, R, D, V, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     y = torch.randn((R, D), device=cuda, generator=gen).to(torch.bfloat16)
     w = (torch.randn((V, D), device=cuda, generator=gen) * 0.02).to(torch.bfloat16)
     t = torch.randint(0, V, (R,), device=cuda, generator=gen, dtype=torch.int32)
+    t[-1] = V - 1  # a target in the last real column
+    return y, w, t
+
+
+# the split instance's sizes (R = 1 ... 2048: many vocab slices), the
+# step's R = 16384, vocabularies the 256-column tiles do not divide
+@pytest.mark.parametrize("R,D,V", [(16384, 768, 64000), (1000, 768, 64007), (77, 384, 200),
+                                   (1000, 1024, 64007), (300, 2048, 5000), (129, 896, 700),
+                                   (1, 768, 64007), (127, 768, 700), (129, 1024, 64007),
+                                   (512, 1024, 64000), (2048, 768, 64000), (2048, 128, 200)])
+def test_flash_ce_kernel_matches_plain(cuda, R, D, V):
+    from egom2p_torch.ops.flash_ce import row_stats, row_stats_reference
+    y, w, t = _ce_inputs(cuda, R, D, V)
     before = row_stats.launches
     logz, gold = row_stats(y, w, t)
     torch.cuda.synchronize()
@@ -281,6 +291,74 @@ def test_flash_ce_kernel_matches_plain(cuda, R, D, V):
     rlogz, rgold = row_stats_reference(y, w, t)
     torch.testing.assert_close(logz, rlogz, rtol=1e-5, atol=0)
     torch.testing.assert_close(gold, rgold, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("R,D,V,pattern", [
+    (300, 768, 5000, "all dead"), (300, 768, 5000, "all live"),
+    (1000, 768, 64007, "dead run across blocks"),  # rows 100 .. 399: blocks 0-3
+    (1000, 1024, 700, "one live row"), (16384, 768, 64000, "step")])
+def test_flash_ce_kernel_live_rows(cuda, R, D, V, pattern):
+    """The `live` contract: live rows as the plain version gives them, dead
+    rows exactly +inf / 0, whether their 128-row block is computed or
+    skipped."""
+    from egom2p_torch.ops.flash_ce import row_stats, row_stats_reference
+    y, w, t = _ce_inputs(cuda, R, D, V, seed=3)
+    pos = torch.arange(R, device=cuda)
+    live = {"all dead": pos < 0, "all live": pos >= 0,
+            "dead run across blocks": (pos < 100) | (pos >= 400),
+            "one live row": pos == 517,
+            "step": ((pos % 2048) >= 300) & ((pos % 2048) < 1324)}[pattern]
+    logz, gold = row_stats(y, w, t, live=live)
+    torch.cuda.synchronize()
+    rlogz, rgold = row_stats_reference(y, w, t, live=live)
+    assert torch.all(logz[~live] == float("inf")) and torch.all(gold[~live] == 0)
+    torch.testing.assert_close(logz[live], rlogz[live], rtol=1e-5, atol=0)
+    torch.testing.assert_close(gold[live], rgold[live], rtol=0, atol=1e-4)
+    whole, _ = row_stats(y, w, t)  # a live row's value does not depend on the others
+    assert torch.equal(logz[live], whole[live])
+
+
+@pytest.mark.parametrize("R,D", [(1000, 768), (512, 1024), (2048, 768)])
+def test_flash_ce_split_instance_is_deterministic(cuda, R, D):
+    """The vocab split folds its slices in a fixed order: equal bits."""
+    from egom2p_torch.ops.flash_ce import fwd_splits, row_stats
+    y, w, t = _ce_inputs(cuda, R, D, 64007, seed=4)
+    assert fwd_splits(R, D, 64007, torch.cuda.get_device_properties(cuda).multi_processor_count) > 1
+    first = row_stats(y, w, t)
+    for _ in range(2):
+        again = row_stats(y, w, t)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("pallas_bwd", ["0", "1"])
+def test_flash_ce_total_skips_dead_rows_through_both_backwards(cuda, monkeypatch, pallas_bwd):
+    """flash_ce_total with rows of weight 0 (not computed in the forward):
+    the same total and gradients as with every row computed, through the
+    chunked backward and the kernel backward, all finite."""
+    import egom2p_torch.ops.flash_ce as fce
+    monkeypatch.setenv("EGOM2P_CE_PALLAS_BWD", pallas_bwd)
+    y, w, t = _ce_inputs(cuda, 4096, 768, 64000, seed=5)
+    w = w.float()
+    wts = ((torch.arange(4096, device=cuda) % 2048) < 700).float() * 0.3
+    real = fce.row_stats
+    results = []
+    for skip in (True, False):
+        if not skip:  # every row computed, as before rows could be skipped
+            def all_rows(y_, w_, t_, live=None):
+                return real(y_, w_, t_)
+
+            all_rows.launches = 0  # `real` counts its launch on the module's row_stats
+            monkeypatch.setattr(fce, "row_stats", all_rows)
+        yr, wr = y.clone().requires_grad_(), w.clone().requires_grad_()
+        total = fce.flash_ce_total(yr, wr, t, wts, chunk=1024)
+        total.backward()
+        results.append((total, yr.grad, wr.grad))
+    (tk, dyk, dwk), (tp, dyp, dwp) = results
+    assert all(torch.isfinite(x).all() for x in (tk, dyk, dwk))
+    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=0)
+    assert (dyk.float() - dyp.float()).abs().max() <= 1e-2 * dyp.float().abs().max()
+    assert (dwk - dwp).abs().max() <= 1e-3 * dwp.abs().max()
+    assert torch.count_nonzero(dyk[wts == 0]) == 0
 
 
 def test_flash_ce_total_autograd_on_the_card(cuda):

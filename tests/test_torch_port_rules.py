@@ -2,6 +2,7 @@
 name, what its kernel wrappers refuse before a launch, and the bounds that
 chip_smoke.py prints beside each kernel's time.  No CUDA device is needed.
 """
+import itertools
 import pathlib
 import re
 import sys
@@ -70,6 +71,59 @@ def test_backward_kernel_sources_are_split_by_head_dim():
     assert not (csrc / "flash80_bwd.cu").exists()
     launcher = (REPO / "egom2p_torch" / "ops" / "flash64_train.py").read_text()
     assert "flash80" not in launcher and "if hd == 80 else" not in launcher
+
+
+def test_ce_forward_kernel_is_wgmma_and_shares_the_live_row_scan():
+    """The CE forward issues its products as wgmma on TMA-loaded tiles (no
+    mma.sync and no cp.async left), and the forward and the backward find
+    their live rows with one scan kernel from a shared header."""
+    csrc = REPO / "egom2p_torch" / "csrc"
+    fwd = (csrc / "flash_ce_fwd.cu").read_text()
+    for name in ("wgmma_ss", "tma_load_2d", "mbar_wait", "flash_ce_combine_kernel",
+                 "ce_live_scan_kernel<kRows, uint8_t>"):
+        assert name in fwd, name
+    assert "mma_16816" not in fwd and "cp_async16" not in fwd and "ldmatrix" not in fwd
+    bwd = (csrc / "flash_ce_bwd.cu").read_text()
+    assert "ce_live_scan_kernel<kWalk, float>" in bwd and "__global__" not in (
+        bwd.split("ce_live_scan_kernel")[0].split("#include")[0])
+    scan = (csrc / "ce_scan.cuh").read_text()
+    assert "ce_live_scan_kernel(" in scan
+    assert sum("ce_live_scan_kernel(" in (csrc / f).read_text()
+               for f in ("flash_ce_fwd.cu", "flash_ce_bwd.cu", "ce_scan.cuh")) == 1
+
+
+@pytest.mark.parametrize("R", [1, 127, 129, 512, 1000, 2048, 16384, 65536, 200000])
+def test_ce_forward_split_plan(R):
+    """The forward kernel's vocab slices: S >= 1, S slices of
+    ceil(tiles / S) whole 256-column tiles cover V with none empty, each at
+    least FWD_MIN_SLICE_STEPS k-steps deep where V allows, and S = 1 once
+    the 128-row blocks alone fill the card FWD_WAVES times."""
+    for D, V, n_sm in itertools.product((128, 768, 1024, 2048), (200, 700, 64000, 64007),
+                                        (1, 8, 114, 132)):
+        S = fce.fwd_splits(R, D, V, n_sm)
+        tiles = -(-V // fce.FWD_COLS)
+        per = -(-tiles // S)
+        min_tiles = -(-fce.FWD_MIN_SLICE_STEPS // (D // 64))
+        assert 1 <= S <= tiles
+        assert per * S >= tiles and per * (S - 1) < tiles  # covered, the last slice not empty
+        assert per >= min(min_tiles, tiles)  # deep enough where V allows
+        blocks = -(-R // fce.FWD_ROWS)
+        if blocks >= fce.FWD_WAVES * n_sm:
+            assert S == 1
+        # the shortest slices that fill the card: one tile less a slice would
+        # give more pairs than it needs, or be too shallow
+        assert (per in (min_tiles, tiles)
+                or blocks * -(-tiles // (per - 1)) > fce.FWD_WAVES * n_sm)
+
+
+def test_ce_forward_split_plan_refuses_what_the_kernel_refuses():
+    for bad in ((0, 768, 64000, 132), (16, 768, 0, 132), (16, 768, 64000, 0)):
+        with pytest.raises(ValueError):
+            fce.fwd_splits(*bad)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fce.fwd_splits(16, 1020, 64000, 132)
+    assert fce.fwd_splits(16384, 768, 64000, 132) == 9
+    assert fce.fwd_splits(1000, 768, 64007, 132) == 126
 
 
 def test_tensor_map_helpers_are_shared():
@@ -152,7 +206,7 @@ def test_ce_backward_column_plan(D):
     assert (len(plan) == 1) == (D <= 768)
     assert width <= 768 if D <= 768 else width in (512, 256, 128)
     assert all(w == 256 for w in plan[0][:-1]) and plan[0][-1] in (128, 256)
-    assert fce.fwd_plan(D) == ("resident" if D <= 768 else "streamed")
+    assert fce.fwd_plan(D) == "streamed"
 
 
 def test_ce_route_and_launchers_agree_on_every_registry_dim(monkeypatch):
