@@ -23,7 +23,22 @@
    layers x 2 attentions x 2 branches, times 3 steps) and, on a B=1 input,
    the encoder context against the same model with plain attention; then
    greedy rgb2depth on the served batch with the generation head's product
-   on TF32 and on full fp32: no token may differ.
+   on TF32 and on full fp32: no token may differ.  The tokenizer computes as
+   the JAX package's default (bf16 input and Haar patch, fp32 network): the
+   batch is tokenized with the encoder's convs on TF32 and in exact fp32,
+   with both times and the tokens that differ (TF32 is allowed only where
+   none does).
+3b. Eval phase, at full width: the served batch's depth tokens through the
+   Cosmos decoder (fp32 (8, 17, 256, 256, 3), finite, then uint8 gray
+   frames), its time on TF32 and in exact fp32 and the pixels that move
+   (TF32 allowed only where none moves by more than a level), peak memory
+   and the decoder's parameters; the smoke EgoM2P-base and Cosmos written
+   to reference-format .pth files and loaded back through cli/eval_common
+   without --smoke (greedy rgb2depth bitwise equal to the in-memory
+   model's); then rgb2depth and depth2rgb on those files, one clip at a
+   time (the entry points' per-clip work and the array half of the decode;
+   the card's machine has no libav for the mp4 legs): per-clip tokenize,
+   generate and decode seconds and 216 flash64 launches per generate.
 4. Training kernel phase at the pretraining step's shapes (B=8, 12 heads,
    N = M = 2048, q/k/v as views of fused projections): the flash64_train
    forward, dq and dk/dv kernels against their plain versions with key
@@ -148,6 +163,14 @@ SM_CLOCK_MHZ = 1980.0          # H100 SXM boost clock; main() takes the card's c
 # zero, the plain version leaves 5e-7), the relative tolerance needs a floor
 RAGGED_GRAD_ATOL = 1e-5
 RAGGED_SELF = (1, 63, 64, 65, 127, 128, 129, 1707, 2000)
+# the eval phase: uint8 pixels TF32 may move against exact fp32 in the
+# decode, and the clips each entry point takes (B = 1 per file, as the
+# entry points run).  The card's machine has no libav (no libavformat for
+# pkg-config, no headers), so the eval phase runs the entry points' per-clip
+# work and the array half of the decode: the mp4 legs are held by the CPU
+# tests (tests/test_torch_eval.py)
+DECODE_PIXEL_LEVELS = 1
+EVAL_FILES = 2
 RAGGED_CROSS = ((1, 129), (129, 1), (63, 2000), (2000, 65), (127, 128), (128, 127), (65, 1707))
 
 
@@ -417,7 +440,6 @@ def context_check(model, tokens):
 def slice_phase(dev):
     from egom2p_torch.cli import eval_common
     from egom2p_torch.generate.sampler import GenerationSampler
-    from egom2p_torch.generate.schedules import build_chained_generation_schedules
     from egom2p_torch.ops.flash64 import flash64_attention
 
     args = argparse.Namespace(model="egom2p_base_12e_12d_swiglu_nobias", seed=0, smoke=True)
@@ -429,12 +451,7 @@ def slice_phase(dev):
     print(f"model + tokenizer init: {time.perf_counter() - t0:.2f} s, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M + "
           f"{sum(p.numel() for p in tokenizer.net.parameters()) / 1e6:.1f}M params")
-    schedule = build_chained_generation_schedules(
-        cond_domains=["tok_rgb"], target_domains=["tok_depth"],
-        tokens_per_target=[5120], autoregression_schemes=["roar"],
-        decoding_steps=[3], token_decoding_schedules=["linear"],
-        temps=[0.01], temp_schedules=["constant"], cfg_scales=[2.0],
-        cfg_schedules=["constant"], cfg_grow_conditioning=True)
+    schedule = eval_common.video_schedule("tok_rgb", "tok_depth")
     # uint8 clips staged on the device ahead of the timed region, as the bench does
     clips = np.random.default_rng(0).integers(0, 256, (B, 16, 256, 256, 3), dtype=np.uint8)
     video = torch.from_numpy(clips).to(dev)
@@ -502,21 +519,20 @@ def slice_phase(dev):
     if safemax_launches != LAUNCHES_PER_GENERATE or not out["tok_depth"]["target_mask"].all():
         raise AssertionError(f"safemax run: {safemax_launches} launches")
     head_check(model, sampler, tokens)
-    return launches, safemax_launches, B / (tok_ms + gen_ms) * 1e3
+    encode_tf32_check(tokenizer, video)
+    served = dict(model=model, sampler=sampler, tokenizer=tokenizer, video=video,
+                  depth=out["tok_depth"]["tensor"])
+    return launches, safemax_launches, B / (tok_ms + gen_ms) * 1e3, served
 
 
 def head_check(model, sampler, tokens):
     """Greedy rgb2depth on the served batch twice: with the generation head's
     product on TF32 (forward_logits: bf16 values, exact in TF32) and with the
     full fp32 product.  The tokens must be equal."""
-    from egom2p_torch.generate.schedules import build_chained_generation_schedules
+    from egom2p_torch.cli.eval_common import video_schedule
     from egom2p_torch.models import embeddings
 
-    schedule = build_chained_generation_schedules(
-        cond_domains=["tok_rgb"], target_domains=["tok_depth"], tokens_per_target=[5120],
-        autoregression_schemes=["roar"], decoding_steps=[3], token_decoding_schedules=["linear"],
-        temps=[0.0], temp_schedules=["constant"], cfg_scales=[2.0], cfg_schedules=["constant"],
-        cfg_grow_conditioning=True)
+    schedule = video_schedule("tok_rgb", "tok_depth", temperature=0.0)
     tf32 = sampler.generate(_rgb2depth_sample(tokens), schedule, seed=5)["tok_depth"]["tensor"]
     real = embeddings.matmul_f32
     embeddings.matmul_f32 = lambda a, b, bf16_values=None: torch.matmul(a.float(), b.float())
@@ -529,6 +545,165 @@ def head_check(model, sampler, tokens):
           f"rgb2depth on the served batch: {unequal} unequal tokens of {np.asarray(fp32).size}")
     if unequal:
         raise AssertionError(f"the TF32 generation head changed {unequal} greedy tokens")
+
+
+def _median_ms(fn, reps: int = 3):
+    """fn() once to warm up (cuDNN's algorithm choice, the allocator), then
+    the median wall time of `reps` calls between device synchronizations,
+    and the last call's result."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def encode_tf32_check(tokenizer, video):
+    """The served batch tokenized with the encoder's fp32 convs and products
+    on TF32 and in exact fp32.  TF32 may be the tokenizer's setting
+    (video_api.ENCODE_TF32) only if no token differs."""
+    from egom2p_torch.tokenizers.cosmos import video_api
+
+    ms, tokens = {}, {}
+    for tf32 in (True, False):
+        tokenizer.encode_tf32 = tf32
+        ms[tf32], tokens[tf32] = _median_ms(lambda: tokenizer.forward(video, device_out=True))
+    tokenizer.encode_tf32 = video_api.ENCODE_TF32
+    unequal = int((tokens[True] != tokens[False]).sum())
+    print(f"tokenizer encode, B={B}: TF32 {ms[True]:.1f} ms, exact fp32 {ms[False]:.1f} ms; "
+          f"{unequal} of {tokens[False].numel()} tokens differ; the encode runs "
+          f"{'on TF32' if video_api.ENCODE_TF32 else 'in exact fp32'}")
+    if video_api.ENCODE_TF32 and unequal:
+        raise AssertionError(f"TF32 changed {unequal} tokens: the encode must run in exact fp32")
+
+
+def decode_phase(tokenizer, depth):
+    """The served batch's depth tokens through the Cosmos decoder: fp32
+    video (B, 17, 256, 256, 3), finite; then the array half of the eval
+    decode, uint8 (B, 16, 256, 256, 3) in gray.  Decoded with the decoder's
+    fp32 products on TF32 and in exact fp32: TF32 may be the tokenizer's
+    setting (video_api.DECODE_TF32) only if no uint8 pixel moves by more
+    than DECODE_PIXEL_LEVELS."""
+    from egom2p_torch.generate.decode import decode_video_tokens
+    from egom2p_torch.tokenizers.cosmos import video_api
+
+    net = tokenizer.net
+    idx = torch.as_tensor(depth).to(tokenizer.device).reshape(B, 5, 32, 32)
+    ms, pixels = {}, {}
+    for tf32 in (True, False):
+        tokenizer.decode_tf32 = tf32
+        ms[tf32], rec = _median_ms(lambda: tokenizer.decode(idx))
+        pixels[tf32] = video_api.tensor2uint8(rec)
+    tokenizer.decode_tf32 = video_api.DECODE_TF32
+    moved = int(((pixels[True].int() - pixels[False].int()).abs() > DECODE_PIXEL_LEVELS).sum())
+    torch.cuda.reset_peak_memory_stats()
+    rec = tokenizer.decode(idx)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if tuple(rec.shape) != (B, 17, 256, 256, 3) or rec.dtype != torch.float32:
+        raise AssertionError(f"decoded {tuple(rec.shape)} {rec.dtype}")
+    if not torch.isfinite(rec).all():
+        raise AssertionError("non-finite decoded video")
+    n_dec = sum(p.numel() for m in (net.post_quant_conv, net.decoder) for p in m.parameters())
+    decode_ms = ms[video_api.DECODE_TF32]
+    print(f"cosmos decode, B={B} x 5x32x32 tokens -> {tuple(rec.shape)} fp32: TF32 "
+          f"{ms[True]:.1f} ms, exact fp32 {ms[False]:.1f} ms; {moved} of {pixels[True].numel()} "
+          f"uint8 values move by more than {DECODE_PIXEL_LEVELS}; the decode runs "
+          f"{'on TF32' if video_api.DECODE_TF32 else 'in exact fp32'} ({decode_ms:.1f} ms); "
+          f"peak memory {peak_gib:.2f} GiB; decoder {n_dec / 1e6:.1f}M params")
+    if video_api.DECODE_TF32 and moved:
+        raise AssertionError(f"TF32 moved {moved} pixels: the decode must run in exact fp32")
+    frames = decode_video_tokens(depth, tokenizer, "tok_depth")
+    if frames.shape != (B, 16, 256, 256, 3) or frames.dtype != np.uint8:
+        raise AssertionError(f"decoded frames {frames.shape} {frames.dtype}")
+    if not ((frames[..., :1] == frames).all() and frames.std() > 0):
+        raise AssertionError("decoded depth is not gray, or flat")
+    return decode_ms
+
+
+def _reference_checkpoints(model, tokenizer, directory):
+    """The smoke EgoM2P-base in the reference's .pth layout (the state dict
+    with its persistent pos_emb buffers, the argparse namespace naming the
+    model and domains) and the Cosmos network's state dict."""
+    from egom2p_torch.cli.eval_common import MODS4
+
+    sd = dict(model.state_dict())
+    sd.update({k: v for k, v in model.named_buffers() if k.endswith(".pos_emb")})
+    ckpt = os.path.join(directory, "egom2p-base.pth")
+    torch.save({"model": sd, "args": argparse.Namespace(
+        model=BASE_MODEL, in_domains=list(MODS4), out_domains=list(MODS4))}, ckpt)
+    cosmos = os.path.join(directory, "cosmos-dv4x8x8.pth")
+    torch.save(tokenizer.net.state_dict(), cosmos)
+    return ckpt, cosmos
+
+
+def eval_phase(dev, served):
+    """The eval path at full width on checkpoint files: decode of the served
+    batch, the reference-format checkpoints written and loaded back through
+    cli/eval_common without --smoke (greedy rgb2depth bitwise equal to the
+    in-memory model's), then both entry points' work per clip on them."""
+    from egom2p_torch.cli import eval_common
+    from egom2p_torch.generate.decode import decode_video_tokens
+    from egom2p_torch.ops.flash64 import flash64_attention
+
+    t_phase = time.perf_counter()
+    decode_ms = decode_phase(served["tokenizer"], served["depth"])
+    out = {"decode_ms": decode_ms, "launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt, cosmos = _reference_checkpoints(served["model"], served["tokenizer"], tmp)
+        print(f"reference-format checkpoints written: {time.perf_counter() - t0:.1f} s, "
+              f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB + "
+              f"{os.path.getsize(cosmos) / 2 ** 20:.0f} MiB")
+        argv = ["--ckpt", ckpt, "--video-tok-ckpt", cosmos, "--device", "cuda"]
+        t0 = time.perf_counter()
+        sampler, tokenizer, _ = eval_common.load_task(
+            "rgb2depth", eval_common.build_argparser("rgb2depth").parse_args(argv))
+        torch.cuda.synchronize()
+        print(f"loaded back through eval_common (no --smoke): {time.perf_counter() - t0:.1f} s")
+        greedy = eval_common.video_schedule("tok_rgb", "tok_depth", temperature=0.0)
+        clip = served["video"][:1]
+        kept = served["tokenizer"].forward(clip, device_out=True)
+        loaded = tokenizer.forward(clip, device_out=True)
+        gen = [s.generate(_rgb2depth_sample(t), greedy, seed=5)["tok_depth"]["tensor"]
+               for s, t in ((served["sampler"], kept), (sampler, loaded))]
+        if not torch.equal(kept, loaded) or not np.array_equal(*gen):
+            raise AssertionError("the checkpoints loaded back give other tokens")
+        print(f"checkpoint round trip, greedy rgb2depth of one clip: tokens bitwise equal "
+              f"({kept.numel()} rgb, {gen[0].size} depth)")
+        del sampler, tokenizer
+        # the entry points' per-clip work, with no mp4 read or written (no
+        # libav on the card's machine)
+        for task in ("rgb2depth", "depth2rgb"):
+            cond, target, _ = eval_common.TASKS[task]
+            args = eval_common.build_argparser(task).parse_args(argv)
+            sampler, tokenizer, schedule = eval_common.load_task(task, args)
+            for i in range(EVAL_FILES):
+                clip = np.random.default_rng(10 + i).integers(0, 256, (1, 16, 256, 256, 3),
+                                                              dtype=np.uint8)
+                flash64_attention.launches = 0
+                res, seconds = eval_common.run_clip(clip, sampler, tokenizer, schedule, cond,
+                                                    target, seed=args.seed)
+                launches = flash64_attention.launches
+                t0 = time.perf_counter()
+                frames = decode_video_tokens(res[target]["tensor"], tokenizer, target)
+                seconds["decode_s"] = time.perf_counter() - t0
+                print(f"{task} clip {i}: tokenize {seconds['tokenize_s']:.3f} s, generate "
+                      f"{seconds['generate_s']:.3f} s, decode {seconds['decode_s']:.3f} s, "
+                      f"flash64 launches {launches}")
+                if launches != LAUNCHES_PER_GENERATE:
+                    raise AssertionError(f"{task}: flash64 launched {launches} times")
+                gray = bool((frames[..., :1] == frames).all())
+                if frames.shape != (1, 16, 256, 256, 3) or gray != (target == "tok_depth"):
+                    raise AssertionError(f"{task}: frames {frames.shape}, gray {gray}")
+                out["launches"][task] = launches
+                out[task] = seconds
+            del sampler, tokenizer
+    print(f"eval phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _train_case(rng, dev, name, n, mode, C=HEADS * 64):
@@ -1440,7 +1615,10 @@ def main() -> int:
 
     rows, max_err = phase(kernel_phase, dev)
     phase(ragged_phase, dev)
-    launches, safemax_launches, _ = phase(slice_phase, dev)
+    launches, safemax_launches, _, served = phase(slice_phase, dev)
+    evaluated = phase(eval_phase, dev, served)
+    served.clear()  # the training phases need the card's memory
+    torch.cuda.empty_cache()
     train_rows = phase(train_kernel_phase, dev)
     ce_rows = phase(ce_phase, dev)
     train_launches, default_ms = phase(train_slice_phase, dev)
@@ -1469,7 +1647,7 @@ def main() -> int:
     serve_exp2 = exp2_bound_ms(B, HEADS, *rows[0]["shape"], SM_CLOCK_MHZ)
     add("flash64_fwd", "flash64_fwd.cu", "flash64.py:83", launches, max_err,
         rows[0]["ms"], rows[0]["plain_ms"], serve_bound, rows[0]["library_ms"],
-        exp2_bound_ms=serve_exp2)
+        exp2_bound_ms=serve_exp2, eval_launches=evaluated["launches"])
     add("flash64_fwd_safemax", "flash64_fwd.cu", "flash64.py:119", safemax_launches, max_err,
         rows[1]["ms"], rows[1]["plain_ms"], serve_bound, rows[1]["library_ms"],
         exp2_bound_ms=serve_exp2)

@@ -5,8 +5,15 @@ ported (and an optional --config YAML, which needs PyYAML; keys of what is
 not ported are ignored), the token-budget derivation of epochs
 and warmup, the cosine / inverse-sqrt / constant LR schedules, AdamW, the
 training loop (aborting on a non-finite loss), a JSON line per epoch in
-<output_dir>/log.txt and a final checkpoint-final.pth holding the model's
-and the optimizer's state dicts.  It runs on the first CUDA device
+<output_dir>/log.txt, and checkpoints in the reference's .pth format
+(core/checkpoint.py): checkpoint-{epoch}.pth every --save_ckpt_freq epochs
+and checkpoint-final.pth after the last.  By default a run resumes from the
+latest checkpoint in its --output_dir (model, optimizer, step and the LR
+schedule's position; --no_auto_resume starts afresh), and --finetune PATH
+warm-starts from the tensors of a checkpoint whose shapes match.  A second
+run in the same --output_dir therefore resumes from the first run's latest
+checkpoint-{N}.pth (checkpoint-final.pth only where there is none), as the
+JAX package's trainer does.  It runs on the first CUDA device
 (--device cuda, the default) and raises when there is none; --device cpu
 asks for the CPU (tiny smoke runs and tests).
 
@@ -16,8 +23,8 @@ Smoke run without data (the config's settings as arguments):
         --lr_schedule constant --epochs 1 --epoch_size 48
 
 Not ported yet: training on token shards (--data_config), data-parallel
-and sharded training, validation and fixed-eval loops, auto-resume, warm
-starts, frozen-trunk phases, S3 sync, wandb and profiling.
+and sharded training, validation and fixed-eval loops, asynchronous saves,
+frozen-trunk phases, S3 sync, wandb and profiling.
 """
 from __future__ import annotations
 
@@ -66,6 +73,11 @@ def get_args(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to train; cuda raises when no CUDA device is found")
     p.add_argument("--output_dir", default="output/egom2p")
+    p.add_argument("--save_ckpt_freq", type=int, default=1)
+    p.add_argument("--auto_resume", action="store_true", default=True)
+    p.add_argument("--no_auto_resume", dest="auto_resume", action="store_false")
+    p.add_argument("--finetune", default=None,
+                   help="warm-start checkpoint (.pth); tensors of another shape keep their init")
     p.add_argument("--print_freq", type=int, default=10)
     return parse_args_with_config(p, argv)
 
@@ -142,6 +154,7 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
 
     `on_step(step, metrics, seconds)` runs after every step; `seconds` is
     the step's wall time between two device synchronizations."""
+    from egom2p_torch.core.checkpoint import auto_load_model, save_checkpoint, warm_start
     from egom2p_torch.core.logging import JsonlLogger, MetricLogger
     from egom2p_torch.core.optim import Optimizer
     from egom2p_torch.data.loader import batch_to_device
@@ -164,6 +177,8 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
     model = create_model(args.model, domains, domains, modality_info=model_info, device=device)
     model.init_random_(torch.Generator(device=device).manual_seed(args.seed))
     print(f"model {args.model}: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
+    if args.finetune:
+        warm_start(model, args.finetune)
     optimizer = Optimizer(model, sched, weight_decay=args.weight_decay,
                           betas=tuple(args.opt_betas), clip_grad=args.clip_grad)
     step_fn = make_train_step(model, optimizer, args.num_input_tokens,
@@ -171,10 +186,25 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
     shuffle = torch.Generator().manual_seed(args.seed + 1)
     jsonl = JsonlLogger(args.output_dir)
 
-    step_seconds, history, step = [], [], 0
+    step, start_epoch = 0, 0
+    if args.auto_resume:
+        ckpt, path = auto_load_model(args.output_dir, model, optimizer)
+        if ckpt is not None:
+            step = ckpt["step"]
+            start_epoch = step // niter_per_ep
+            shuffle.set_state(ckpt["shuffle_rng"])
+            print(f"resumed from {path} at step {step}, epoch {start_epoch}")
+    # the checkpoint's args as the reference pickles them: a Namespace
+    # naming the model and its domains
+    ckpt_args = argparse.Namespace(**vars(args), in_domains=list(domains),
+                                   out_domains=list(domains))
+
+    step_seconds, history = [], []
     loader_it = iter(loader)
     try:
-        for epoch in range(args.epochs):
+        for _ in range(step):  # the seeded stream's batches already trained on
+            next(loader_it)
+        for epoch in range(start_epoch, args.epochs):
             logger = MetricLogger(print_freq=args.print_freq)
             for _ in logger.log_every(range(niter_per_ep), header=f"Epoch [{epoch}]",
                                       total=niter_per_ep):
@@ -204,12 +234,14 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
             jsonl.write({"epoch": epoch, "tokens_seen_B": step * tokens_per_sample
                          * global_batch / 1e9,
                          **{k: v.global_avg for k, v in logger.meters.items()}})
+            if (epoch + 1) % args.save_ckpt_freq == 0 or epoch == args.epochs - 1:
+                path = save_checkpoint(args.output_dir,
+                                       "final" if epoch == args.epochs - 1 else epoch,
+                                       model, optimizer, step=step, epoch=epoch,
+                                       args=ckpt_args, shuffle_rng=shuffle.get_state())
+                print(f"saved {path}")
     finally:
         loader_it.close()
-    path = os.path.join(args.output_dir, "checkpoint-final.pth")
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "step": step, "args": vars(args)}, path)
-    print(f"saved {path}")
     return {"model": model, "optimizer": optimizer, "step_seconds": step_seconds,
             "metrics": history}
 

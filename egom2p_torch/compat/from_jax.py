@@ -13,7 +13,7 @@ exist with the right shape, and none may be left over.
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +34,11 @@ def _params(variables: Mapping) -> Mapping:
     return variables["params"] if "params" in variables else variables
 
 
-def _checked(sd: Dict[str, np.ndarray], module: nn.Module,
-             not_ported: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
+def _checked(sd: Dict[str, np.ndarray], module: nn.Module) -> Dict[str, torch.Tensor]:
     """Match `sd` against `module.state_dict()`: shapes equal, no key
-    missing, none left over (apart from prefixes in `not_ported`)."""
+    missing, none left over."""
     expected = module.state_dict()
-    extra = [k for k in sd if k not in expected
-             and not any(k.startswith(p) for p in not_ported)]
+    extra = [k for k in sd if k not in expected]
     missing = [k for k in expected if k not in sd]
     if extra or missing:
         raise KeyError(f"JAX -> torch key mismatch: left over {extra[:8]}"
@@ -124,10 +122,6 @@ def _cosmos_torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(out)
 
 
-# The port holds the encode half; the JAX tokenizer's decoder side is dropped.
-COSMOS_NOT_PORTED = ("decoder.", "post_quant_conv.")
-
-
 def cosmos_state_dict_from_jax(variables: Mapping, net) -> Dict[str, torch.Tensor]:
     """Flax CausalDiscreteVideoTokenizer variables -> state dict for `net`
     (egom2p_torch CausalDiscreteVideoTokenizer)."""
@@ -142,4 +136,4 @@ def cosmos_state_dict_from_jax(variables: Mapping, net) -> Dict[str, torch.Tenso
             sd[f"{base}.norm.{'weight' if leaf == 'scale' else 'bias'}"] = arr
         else:
             raise KeyError(f"no torch key for JAX param {'/'.join(path)}")
-    return _checked(sd, net, not_ported=COSMOS_NOT_PORTED)
+    return _checked(sd, net)

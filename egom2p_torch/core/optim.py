@@ -67,3 +67,8 @@ class Optimizer:
 
     def state_dict(self):
         return {"adamw": self.adamw.state_dict(), "step_count": self.step_count}
+
+    def load_state_dict(self, state) -> None:
+        """Adam's moments and step, and the schedule's position."""
+        self.adamw.load_state_dict(state["adamw"])
+        self.step_count = int(state["step_count"])

@@ -1,4 +1,5 @@
-"""Finite Scalar Quantization (FSQ), inference side.
+"""Finite Scalar Quantization (FSQ), inference side: quantize and index in
+the encoder, indices back to codes in the decoder.
 
 Port of `FSQ` from egom2p_tpu/ops/fsq.py (reference:
 cosmos_tokenizer/modules/quantizers.py:71-227; arXiv 2309.15505).  The DV4x8x8
@@ -48,6 +49,14 @@ class FSQ:
         half_width = self._const(self.levels // 2, zhat)
         shifted = zhat * half_width + half_width  # in [0, levels - 1]
         return (shifted * self._const(self.basis, zhat)).sum(dim=-1).to(torch.int32)
+
+    def indices_to_codes(self, indices: torch.Tensor) -> torch.Tensor:
+        """int indices (...) -> normalized codes (..., dim), fp32."""
+        idx = indices.to(torch.int64)[..., None]
+        basis = torch.as_tensor(self.basis.astype(np.int64), device=indices.device)
+        levels = torch.as_tensor(self.levels.astype(np.int64), device=indices.device)
+        half_width = self._const(self.levels // 2, indices)
+        return (torch.div(idx, basis, rounding_mode="floor") % levels - half_width) / half_width
 
     def __call__(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """z: (..., dim) -> (indices (...), codes (..., dim))."""

@@ -1,10 +1,11 @@
-"""3D Haar wavelet patching for the Cosmos video tokenizer (encode side).
+"""3D Haar wavelet patching and unpatching for the Cosmos video tokenizer.
 
-Port of `dwt3d` / `patch3d_haar` from egom2p_tpu/ops/wavelet.py (reference:
-cosmos_tokenizer/modules/patching.py:112-356).  For even-length axes the
-reference's stride-2 Haar convs with the global 1/(2*sqrt(2)) rescale reduce
-to l = (x0 + x1) / 2, h = (x0 - x1) / 2 per axis, applied along T, H, W in
-that order, with subband-major channel stacking [8 subbands x C].
+Port of `dwt3d` / `patch3d_haar` / `idwt3d` / `unpatch3d_haar` from
+egom2p_tpu/ops/wavelet.py (reference: cosmos_tokenizer/modules/patching.py:
+112-356).  For even-length axes the reference's stride-2 Haar convs with the
+global 1/(2*sqrt(2)) rescale reduce to l = (x0 + x1) / 2, h = (x0 - x1) / 2
+per axis (inverse: x0 = l + h, x1 = l - h), applied along T, H, W in that
+order, with subband-major channel stacking [8 subbands x C].
 
 Layout is channels-last (B, T, H, W, C), as in the JAX package.
 """
@@ -20,6 +21,10 @@ def _axis_dwt(x: torch.Tensor, axis: int):
     xr = x.unflatten(axis, (n // 2, 2))
     x0, x1 = xr.select(axis + 1, 0), xr.select(axis + 1, 1)
     return (x0 + x1) * 0.5, (x0 - x1) * 0.5
+
+
+def _axis_idwt(lo: torch.Tensor, hi: torch.Tensor, axis: int) -> torch.Tensor:
+    return torch.stack([lo + hi, lo - hi], dim=axis + 1).flatten(axis, axis + 1)
 
 
 def dwt3d(x: torch.Tensor) -> torch.Tensor:
@@ -41,3 +46,22 @@ def patch3d_haar(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     for _ in range(int(patch_size).bit_length() - 1):
         x = dwt3d(x)
     return x
+
+
+def idwt3d(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of dwt3d: (B, T, H, W, 8*C) -> (B, 2T, 2H, 2W, C)."""
+    bands = x.chunk(8, dim=-1)
+    t_parts = []
+    for tb in range(2):
+        h_parts = [_axis_idwt(bands[tb * 4 + hb * 2], bands[tb * 4 + hb * 2 + 1], 3)
+                   for hb in range(2)]
+        t_parts.append(_axis_idwt(h_parts[0], h_parts[1], 2))
+    return _axis_idwt(t_parts[0], t_parts[1], 1)
+
+
+def unpatch3d_haar(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """Inverse patching; drops the (patch_size - 1) repeated lead frames
+    (reference: patching.py:341-345)."""
+    for _ in range(int(patch_size).bit_length() - 1):
+        x = idwt3d(x)
+    return x[:, patch_size - 1:]

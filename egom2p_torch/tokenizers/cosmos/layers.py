@@ -1,12 +1,12 @@
-"""Causal 3D CNN layers of the Cosmos video tokenizer's encoder.
+"""Causal 3D CNN layers of the Cosmos video tokenizer.
 
-Port of the encoder layers of egom2p_tpu/tokenizers/cosmos/layers.py
+Port of the factorized layers of egom2p_tpu/tokenizers/cosmos/layers.py
 (reference: cosmos_tokenizer/modules/layers3d.py): causal convs with
 first-frame replicate padding in time, per-frame GroupNorm, the hybrid
-spatial/temporal downsample, factorized resnet blocks, and spatial and causal
-temporal attention.  Tensors are NCTHW (B, C, T, H, W) inside, for
-torch.nn.functional.conv3d; the network's public functions take and return
-the JAX package's channels-last layout.  Module names follow the reference
+spatial/temporal downsample and upsample, factorized resnet blocks, and
+spatial and causal temporal attention.  Tensors are NCTHW (B, C, T, H, W)
+inside, for torch.nn.functional.conv3d; the network's public functions
+take and return the JAX package's channels-last layout.  Module names follow the reference
 torch keys (`conv3d`, `norm.norm`, `conv1.0`, ...).
 
 The attention blocks are plain dense attention in fp32: the JAX package
@@ -102,6 +102,36 @@ class CausalHybridDownsample3d(nn.Module):
         if self.temporal_down:
             xp = torch.cat([x[:, :, :1], x], dim=2)  # replication pad
             x = self.conv2(xp) + F.avg_pool3d(xp, (2, 1, 1), (2, 1, 1))
+        return self.conv3(x)
+
+
+class CausalHybridUpsample3d(nn.Module):
+    """Temporal repeat + causal conv and/or nearest 2x spatial upsample +
+    conv, each with a residual add, then a 1x1x1 conv
+    (reference: layers3d.py:144-200)."""
+
+    def __init__(self, channels: int, spatial_up: bool = True, temporal_up: bool = True):
+        super().__init__()
+        self.spatial_up = spatial_up
+        self.temporal_up = temporal_up
+        if temporal_up:
+            self.conv1 = CausalConv3d(channels, channels, (3, 1, 1), padding=0)
+        if spatial_up:
+            self.conv2 = CausalConv3d(channels, channels, (1, 3, 3), padding=1)
+        if spatial_up or temporal_up:
+            self.conv3 = CausalConv3d(channels, channels, (1, 1, 1), padding=0)
+
+    def forward(self, x):
+        if not self.spatial_up and not self.temporal_up:
+            return x
+        if self.temporal_up:
+            # each frame twice, the first copy of frame 0 dropped: T -> 2T - 1
+            time_factor = 2 if x.shape[2] > 1 else 1
+            x = x.repeat_interleave(time_factor, dim=2)[:, :, time_factor - 1:]
+            x = self.conv1(x) + x
+        if self.spatial_up:
+            x = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
+            x = self.conv2(x) + x
         return self.conv3(x)
 
 

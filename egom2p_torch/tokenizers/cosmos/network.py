@@ -1,15 +1,15 @@
-"""Cosmos causal discrete video tokenizer (DV, FSQ): the encode half.
+"""Cosmos causal discrete video tokenizer (DV, FSQ): encoder and decoder.
 
-Port of `EncoderFactorized` and `CausalDiscreteVideoTokenizer.encode` from
-egom2p_tpu/tokenizers/cosmos/network.py (reference:
-cosmos_tokenizer/networks/discrete_video.py:33-145,
-cosmos_tokenizer/modules/layers3d.py:731-884).  EgoM2P uses
+Port of `EncoderFactorized`, `DecoderFactorized` and
+`CausalDiscreteVideoTokenizer` from egom2p_tpu/tokenizers/cosmos/network.py
+(reference: cosmos_tokenizer/networks/discrete_video.py:33-145,
+cosmos_tokenizer/modules/layers3d.py:731-1040).  EgoM2P uses
 Cosmos-0.1-Tokenizer-DV4x8x8: a 17-frame 256x256 clip maps to a 5x32x32 grid
-of 64k-FSQ tokens.  Submodule names follow the reference torch keys
-(`encoder.down.0.block.1.conv1.0.conv3d.weight`, `encoder.mid.attn_1.0.q...`).
+of 64k-FSQ tokens, and the grid decodes back to 17 frames.  Submodule names
+follow the reference torch keys (`encoder.down.0.block.1.conv1.0.conv3d.weight`,
+`encoder.mid.attn_1.0.q...`, `decoder.up.2.upsample.conv2.conv3d.weight`).
 
-Not ported yet: the decoder (DecoderFactorized, post_quant_conv,
-decode_code) and the non-factorized BASE encoder.
+Not ported yet: the non-factorized BASE encoder and decoder.
 """
 from __future__ import annotations
 
@@ -21,9 +21,10 @@ import torch
 from torch import nn
 
 from egom2p_torch.ops.fsq import FSQ
-from egom2p_torch.ops.wavelet import patch3d_haar
+from egom2p_torch.ops.wavelet import patch3d_haar, unpatch3d_haar
 from egom2p_torch.tokenizers.cosmos.layers import (CausalAttnBlock, CausalConv3d,
                                                    CausalHybridDownsample3d,
+                                                   CausalHybridUpsample3d,
                                                    CausalNormalize,
                                                    CausalResnetBlockFactorized3d,
                                                    CausalTemporalAttnBlock,
@@ -39,10 +40,12 @@ class DiscreteVideoConfig:
     num_res_blocks: int = 2
     attn_resolutions: Tuple[int, ...] = (32,)
     in_channels: int = 3
+    out_channels: int = 3
     resolution: int = 1024
     patch_size: int = 4
     z_channels: int = 16
     z_factor: int = 1
+    legacy_mode: bool = False
     spatial_compression: int = 8
     temporal_compression: int = 4
     embedding_dim: int = 6
@@ -111,15 +114,76 @@ class EncoderFactorized(nn.Module):
         return self.conv_out(nonlinearity(self.norm_out(h)))
 
 
+class DecoderFactorized(nn.Module):
+    """(reference: layers3d.py:887-1040).  NCTHW in and out; the output is
+    still Haar-patched.  `up[i]` is level i, run from the last level down."""
+
+    def __init__(self, cfg: DiscreteVideoConfig):
+        super().__init__()
+        n_levels = len(cfg.channels_mult)
+        log2_patch = int(math.log2(cfg.patch_size))
+        num_spatial_ups = int(math.log2(cfg.spatial_compression)) - log2_patch
+        num_temporal_ups = int(math.log2(cfg.temporal_compression)) - log2_patch
+        block_in = cfg.channels * cfg.channels_mult[-1]
+
+        self.conv_in = _factorized_conv(cfg.z_channels, block_in)
+        self.mid = nn.Module()
+        self.mid.block_1 = CausalResnetBlockFactorized3d(block_in, block_in, 1)
+        self.mid.attn_1 = _attn_pair(block_in)
+        self.mid.block_2 = CausalResnetBlockFactorized3d(block_in, block_in, 1)
+
+        levels = [None] * n_levels
+        for i_level in reversed(range(n_levels)):
+            level = nn.Module()
+            level.block = nn.ModuleList()
+            level.attn = nn.ModuleList()  # attn_resolutions never match here, as in JAX
+            block_out = cfg.channels * cfg.channels_mult[i_level]
+            for _ in range(cfg.num_res_blocks + 1):
+                level.block.append(CausalResnetBlockFactorized3d(block_in, block_out, 1))
+                block_in = block_out
+            if i_level != 0:
+                # layer-index correspondence with the encoder's downsampling
+                # (reference: layers3d.py:992-1008)
+                i_level_reverse = n_levels - i_level - 1
+                if cfg.legacy_mode:
+                    temporal_up = i_level_reverse < num_temporal_ups
+                else:
+                    temporal_up = 0 < i_level_reverse < num_temporal_ups + 1
+                spatial_up = temporal_up or (i_level_reverse < num_spatial_ups
+                                             and num_spatial_ups > num_temporal_ups)
+                level.upsample = CausalHybridUpsample3d(block_in, spatial_up=spatial_up,
+                                                        temporal_up=temporal_up)
+            levels[i_level] = level
+        self.up = nn.ModuleList(levels)
+        self.norm_out = CausalNormalize(block_in, 1)
+        self.conv_out = _factorized_conv(block_in, cfg.out_channels * cfg.patch_size ** 3)
+
+    def forward(self, z):
+        h = self.conv_in(z)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        for level in reversed(self.up):
+            for block in level.block:
+                h = block(h)
+            if hasattr(level, "upsample"):
+                h = level.upsample(h)
+        return self.conv_out(nonlinearity(self.norm_out(h)))
+
+
 class CausalDiscreteVideoTokenizer(nn.Module):
-    """encoder -> quant_conv -> FSQ (reference: networks/discrete_video.py:33-145)."""
+    """encoder -> quant_conv -> FSQ -> post_quant_conv -> decoder
+    (reference: networks/discrete_video.py:33-145)."""
 
     def __init__(self, cfg: DiscreteVideoConfig = DV4x8x8_CONFIG):
         super().__init__()
         self.cfg = cfg
+        # the encode half first, so that init_random_ draws its weights
+        # independently of the decoder's
         self.encoder = EncoderFactorized(cfg)
         self.quant_conv = CausalConv3d(cfg.z_factor * cfg.z_channels, cfg.embedding_dim,
                                        (1, 1, 1), padding=0)
+        self.decoder = DecoderFactorized(cfg)
+        self.post_quant_conv = CausalConv3d(cfg.embedding_dim, cfg.z_channels, (1, 1, 1),
+                                            padding=0)
         self.quantizer = FSQ(cfg.levels)
 
     @torch.no_grad()
@@ -136,8 +200,14 @@ class CausalDiscreteVideoTokenizer(nn.Module):
         return self
 
     def encode_latent(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, H, W, 3) in [-1, 1] -> pre-FSQ latent (B, t, h, w, 6)."""
-        h = patch3d_haar(x, self.cfg.patch_size).permute(0, 4, 1, 2, 3)
+        """x: (B, T, H, W, 3) in [-1, 1] -> pre-FSQ latent (B, t, h, w, 6).
+
+        The Haar patch runs in x's dtype (bf16 on the tokenizer's default
+        path); from conv_in on the network computes in its parameters' dtype
+        (fp32), as the JAX package's flax convs promote a bf16 input with
+        fp32 parameters."""
+        h = patch3d_haar(x, self.cfg.patch_size)
+        h = h.to(self.quant_conv.conv3d.weight.dtype).permute(0, 4, 1, 2, 3)
         h = self.quant_conv(self.encoder(h))
         return h.permute(0, 2, 3, 4, 1)
 
@@ -145,3 +215,14 @@ class CausalDiscreteVideoTokenizer(nn.Module):
         """x: (B, T, H, W, 3) in [-1, 1] -> (indices (B, t, h, w) int32,
         codes (B, t, h, w, 6) fp32)."""
         return self.quantizer(self.encode_latent(x).float())
+
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes: (B, t, h, w, 6) -> video (B, 1 + (t - 1) * pt, H, W, 3) in
+        about [-1, 1], in the parameters' dtype."""
+        h = codes.to(self.post_quant_conv.conv3d.weight.dtype).permute(0, 4, 1, 2, 3)
+        h = self.decoder(self.post_quant_conv(h))
+        return unpatch3d_haar(h.permute(0, 2, 3, 4, 1), self.cfg.patch_size)
+
+    def decode_code(self, indices: torch.Tensor) -> torch.Tensor:
+        """indices (B, t, h, w) -> video, as `decode`."""
+        return self.decode(self.quantizer.indices_to_codes(indices))

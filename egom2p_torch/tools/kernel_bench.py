@@ -243,7 +243,7 @@ def bench_serve(dev, reps):
     sys.path.append(str(Path(__file__).resolve().parents[2]))
     import chip_smoke
 
-    launches, _, clips_per_s = chip_smoke.slice_phase(dev)
+    launches, _, clips_per_s, _ = chip_smoke.slice_phase(dev)
     yield {"kernel": "serving slice", "clips_per_s": clips_per_s, "flash64_launches": launches}
 
 

@@ -1,4 +1,5 @@
-"""Cosmos DV tokenizer (encode half) in the PyTorch port against the JAX package.
+"""Cosmos DV tokenizer (encode half and weight transfer) in the PyTorch port
+against the JAX package (the decode half: tests/test_torch_cosmos_decode.py).
 
 The JAX tokenizer's random init is moved into the port with
 compat/from_jax.py; a seeded uint8 clip goes through both at float32, at the
@@ -58,8 +59,15 @@ def test_cosmos_state_dict_from_jax(tokenizers):
     jtok, ttok = tokenizers
     sd = cosmos_state_dict_from_jax(jtok.params, ttok.net)
     assert set(sd) == set(ttok.net.state_dict())
-    assert "encoder.mid.attn_1.1.proj_out.conv3d.weight" in sd
-    assert "encoder.down.0.block.0.norm1.norm.weight" in sd
+    # the whole tokenizer, with no key left out: every JAX parameter has one
+    assert len(sd) == len(jax.tree_util.tree_leaves(jtok.params))
+    for key in ("encoder.mid.attn_1.1.proj_out.conv3d.weight",
+                "encoder.down.0.block.0.norm1.norm.weight",
+                "decoder.up.2.upsample.conv2.conv3d.weight", "decoder.up.0.block.2.conv2.1.conv3d.bias",
+                "decoder.mid.attn_1.0.q.conv3d.weight", "decoder.norm_out.norm.bias",
+                "post_quant_conv.conv3d.weight", "quant_conv.conv3d.weight"):
+        assert key in sd, key
+    assert not any(k.startswith("decoder.up.1.upsample") for k in sd)  # neither up here
     params = jax.tree_util.tree_map(np.asarray, jtok.params)
     params["params"]["encoder"]["stray"] = {"kernel": np.zeros((1, 1, 1, 1, 1))}
     with pytest.raises(KeyError):

@@ -618,3 +618,66 @@ def test_flash_ce_bwd_switch_raises_on_what_it_cannot_take(cuda, monkeypatch):
     w32 = torch.randn((4096, 256), device=cuda).requires_grad_()
     with pytest.raises(TypeError):  # fp32 operands: the kernel takes bf16
         fce.flash_ce_total(y32, w32, t, wts).backward()
+
+
+# The Cosmos decoder on the card against the same decoder on CPU tensors, at
+# the small topology (channels 16, mults (1, 2, 2), z_channels 8) on the
+# full 5 x 32 x 32 token grid: exact fp32 on both sides is the same math in
+# another order (cuDNN vs oneDNN); TF32 on the card rounds every product's
+# inputs to 10 mantissa bits
+SMALL_COSMOS = dict(channels=16, channels_mult=(1, 2, 2), z_channels=8)
+DECODE_ATOL = 1e-4
+DECODE_TF32_ATOL = 3e-2
+
+
+def test_cosmos_decoder_on_the_card_matches_the_cpu(cuda):
+    import copy
+
+    from egom2p_torch.tokenizers.cosmos import video_api
+    from egom2p_torch.tokenizers.cosmos.network import (CausalDiscreteVideoTokenizer,
+                                                        DiscreteVideoConfig)
+    net = CausalDiscreteVideoTokenizer(DiscreteVideoConfig(**SMALL_COSMOS))
+    net.init_random_(torch.Generator().manual_seed(0))
+    cpu = video_api.CausalVideoTokenizer(net)
+    card = video_api.CausalVideoTokenizer(copy.deepcopy(net).to(cuda))
+    idx = np.random.default_rng(0).integers(0, 64000, (2, 5, 32, 32)).astype(np.int32)
+    ref = cpu.decode(idx)
+    got = card.decode(idx)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert tuple(got.shape) == tuple(ref.shape) == (2, 17, 256, 256, 3)
+    atol = DECODE_TF32_ATOL if video_api.DECODE_TF32 else DECODE_ATOL
+    torch.testing.assert_close(got.cpu(), ref, atol=atol, rtol=0)
+    if not video_api.DECODE_TF32:
+        diff = video_api.tensor2uint8(got).cpu().int() - video_api.tensor2uint8(ref).int()
+        assert int(diff.abs().max()) <= 1
+
+
+def test_checkpoint_round_trip_greedy_tokens_on_the_card(cuda, tmp_path):
+    """A model saved with core/checkpoint.py and loaded back through
+    cli/eval_common (no --smoke) gives bitwise equal greedy rgb2depth
+    tokens on the card."""
+    import argparse
+
+    from egom2p_torch.cli import eval_common
+    from egom2p_torch.core import checkpoint
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+    from egom2p_torch.generate.sampler import (GenerationSampler, init_empty_target_modality,
+                                               init_full_input_modality)
+
+    name = "egom2p_tiny_6e_6d_swiglu_nobias"
+    smoke = argparse.Namespace(model=name, seed=4, smoke=True)
+    model = eval_common.load_main_model(smoke, cuda)
+    path = checkpoint.save_checkpoint(str(tmp_path), "final", model, args=argparse.Namespace(
+        model=name, in_domains=list(eval_common.MODS4), out_domains=list(eval_common.MODS4)))
+    loaded = eval_common.load_main_model(
+        argparse.Namespace(model="egom2p_base_12e_12d_swiglu_nobias", seed=0, smoke=False,
+                           ckpt=path), cuda)
+    assert loaded.config == model.config
+    sample = {"tok_rgb": {"tensor": np.random.default_rng(1).integers(0, 64000, (2, 5120))
+                          .astype(np.int32)}}
+    init_full_input_modality(sample, MODALITY_INFO, "tok_rgb")
+    init_empty_target_modality(sample, MODALITY_INFO, "tok_depth", 2, 5120)
+    greedy = eval_common.video_schedule("tok_rgb", "tok_depth", temperature=0.0)
+    a, b = (GenerationSampler(m).generate(sample, greedy, seed=5)["tok_depth"]["tensor"]
+            for m in (model, loaded))
+    np.testing.assert_array_equal(a, b)

@@ -348,8 +348,9 @@ def test_forward_logits_matches_jax_head(compute_dtype):
 
 def test_eval_common_smoke_loaders():
     """--smoke weights come from the seeded generator: the same seed gives
-    the same model; without --smoke the loaders refuse (checkpoints are not
-    ported yet)."""
+    the same model; the tokenizer computes as the JAX package's default
+    (bf16 input and patch, fp32 network); without --smoke a missing
+    checkpoint raises (no fallback to random weights)."""
     import argparse
 
     from egom2p_torch.cli import eval_common
@@ -361,6 +362,11 @@ def test_eval_common_smoke_loaders():
         assert ka == kb and torch.equal(va, vb), ka
     tok = eval_common.load_video_tokenizer(args, "cpu")
     assert tok.compute_dtype == torch.bfloat16
-    assert next(tok.net.parameters()).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        eval_common.load_main_model(argparse.Namespace(model=NAME, seed=0, smoke=False), "cpu")
+    assert all(p.dtype == torch.float32 for p in tok.net.parameters())
+    missing = argparse.Namespace(model=NAME, seed=0, smoke=False,
+                                 ckpt="no-such-dir/checkpoint-main.pth",
+                                 video_tok_ckpt="no-such-dir/encoder.jit")
+    with pytest.raises(FileNotFoundError):
+        eval_common.load_main_model(missing, "cpu")
+    with pytest.raises(FileNotFoundError):
+        eval_common.load_video_tokenizer(missing, "cpu")

@@ -265,3 +265,39 @@ def test_sass_diff_matches_instances_across_a_new_head_width_parameter():
     assert list(a) == list(b) == [("flash64_fwd_kernel", ("1", "0", "1"))]
     assert a == b and a[("flash64_fwd_kernel", ("1", "0", "1"))] == ["LDC R1, c[P]", "BRA N"]
     assert sass_diff.parse(new.replace("LDC R1", "LDC R2")) != a
+
+
+def test_eval_path_imports_no_jax():
+    """The slice's modules (eval entry points, checkpoints, Cosmos decode,
+    mp4 in and out) and chip_smoke.py load without JAX or the JAX package."""
+    import subprocess
+    code = ("import sys\n"
+            "import chip_smoke\n"
+            "import egom2p_torch.cli.eval_model_rgb2depth, egom2p_torch.cli.eval_model_depth2rgb\n"
+            "import egom2p_torch.core.checkpoint, egom2p_torch.generate.decode\n"
+            "import egom2p_torch.data.video_ingest, egom2p_torch.cli.run_training\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
+            " 'egom2p_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_video_ingest_builds_the_repo_source_only(monkeypatch, tmp_path):
+    """The port's video library is built from native/video_ingest.cpp, and
+    nothing else, into a directory git ignores, under a name of its own."""
+    import subprocess
+
+    from egom2p_torch.data import video_ingest as vi
+    assert pathlib.Path(vi.SOURCE) == REPO / "native" / "video_ingest.cpp"
+    assert pathlib.Path(vi.LIBRARY).parent == REPO / "native" / "build"
+    assert "native/build/" in (REPO / ".gitignore").read_text().split()
+    assert pathlib.Path(vi.LIBRARY).name != "libvideoingest.so"
+    seen = []
+    monkeypatch.setattr(vi, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(vi, "LIBRARY", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: seen.append(cmd) or
+                        subprocess.CompletedProcess(cmd, 1, "", "stopped"))
+    with pytest.raises(RuntimeError, match="build failed"):
+        vi.build()
+    (cmd,) = seen
+    assert cmd[0] == "g++" and [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))] == [vi.SOURCE]
