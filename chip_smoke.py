@@ -39,6 +39,23 @@
    time (the entry points' per-clip work and the array half of the decode;
    the card's machine has no libav for the mp4 legs): per-clip tokenize,
    generate and decode seconds and 216 flash64 launches per generate.
+3c. Cam / gaze eval phase, at full width: the cam and gaze VQ-VAEs (dim
+   768, 12 + 12 blocks, 256 codes) with seeded random weights written to
+   reference-format .pth files and loaded back through eval_common without
+   --smoke; a tokenize -> decode round trip of seeded smooth camera paths
+   at B = 8 and 1, in exact fp32 and on TF32 (ms per call, the tokens TF32
+   changes and its largest change to the decoded values; ATE / RTE / RRE,
+   finite); then main() of cli/eval_model_rgb2{cam,gaze}.py on those files
+   and the eval phase's EgoM2P-base .pth, over npz files of the served
+   clips' rgb tokens: per-file generate and decode seconds, (60, 9) /
+   (60, 2) finite .npy files, and 72 / 120 flash64 launches per generate
+   (12 encoder layers x 2 CFG branches x 3 or 5 steps; the decoder's 10 or
+   6 rows a step take the dense path); greedy rgb2cam of one clip from the
+   loaded files bitwise equal to the in-memory models; rgb2cam and rgb2gaze
+   generate on the served tokens at B = 1 and 8 (median of 3, and a
+   profiled rgb2cam run: device time by kernel class, idle share); and the flash64
+   kernel at rgb2cam's B = 1 encoder shape (5376^2, 5140 live keys) beside
+   its plain version, its bound and scaled_dot_product_attention.
 4. Training kernel phase at the pretraining step's shapes (B=8, 12 heads,
    N = M = 2048, q/k/v as views of fused projections): the flash64_train
    forward, dq and dk/dv kernels against their plain versions with key
@@ -171,6 +188,19 @@ RAGGED_SELF = (1, 63, 64, 65, 127, 128, 129, 1707, 2000)
 # tests (tests/test_torch_eval.py)
 DECODE_PIXEL_LEVELS = 1
 EVAL_FILES = 2
+# the cam / gaze eval phase: flash64 launches per generate (12 encoder layers
+# x 2 CFG branches x the task's steps: the decoder's 10 or 6 query rows a step
+# take the dense path, 10 x 5376 < 256^2, in both packages), and rgb2cam's
+# B = 1 encoder attention at its last steps (5120 + 10 or 20 visible tokens,
+# bucketed to 5376)
+SEQ_LAUNCHES = {"rgb2cam": 12 * 2 * 3, "rgb2gaze": 12 * 2 * 5}
+SEQ_ENCODER_N, SEQ_ENCODER_LIVE = 5376, 5140
+# the kernel at that shape against its plain version: the largest error (a
+# bf16 ulp of |o|, 4.9e-4 read on an H100) and |got - ref| / |ref| over the
+# whole output.  Leaving out the 20 live keys of the last, partial tile moves
+# o by several percent in that norm; the check asserts that it would see that
+SEQ_B1_ATOL = 2e-3
+SEQ_B1_REL_L2 = 1e-2
 RAGGED_CROSS = ((1, 129), (129, 1), (63, 2000), (2000, 65), (127, 128), (128, 127), (65, 1707))
 
 
@@ -264,6 +294,12 @@ def _split_heads(t, heads):
     return t.unflatten(-1, (heads, t.shape[-1] // heads)).transpose(1, 2)
 
 
+def _rel_l2(got, ref) -> float:
+    """|got - ref| / |ref| over the whole tensor, in fp32."""
+    ref = ref.float()
+    return ((got.float() - ref).norm() / ref.norm()).item()
+
+
 def _cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -291,11 +327,11 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def _fused_views(rng, n_q, n_kv, dev):
-    """q as a view of a (B, N, 3C) qkv projection, k/v as views of a
-    (B, M, 2C) kv projection, the layouts the model hands the kernel."""
+def _fused_views(rng, n_q, n_kv, dev, b=B):
+    """q as a view of a (b, N, 3C) qkv projection, k/v as views of a
+    (b, M, 2C) kv projection, the layouts the model hands the kernel."""
     C = HEADS * 64
-    qkv, kv = _randn(rng, (B, n_q, 3 * C), dev), _randn(rng, (B, n_kv, 2 * C), dev)
+    qkv, kv = _randn(rng, (b, n_q, 3 * C), dev), _randn(rng, (b, n_kv, 2 * C), dev)
     return qkv[..., :C], kv[..., :C], kv[..., C:]
 
 
@@ -451,7 +487,7 @@ def slice_phase(dev):
     print(f"model + tokenizer init: {time.perf_counter() - t0:.2f} s, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M + "
           f"{sum(p.numel() for p in tokenizer.net.parameters()) / 1e6:.1f}M params")
-    schedule = eval_common.video_schedule("tok_rgb", "tok_depth")
+    schedule = eval_common.roar_schedule("tok_rgb", "tok_depth")
     # uint8 clips staged on the device ahead of the timed region, as the bench does
     clips = np.random.default_rng(0).integers(0, 256, (B, 16, 256, 256, 3), dtype=np.uint8)
     video = torch.from_numpy(clips).to(dev)
@@ -521,7 +557,7 @@ def slice_phase(dev):
     head_check(model, sampler, tokens)
     encode_tf32_check(tokenizer, video)
     served = dict(model=model, sampler=sampler, tokenizer=tokenizer, video=video,
-                  depth=out["tok_depth"]["tensor"])
+                  rgb=tokens, depth=out["tok_depth"]["tensor"])
     return launches, safemax_launches, B / (tok_ms + gen_ms) * 1e3, served
 
 
@@ -529,10 +565,10 @@ def head_check(model, sampler, tokens):
     """Greedy rgb2depth on the served batch twice: with the generation head's
     product on TF32 (forward_logits: bf16 values, exact in TF32) and with the
     full fp32 product.  The tokens must be equal."""
-    from egom2p_torch.cli.eval_common import video_schedule
+    from egom2p_torch.cli.eval_common import roar_schedule
     from egom2p_torch.models import embeddings
 
-    schedule = video_schedule("tok_rgb", "tok_depth", temperature=0.0)
+    schedule = roar_schedule("tok_rgb", "tok_depth", temperature=0.0)
     tf32 = sampler.generate(_rgb2depth_sample(tokens), schedule, seed=5)["tok_depth"]["tensor"]
     real = embeddings.matmul_f32
     embeddings.matmul_f32 = lambda a, b, bf16_values=None: torch.matmul(a.float(), b.float())
@@ -640,11 +676,12 @@ def _reference_checkpoints(model, tokenizer, directory):
     return ckpt, cosmos
 
 
-def eval_phase(dev, served):
+def eval_phase(dev, served, tmp):
     """The eval path at full width on checkpoint files: decode of the served
-    batch, the reference-format checkpoints written and loaded back through
-    cli/eval_common without --smoke (greedy rgb2depth bitwise equal to the
-    in-memory model's), then both entry points' work per clip on them."""
+    batch, the reference-format checkpoints written to `tmp` and loaded back
+    through cli/eval_common without --smoke (greedy rgb2depth bitwise equal
+    to the in-memory model's), then both entry points' work per clip on
+    them.  Returns the EgoM2P-base .pth's path with the results."""
     from egom2p_torch.cli import eval_common
     from egom2p_torch.generate.decode import decode_video_tokens
     from egom2p_torch.ops.flash64 import flash64_attention
@@ -652,57 +689,249 @@ def eval_phase(dev, served):
     t_phase = time.perf_counter()
     decode_ms = decode_phase(served["tokenizer"], served["depth"])
     out = {"decode_ms": decode_ms, "launches": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ckpt, cosmos = _reference_checkpoints(served["model"], served["tokenizer"], tmp)
-        print(f"reference-format checkpoints written: {time.perf_counter() - t0:.1f} s, "
-              f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB + "
-              f"{os.path.getsize(cosmos) / 2 ** 20:.0f} MiB")
-        argv = ["--ckpt", ckpt, "--video-tok-ckpt", cosmos, "--device", "cuda"]
-        t0 = time.perf_counter()
-        sampler, tokenizer, _ = eval_common.load_task(
-            "rgb2depth", eval_common.build_argparser("rgb2depth").parse_args(argv))
-        torch.cuda.synchronize()
-        print(f"loaded back through eval_common (no --smoke): {time.perf_counter() - t0:.1f} s")
-        greedy = eval_common.video_schedule("tok_rgb", "tok_depth", temperature=0.0)
-        clip = served["video"][:1]
-        kept = served["tokenizer"].forward(clip, device_out=True)
-        loaded = tokenizer.forward(clip, device_out=True)
-        gen = [s.generate(_rgb2depth_sample(t), greedy, seed=5)["tok_depth"]["tensor"]
-               for s, t in ((served["sampler"], kept), (sampler, loaded))]
-        if not torch.equal(kept, loaded) or not np.array_equal(*gen):
-            raise AssertionError("the checkpoints loaded back give other tokens")
-        print(f"checkpoint round trip, greedy rgb2depth of one clip: tokens bitwise equal "
-              f"({kept.numel()} rgb, {gen[0].size} depth)")
-        del sampler, tokenizer
-        # the entry points' per-clip work, with no mp4 read or written (no
-        # libav on the card's machine)
-        for task in ("rgb2depth", "depth2rgb"):
-            cond, target, _ = eval_common.TASKS[task]
-            args = eval_common.build_argparser(task).parse_args(argv)
-            sampler, tokenizer, schedule = eval_common.load_task(task, args)
-            for i in range(EVAL_FILES):
-                clip = np.random.default_rng(10 + i).integers(0, 256, (1, 16, 256, 256, 3),
-                                                              dtype=np.uint8)
-                flash64_attention.launches = 0
-                res, seconds = eval_common.run_clip(clip, sampler, tokenizer, schedule, cond,
-                                                    target, seed=args.seed)
-                launches = flash64_attention.launches
-                t0 = time.perf_counter()
-                frames = decode_video_tokens(res[target]["tensor"], tokenizer, target)
-                seconds["decode_s"] = time.perf_counter() - t0
-                print(f"{task} clip {i}: tokenize {seconds['tokenize_s']:.3f} s, generate "
-                      f"{seconds['generate_s']:.3f} s, decode {seconds['decode_s']:.3f} s, "
-                      f"flash64 launches {launches}")
-                if launches != LAUNCHES_PER_GENERATE:
-                    raise AssertionError(f"{task}: flash64 launched {launches} times")
-                gray = bool((frames[..., :1] == frames).all())
-                if frames.shape != (1, 16, 256, 256, 3) or gray != (target == "tok_depth"):
-                    raise AssertionError(f"{task}: frames {frames.shape}, gray {gray}")
-                out["launches"][task] = launches
-                out[task] = seconds
-            del sampler, tokenizer
+    t0 = time.perf_counter()
+    ckpt, cosmos = _reference_checkpoints(served["model"], served["tokenizer"], tmp)
+    out["ckpt"] = ckpt
+    print(f"reference-format checkpoints written: {time.perf_counter() - t0:.1f} s, "
+          f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB + "
+          f"{os.path.getsize(cosmos) / 2 ** 20:.0f} MiB")
+    argv = ["--ckpt", ckpt, "--video-tok-ckpt", cosmos, "--device", "cuda"]
+    t0 = time.perf_counter()
+    sampler, tokenizers, _ = eval_common.load_task(
+        "rgb2depth", eval_common.build_argparser("rgb2depth").parse_args(argv))
+    tokenizer = tokenizers["tok_vid"]
+    torch.cuda.synchronize()
+    print(f"loaded back through eval_common (no --smoke): {time.perf_counter() - t0:.1f} s")
+    greedy = eval_common.roar_schedule("tok_rgb", "tok_depth", temperature=0.0)
+    clip = served["video"][:1]
+    kept = served["tokenizer"].forward(clip, device_out=True)
+    loaded = tokenizer.forward(clip, device_out=True)
+    gen = [s.generate(_rgb2depth_sample(t), greedy, seed=5)["tok_depth"]["tensor"]
+           for s, t in ((served["sampler"], kept), (sampler, loaded))]
+    if not torch.equal(kept, loaded) or not np.array_equal(*gen):
+        raise AssertionError("the checkpoints loaded back give other tokens")
+    print(f"checkpoint round trip, greedy rgb2depth of one clip: tokens bitwise equal "
+          f"({kept.numel()} rgb, {gen[0].size} depth)")
+    del sampler, tokenizers, tokenizer
+    # the entry points' per-clip work, with no mp4 read or written (no
+    # libav on the card's machine)
+    for task in ("rgb2depth", "depth2rgb"):
+        t = eval_common.TASKS[task]
+        args = eval_common.build_argparser(task).parse_args(argv)
+        sampler, tokenizers, schedule = eval_common.load_task(task, args)
+        tokenizer = tokenizers["tok_vid"]
+        for i in range(EVAL_FILES):
+            clip = np.random.default_rng(10 + i).integers(0, 256, (1, 16, 256, 256, 3),
+                                                          dtype=np.uint8)
+            flash64_attention.launches = 0
+            res, seconds = eval_common.run_clip(clip, sampler, tokenizer, schedule, t.cond,
+                                                t.target, seed=args.seed)
+            launches = flash64_attention.launches
+            t0 = time.perf_counter()
+            frames = decode_video_tokens(res[t.target]["tensor"], tokenizer, t.target)
+            seconds["decode_s"] = time.perf_counter() - t0
+            print(f"{task} clip {i}: tokenize {seconds['tokenize_s']:.3f} s, generate "
+                  f"{seconds['generate_s']:.3f} s, decode {seconds['decode_s']:.3f} s, "
+                  f"flash64 launches {launches}")
+            if launches != LAUNCHES_PER_GENERATE:
+                raise AssertionError(f"{task}: flash64 launched {launches} times")
+            gray = bool((frames[..., :1] == frames).all())
+            if frames.shape != (1, 16, 256, 256, 3) or gray != (t.target == "tok_depth"):
+                raise AssertionError(f"{task}: frames {frames.shape}, gray {gray}")
+            out["launches"][task] = launches
+            out[task] = seconds
+        del sampler, tokenizers, tokenizer
     print(f"eval phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def seq_round_trip(tokenizer):
+    """Tokenize -> decode of seeded camera paths at B = 8 and B = 1, with the
+    tokenizer's fp32 products exact and on TF32: ms per call, the tokens TF32
+    changes and its largest change to the decoded values (information for
+    later work: the tokenizer stays exact fp32, the JAX default), and ATE /
+    RTE / RRE against the input (finite; meaningless with random weights)."""
+    from egom2p_torch.data.cam_gaze import evaluate_9d_trajectory
+    from egom2p_torch.data.cam_gaze import smooth_cam_trajectories
+    from egom2p_torch.generate.decode import decode_cam_tokens
+
+    x, gt = smooth_cam_trajectories(np.random.default_rng(20), B)
+    x = torch.from_numpy(x).to(tokenizer.device)
+    out = {}
+    for b in (B, 1):
+        ms, toks, rec = {}, {}, {}
+        for tf32 in (False, True):
+            tokenizer.tf32 = tf32
+            ms[f"tokenize_{tf32}"], toks[tf32] = _median_ms(lambda: tokenizer.tokenize(x[:b]))
+            ms[f"decode_{tf32}"], rec[tf32] = _median_ms(
+                lambda: tokenizer.decode_tokens(toks[False]))
+        tokenizer.tf32 = False
+        if tuple(toks[False].shape) != (b, 30) or not 0 <= int(toks[False].min()) <= \
+                int(toks[False].max()) < 256:
+            raise AssertionError(f"cam tokens {tuple(toks[False].shape)} out of shape or range")
+        if tuple(rec[False].shape) != (b, 60, 9) or not torch.isfinite(rec[False]).all():
+            raise AssertionError(f"decoded cam {tuple(rec[False].shape)}, or not finite")
+        changed = int((toks[True] != toks[False]).sum())
+        moved = (rec[True] - rec[False]).abs().max().item()
+        print(f"cam tokenizer, B={b}: tokenize exact fp32 {ms['tokenize_False']:.2f} ms, TF32 "
+              f"{ms['tokenize_True']:.2f} ms ({changed} of {toks[False].numel()} tokens "
+              f"differ); decode exact {ms['decode_False']:.2f} ms, TF32 "
+              f"{ms['decode_True']:.2f} ms (largest change {moved:.3e})")
+        out[b] = dict(ms, tf32_tokens_changed=changed, tf32_max_change=moved)
+    pred = decode_cam_tokens(toks[False], tokenizer)
+    metrics = evaluate_9d_trajectory(pred[0], gt[0])
+    print(f"cam round trip of clip 0 (random weights): " +
+          ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite trajectory metrics {metrics}")
+    return out
+
+
+def seq_eval_phase(dev, served, tmp, ckpt):
+    """rgb2cam and rgb2gaze at full width on checkpoint files (the module
+    docstring, 3c).  `ckpt`: the eval phase's EgoM2P-base .pth in `tmp`."""
+    from egom2p_torch.cli import eval_common, eval_model_rgb2cam, eval_model_rgb2gaze
+    from egom2p_torch.core.checkpoint import save_seq_vqvae_pth
+    from egom2p_torch.generate.decode import decode_cam_tokens
+    from egom2p_torch.ops.flash64 import flash64_attention, flash64_attention_reference
+    from egom2p_torch.tokenizers.seq_vqvae import seq_vqvae_from_config
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    kept, paths = {}, {}
+    for i, domain in enumerate(("cam", "gaze")):
+        kept[domain] = seq_vqvae_from_config(
+            domain, torch.Generator(device=dev).manual_seed(30 + i), device=dev)
+        paths[domain] = save_seq_vqvae_pth(kept[domain],
+                                           os.path.join(tmp, f"checkpoint-{domain}.pth"))
+    argv = ["--ckpt", ckpt, "--cam-tok-ckpt", paths["cam"], "--gaze-tok-ckpt", paths["gaze"],
+            "--device", "cuda"]
+    args = eval_common.build_argparser("rgb2cam").parse_args(argv)
+    loaded = {d: eval_common.load_seq_tokenizer(args, d, dev) for d in paths}
+    for d in paths:
+        if any(not torch.equal(v, loaded[d].net.state_dict()[k])
+               for k, v in kept[d].net.state_dict().items()):
+            raise AssertionError(f"the {d} tokenizer loaded back differs")
+    n_params = sum(p.numel() for p in kept["cam"].net.parameters())
+    print(f"cam / gaze tokenizers: {n_params / 1e6:.1f}M params each, written and loaded "
+          f"back in {time.perf_counter() - t0:.1f} s ({os.path.getsize(paths['cam']) / 2 ** 20:.0f} "
+          f"+ {os.path.getsize(paths['gaze']) / 2 ** 20:.0f} MiB)")
+    out = {"round_trip": seq_round_trip(loaded["cam"]), "launches": {}}
+
+    # the entry points in full over npz files of the served clips' rgb tokens,
+    # the launches counted around each generate
+    data = os.path.join(tmp, "seq_data")
+    os.makedirs(data)
+    rgb = served["rgb"].reshape(B, -1).cpu().numpy()
+    for i in range(EVAL_FILES):
+        for task in ("rgb2cam", "rgb2gaze"):
+            np.savez(os.path.join(data, f"{task}_{i}.npz"), rgb[i])
+    per_generate = []
+    run_tokens = eval_common.run_tokens
+
+    def counted(*a, **kw):
+        flash64_attention.launches = 0
+        res = run_tokens(*a, **kw)
+        per_generate.append(flash64_attention.launches)
+        return res
+
+    eval_common.run_tokens = counted
+    try:
+        for task, entry, shape in (("rgb2cam", eval_model_rgb2cam, (60, 9)),
+                                   ("rgb2gaze", eval_model_rgb2gaze, (60, 2))):
+            per_generate.clear()
+            t0 = time.perf_counter()
+            records = entry.main(argv + ["--data", data, "--out", os.path.join(tmp, "seq_out")])
+            total_s = time.perf_counter() - t0
+            for rec, launches in zip(records, per_generate):
+                arr = np.load(rec["outputs"][eval_common.TASKS[task].target])
+                print(f"{task} {rec['file']}: generate {rec['generate_s']:.3f} s, decode "
+                      f"{rec['decode_s']:.4f} s, flash64 launches {launches}, .npy {arr.shape}")
+                if arr.shape != shape or not np.isfinite(arr).all():
+                    raise AssertionError(f"{task}: .npy {arr.shape}, finite "
+                                         f"{np.isfinite(arr).all()}")
+            if len(records) != EVAL_FILES or per_generate != [SEQ_LAUNCHES[task]] * EVAL_FILES:
+                raise AssertionError(f"{task}: {len(records)} files, flash64 launches "
+                                     f"{per_generate}, expected {SEQ_LAUNCHES[task]} each")
+            print(f"{task} main(): {total_s:.1f} s with its loads")
+            out["launches"][task] = per_generate[0]
+            out[task] = records
+    finally:
+        eval_common.run_tokens = run_tokens
+
+    # greedy rgb2cam of one clip: the loaded files against the in-memory models
+    sampler, tokenizers, _ = eval_common.load_task("rgb2cam", args)
+    greedy = eval_common.roar_schedule("tok_rgb", "tok_cam", 3, temperature=0.0)
+    cond = served["rgb"][:1].reshape(1, -1)
+    gen = [eval_common.run_tokens(cond, s, greedy, "tok_rgb", "tok_cam", seed=5)[0]
+           ["tok_cam"]["tensor"] for s in (served["sampler"], sampler)]
+    traj = [decode_cam_tokens(g, tok) for g, tok in zip(gen, (kept["cam"], tokenizers["tok_cam"]))]
+    if not np.array_equal(*gen) or not np.array_equal(*traj):
+        raise AssertionError("the cam checkpoints loaded back give other tokens or poses")
+    print(f"checkpoint round trip, greedy rgb2cam of one clip: {gen[0].size} cam tokens and "
+          f"the (60, 9) trajectory bitwise equal")
+    del sampler, tokenizers
+
+    # generate on the served batch's rgb tokens at B = 1 and B = 8: launches,
+    # the median of 3 runs and, for rgb2cam, one profiled run (device time by
+    # kernel class, idle share; rgb2gaze runs the same step with fewer rows,
+    # and each profile's host-side processing takes seconds)
+    from torch.profiler import ProfilerActivity, profile
+    for b in (1, B):
+        cond = served["rgb"][:b].reshape(b, -1)
+        for task in ("rgb2cam", "rgb2gaze"):
+            t = eval_common.TASKS[task]
+            schedule = eval_common.roar_schedule(t.cond, t.target, t.steps)
+            run = lambda: eval_common.run_tokens(cond, served["sampler"], schedule,  # noqa: E731
+                                                 t.cond, t.target)
+            flash64_attention.launches = 0
+            res, _ = run()
+            launches = flash64_attention.launches
+            toks = res[t.target]["tensor"]
+            if launches != SEQ_LAUNCHES[task] or toks.shape != (b, 30) or \
+                    not res[t.target]["target_mask"].all() or toks.min() < 0 or toks.max() >= 256:
+                raise AssertionError(f"{task} B={b}: {launches} launches, tokens {toks.shape}")
+            ms, _ = _median_ms(run)
+            print(f"{task} generate, B={b}: {ms:.1f} ms per batch (median of 3), flash64 "
+                  f"launches {launches}")
+            out[f"{task}_b{b}_ms"] = ms
+            if task == "rgb2cam":
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    _, generate_s = run()
+                _device_breakdown(prof, f"{task} generate B={b}", generate_s * 1e3, ms)
+
+    # the kernel at rgb2cam's B = 1 encoder shape, beside its bound (over the
+    # live keys), its plain version and the library call
+    rng = np.random.default_rng(40)
+    n, live = SEQ_ENCODER_N, SEQ_ENCODER_LIVE
+    q, k, v = _fused_views(rng, n, n, dev, b=1)
+    blocked = (torch.arange(n, device=dev) >= live)[None]
+    got = flash64_attention(q, k, v, blocked)
+    ref = flash64_attention_reference(q, k, v, blocked)
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = _rel_l2(got, ref)
+    # what the plain version gives when the partial tile's live keys are dropped
+    tile_rel = _rel_l2(flash64_attention_reference(
+        q, k, v, (torch.arange(n, device=dev) >= live // 64 * 64)[None]), ref)
+    print(f"flash64 at {n}^2, {live} live keys vs plain: max_abs_err {err:.3e} (tolerance "
+          f"{SEQ_B1_ATOL:g}), relative L2 {rel:.3e} (tolerance {SEQ_B1_REL_L2:g}; dropping "
+          f"keys {live // 64 * 64}-{live - 1} gives {tile_rel:.3e})")
+    if err > SEQ_B1_ATOL or rel > SEQ_B1_REL_L2:
+        raise AssertionError(f"flash64 at rgb2cam's B=1 shape: max_abs_err {err}, rel L2 {rel}")
+    if tile_rel <= 2 * SEQ_B1_REL_L2:
+        raise AssertionError(f"the check cannot see the partial tile: {tile_rel}")
+    ms = _cuda_time_ms(lambda: flash64_attention(q, k, v, blocked), 20)
+    plain_ms = _cuda_time_ms(lambda: flash64_attention_reference(q, k, v, blocked), 3, 1)
+    lib_ms, _, _ = _sdpa_ms(*(_split_heads(t, HEADS) for t in (q, k, v)), blocked)
+    bound, bound_by = attention_bound_ms(2, 1, HEADS, n, live, 64)
+    print(f"flash64 at rgb2cam's B=1 encoder shape, {n}^2, {live} live keys: max_abs_err "
+          f"{err:.3e}, kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    out["b1"] = {"shape": [1, HEADS, n, n], "live_keys": live, "max_abs_err": err,
+                 "rel_l2": rel, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": lib_ms}
+    print(f"cam / gaze eval phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -1616,7 +1845,9 @@ def main() -> int:
     rows, max_err = phase(kernel_phase, dev)
     phase(ragged_phase, dev)
     launches, safemax_launches, _, served = phase(slice_phase, dev)
-    evaluated = phase(eval_phase, dev, served)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        evaluated = phase(eval_phase, dev, served, ckpt_dir)
+        seq_evaluated = phase(seq_eval_phase, dev, served, ckpt_dir, evaluated["ckpt"])
     served.clear()  # the training phases need the card's memory
     torch.cuda.empty_cache()
     train_rows = phase(train_kernel_phase, dev)
@@ -1647,7 +1878,9 @@ def main() -> int:
     serve_exp2 = exp2_bound_ms(B, HEADS, *rows[0]["shape"], SM_CLOCK_MHZ)
     add("flash64_fwd", "flash64_fwd.cu", "flash64.py:83", launches, max_err,
         rows[0]["ms"], rows[0]["plain_ms"], serve_bound, rows[0]["library_ms"],
-        exp2_bound_ms=serve_exp2, eval_launches=evaluated["launches"])
+        exp2_bound_ms=serve_exp2,
+        eval_launches={**evaluated["launches"], **seq_evaluated["launches"]},
+        rgb2cam_b1=seq_evaluated["b1"])
     add("flash64_fwd_safemax", "flash64_fwd.cu", "flash64.py:119", safemax_launches, max_err,
         rows[1]["ms"], rows[1]["plain_ms"], serve_bound, rows[1]["library_ms"],
         exp2_bound_ms=serve_exp2)

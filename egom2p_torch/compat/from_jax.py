@@ -8,7 +8,10 @@ exist with the right shape, and none may be left over.
 
   flax Dense kernel (in, out)             -> torch Linear weight (out, in)
   flax Conv kernel (kt, kh, kw, in, out)  -> torch Conv3d weight (out, in, kt, kh, kw)
+  flax Conv kernel (k, in, out)           -> torch Conv1d weight (out, in, k)
+  seq VQ-VAE quant_proj Dense (in, out)   -> 1x1 Conv1d weight (out, in, 1)
   CausalNormalize scale / bias            -> <module>.norm.weight / .bias
+  VQState embed / cluster_size / initted  -> quantize._codebook.<same>
 """
 from __future__ import annotations
 
@@ -137,3 +140,34 @@ def cosmos_state_dict_from_jax(variables: Mapping, net) -> Dict[str, torch.Tenso
         else:
             raise KeyError(f"no torch key for JAX param {'/'.join(path)}")
     return _checked(sd, net)
+
+
+# ------------------------------------------------------------- seq VQ-VAE
+def seq_vqvae_state_dict_from_jax(variables: Mapping, vq_state, tokenizer) -> Dict[str, torch.Tensor]:
+    """Flax SeqAutoencoder variables and a VQState (any arrays numpy can
+    read) -> state dict for `tokenizer.net` (egom2p_torch SeqTokenizer): the
+    key rules of egom2p_tpu/compat/torch_convert.py:convert_seq_vqvae_state_dict,
+    reversed."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(_params(variables)).items():
+        p0, leaf = path[0], path[-1]
+        if p0 in ("quant_proj", "post_quant_proj"):
+            sd[f"{p0}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                arr.T[:, :, None] if leaf == "kernel" else arr)
+            continue
+        if p0 not in ("encoder", "decoder"):
+            raise KeyError(f"no torch key for JAX param {'/'.join(path)}")
+        rest = [f"blocks.{p[len('blocks_'):]}" if p.startswith("blocks_") else p
+                for p in path[1:-1]]
+        base = ".".join([p0, *rest])
+        if leaf == "kernel" and path[1] == "conv":  # (k, in, out) -> (out, in, k)
+            sd[f"{base}.weight"] = arr.transpose(2, 1, 0)
+        elif leaf == "kernel":
+            sd[f"{base}.weight"] = arr.T
+        else:  # Dense / Conv bias, LayerNorm weight / bias
+            sd[f"{base}.{leaf}"] = arr
+    for name in ("embed", "cluster_size", "initted"):
+        sd[f"quantize._codebook.{name}"] = np.array(
+            getattr(vq_state, name), dtype=np.float32).reshape(
+                tokenizer.net.quantize._codebook.get_buffer(name).shape)
+    return _checked(sd, tokenizer.net)

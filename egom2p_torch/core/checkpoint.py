@@ -3,7 +3,8 @@ warm start, and the loaders of released EgoM2P and Cosmos weights.
 
 Port of egom2p_tpu/core/checkpoint.py (reference:
 egom2p/utils/checkpoint.py:91-157) and of the .pth readers of
-egom2p_tpu/compat/torch_convert.py:161-201, 334-366.  A training checkpoint
+egom2p_tpu/compat/torch_convert.py:161-275, 334-366 (EgoM2P, the cam and
+gaze VQ-VAEs, Cosmos).  A training checkpoint
 is `<output_dir>/checkpoint-{tag}.pth` holding
 {"model", "optimizer", "step", "epoch", "args": argparse.Namespace}, as the
 reference pickles it, so the JAX package's readers rebuild the same model
@@ -27,6 +28,7 @@ from torch import nn
 
 from egom2p_torch.tokenizers.cosmos.network import CausalDiscreteVideoTokenizer, DV4x8x8_CONFIG
 from egom2p_torch.tokenizers.cosmos.video_api import CausalVideoTokenizer
+from egom2p_torch.tokenizers.seq_vqvae import SeqTokenizer, seq_vqvae_from_config
 
 
 def checkpoint_path(output_dir: str, tag) -> str:
@@ -160,3 +162,29 @@ def load_cosmos_dv_pth(encoder_path: str, decoder_path: Optional[str] = None, cf
     copy_state_dict(net, sd, f"Cosmos weights {encoder_path}"
                              + (f" + {decoder_path}" if decoder_path else ""))
     return CausalVideoTokenizer(net.to(device))
+
+
+def load_seq_vqvae_pth(path: str, domain: str, device="cpu", **config) -> SeqTokenizer:
+    """A reference cam or gaze VQ-VAE checkpoint ({"model": state_dict} or a
+    bare state dict, with the codebook's `quantize._codebook.{embed,
+    cluster_size,initted}` buffers) -> SeqTokenizer on `device`.  `config`
+    overrides the released widths (seq_vqvae_from_config); every key of the
+    file is checked against them.  Keys ending in `pos_emb` (fixed sincos
+    tables, which the port computes) are skipped, as in load_egom2p_pth."""
+    ckpt = load_pth(path)
+    sd = dict(ckpt.get("model", ckpt))
+    initted = "quantize._codebook.initted"
+    if initted in sd and sd[initted].numel() == 1:  # a flag in any one-element form
+        sd[initted] = sd[initted].reshape(1)
+    tok = seq_vqvae_from_config(domain, **config)
+    copy_state_dict(tok.net, sd, f"{domain} tokenizer weights {path}",
+                    ignore=lambda key: key.endswith("pos_emb"))
+    tok.net.to(device)
+    return tok
+
+
+def save_seq_vqvae_pth(tokenizer: SeqTokenizer, path: str) -> str:
+    """A cam or gaze tokenizer in the reference's layout: {"model":
+    state_dict} with the codebook buffers."""
+    torch.save({"model": {k: v.cpu() for k, v in tokenizer.net.state_dict().items()}}, path)
+    return path

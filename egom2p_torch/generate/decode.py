@@ -1,13 +1,13 @@
 """Generated tokens -> artifacts for the eval entry points.
 
 Port of egom2p_tpu/generate/decode.py (reference:
-egom2p/utils/plotting_utils.py:103-131, 744-801): video token grids become
-uint8 frames through the Cosmos decoder, then an 8 fps mp4.  The two halves
-are separate functions: `decode_video_tokens` (tokens -> uint8 frames, on the
-tokenizer's device) needs no video library, `decode_tok_vid` adds the mp4.
-
-Not ported yet: the cam and gaze decoders (their VQ-VAE tokenizers and
-data/cam_gaze.py; ROADMAP.md, Queue 1 item 4).
+egom2p/utils/plotting_utils.py:103-131, 159-180, 744-801): video token grids
+become uint8 frames through the Cosmos decoder, then an 8 fps mp4; cam and
+gaze tokens become de-standardised trajectories through their VQ-VAE
+decoders, then a .npy of the first clip.  Each has two halves: the array
+half (`decode_video_tokens`, `decode_cam_tokens`, `decode_gaze_tokens`:
+tokens -> numpy, no file I/O) and the file half (`decode_tok_vid`,
+`decode_tok_cam`, `decode_tok_gaze`).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from egom2p_torch.data.cam_gaze import CAM_MEAN, CAM_STD, GAZE_MEAN, GAZE_STD
 from egom2p_torch.tokenizers.cosmos.video_api import tensor2uint8
 
 VIDEO_GRID = (5, 32, 32)
@@ -53,16 +54,47 @@ def decode_tok_vid(filename: str, mod_dict, tokenizers, key: str = "tok_rgb",
     return out
 
 
-def _not_ported(filename, mod_dict, tokenizers, key, name="tmp"):
-    raise NotImplementedError(f"decoding {key} needs the cam/gaze tokenizers, which are not "
-                              f"ported yet (ROADMAP.md, Queue 1 item 4)")
+def decode_cam_tokens(tokens, tokenizer) -> np.ndarray:
+    """(B, 30) cam tokens -> de-standardised 9-D poses (B, 60, 9), float64
+    numpy (reference: plotting_utils.py:159-169)."""
+    rec = tokenizer.decode_tokens(tokens).cpu().numpy()
+    return rec * CAM_STD + CAM_MEAN
+
+
+def decode_gaze_tokens(tokens, tokenizer) -> np.ndarray:
+    """(B, 30) gaze tokens -> gaze points in [0, 1] (B, 60, 2), float64
+    numpy (reference: plotting_utils.py:171-180)."""
+    rec = tokenizer.decode_tokens(tokens).cpu().numpy()
+    return rec[..., :2] * GAZE_STD + GAZE_MEAN
+
+
+def _save_first(filename: str, key: str, name: str, rec: np.ndarray) -> str:
+    os.makedirs(name, exist_ok=True)
+    out = f"{name}/{filename}_{key}.npy"
+    np.save(out, rec[0])
+    print("decode", key, "to", out)
+    return out
+
+
+def decode_tok_cam(filename: str, mod_dict, tokenizers, key: str = "tok_cam",
+                   name: str = "tmp") -> str:
+    """Cam tokens -> {name}/{filename}_{key}.npy of the first clip, (60, 9)."""
+    return _save_first(filename, key, name,
+                       decode_cam_tokens(mod_dict[key]["tensor"], tokenizers[key]))
+
+
+def decode_tok_gaze(filename: str, mod_dict, tokenizers, key: str = "tok_gaze",
+                    name: str = "tmp") -> str:
+    """Gaze tokens -> {name}/{filename}_{key}.npy of the first clip, (60, 2)."""
+    return _save_first(filename, key, name,
+                       decode_gaze_tokens(mod_dict[key]["tensor"], tokenizers[key]))
 
 
 _DECODERS = {
     "tok_rgb": decode_tok_vid,
     "tok_depth": decode_tok_vid,
-    "tok_cam": _not_ported,
-    "tok_gaze": _not_ported,
+    "tok_cam": decode_tok_cam,
+    "tok_gaze": decode_tok_gaze,
 }
 
 

@@ -1,0 +1,273 @@
+"""Camera-trajectory / gaze transformer VQ-VAE tokenizers (inference).
+
+Port of egom2p_tpu/tokenizers/seq_vqvae.py (reference: egom2p/vq/vqvae.py,
+egom2p/vq/models/{cam,gaze}_transformer.py):
+
+  * encoder: a strided Conv1d "patchify" (kernel = stride = the temporal
+    compression, 2 in the released configs) -> 1-D sincos posemb -> ViT
+    blocks -> a residual post-MLP with tanh (cam_transformer.py:153-225);
+    the gaze encoder multiplies the data by its validity channel first
+    (gaze_transformer.py:212-215);
+  * quant_proj / post_quant_proj: 1x1 Conv1d layers (vqvae.py:166, 430),
+    applied as products on the channel-last layout;
+  * the cosine-sim codebook (ops/vq.py) as the reference's
+    `quantize._codebook` buffers;
+  * decoder: the encoder's mirror, then each latent step projected back to
+    `temporal_compress` frames, channel-major in the projected columns
+    ('b nt (c pt) -> b (nt pt) c', cam_transformer.py:305-323).
+
+Module and buffer names are the reference's state-dict keys, so a
+reference .pth loads with a key-checked copy (core/checkpoint.py).  The
+tokenizer computes in fp32, as the JAX package's default; on the card its
+products run in exact fp32 unless `SeqTokenizer.tf32` allows TF32.
+
+Shapes of the released configs: cam (B, 60, 9) -> 30 tokens of 256 codes;
+gaze (B, 60, 3) (x, y, valid) -> 30 tokens, decoded to (B, 60, 2).
+
+Not ported yet: the gradient-trained quantizers (GradVQAutoencoder /
+GradVQTokenizer over ops/quantizers.py) and the training step.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from egom2p_torch.models.transformer import Block, LayerNorm, Linear, Mlp
+from egom2p_torch.ops.posemb import build_1d_sincos_posemb
+from egom2p_torch.ops.vq import VQConfig, VQState, indices_to_embedding, init_vq_state, vq_lookup
+
+# domain -> (data channels, whether a validity channel masks the input)
+DOMAINS = {"cam": (9, False), "gaze": (2, True)}
+MLP_RATIO = 4.0
+
+
+class Conv1x1(nn.Conv1d):
+    """A kernel-1 Conv1d (the reference's weight (out, in, 1)) applied to
+    channel-last (..., in) input as a product."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, kernel_size=1)
+
+    def forward(self, x):
+        return F.linear(x, self.weight[..., 0], self.bias)
+
+
+class PatchConv1d(nn.Conv1d):
+    """The strided temporal patchify, kernel = stride = `t`: (B, T, C) ->
+    (B, T / t, dim), as one product over each window of t frames."""
+
+    def __init__(self, in_channels: int, dim: int, t: int):
+        super().__init__(in_channels, dim, kernel_size=t, stride=t)
+
+    def forward(self, x):
+        b, n, c = x.shape
+        t = self.kernel_size[0]
+        windows = x[:, :n // t * t].reshape(b, n // t, t, c)  # (b, n', k, c)
+        weight = self.weight.permute(0, 2, 1).reshape(self.out_channels, t * c)
+        return F.linear(windows.reshape(b, n // t, t * c), weight, self.bias)
+
+
+class _SeqTrunk(nn.Module):
+    """posemb -> blocks -> residual tanh post-MLP, shared by both halves
+    (the released configs' post_mlp=True, mlp_ratio 4)."""
+
+    def __init__(self, n_tok: int, dim: int, depth: int, num_heads: int):
+        super().__init__()
+        self.register_buffer("pos", torch.from_numpy(build_1d_sincos_posemb(n_tok, dim)),
+                             persistent=False)
+        self.blocks = nn.ModuleList(Block(dim, num_heads, MLP_RATIO, qkv_bias=True)
+                                    for _ in range(depth))
+        self.norm_mlp = LayerNorm(dim)
+        self.post_mlp = Mlp(dim, int(MLP_RATIO * dim), act=torch.tanh)
+
+    def trunk(self, x):
+        x = x + self.pos.to(x.dtype)
+        for blk in self.blocks:
+            x = blk(x)
+        return x + self.post_mlp(self.norm_mlp(x))
+
+
+class SeqEncoder(_SeqTrunk):
+    """(B, T, C) -> (B, T / tc, dim) (reference: cam_transformer.py:131-225)."""
+
+    def __init__(self, in_channels: int, num_frames: int = 60, dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, temporal_compress: int = 2,
+                 mask_input: bool = False):
+        super().__init__(num_frames // temporal_compress, dim, depth, num_heads)
+        self.in_channels = in_channels
+        self.mask_input = mask_input
+        self.conv = PatchConv1d(in_channels, dim, temporal_compress)
+
+    def forward(self, x):
+        if self.mask_input:  # (B, T, C + 1): the last channel is the validity mask
+            x = x[..., :self.in_channels] * x[..., self.in_channels:]
+        return self.trunk(self.conv(x))
+
+
+class SeqDecoder(_SeqTrunk):
+    """(B, T / tc, dim) -> (B, T, C) (reference: cam_transformer.py:228-323)."""
+
+    def __init__(self, out_channels: int, num_frames: int = 60, dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, temporal_compress: int = 2):
+        super().__init__(num_frames // temporal_compress, dim, depth, num_heads)
+        self.out_channels = out_channels
+        self.temporal_compress = temporal_compress
+        self.out_proj = Linear(dim, out_channels * temporal_compress)
+
+    def forward(self, x):
+        x = self.out_proj(self.trunk(x))
+        b, nt, _ = x.shape
+        # 'b nt (c pt) -> b (nt pt) c'
+        x = x.reshape(b, nt, self.out_channels, self.temporal_compress)
+        return x.transpose(2, 3).reshape(b, nt * self.temporal_compress, self.out_channels)
+
+
+class Codebook(nn.Module):
+    """The codebook buffers under the reference's names
+    (`quantize._codebook.{embed,cluster_size,initted}`)."""
+
+    def __init__(self, cfg: VQConfig):
+        super().__init__()
+        self.register_buffer("embed", torch.zeros(cfg.codebook_size, cfg.dim))
+        self.register_buffer("cluster_size", torch.zeros(cfg.codebook_size))
+        self.register_buffer("initted", torch.zeros(1))
+
+
+class Quantizer(nn.Module):
+    def __init__(self, cfg: VQConfig):
+        super().__init__()
+        self.cfg = cfg
+        self._codebook = Codebook(cfg)
+
+    @property
+    def state(self) -> VQState:
+        cb = self._codebook
+        return VQState(embed=cb.embed, cluster_size=cb.cluster_size, initted=cb.initted)
+
+    def set_state(self, state: VQState) -> None:
+        for name in ("embed", "cluster_size", "initted"):
+            buf = getattr(self._codebook, name)
+            buf.copy_(getattr(state, name).reshape(buf.shape).to(buf))
+
+
+class SeqAutoencoder(nn.Module):
+    """Encoder + quant / post-quant projections + codebook + decoder."""
+
+    def __init__(self, n_channels: int, num_frames: int = 60, latent_dim: int = 32,
+                 temporal_compress: int = 2, mask_input: bool = False, dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, vq_cfg: VQConfig = None):
+        super().__init__()
+        self.encoder = SeqEncoder(n_channels, num_frames, dim, depth, num_heads,
+                                  temporal_compress=temporal_compress, mask_input=mask_input)
+        self.decoder = SeqDecoder(n_channels, num_frames, dim, depth, num_heads,
+                                  temporal_compress=temporal_compress)
+        self.quant_proj = Conv1x1(dim, latent_dim)
+        self.post_quant_proj = Conv1x1(latent_dim, dim)
+        self.quantize = Quantizer(vq_cfg or VQConfig(dim=latent_dim))
+
+    def encode_latents(self, x):
+        return self.quant_proj(self.encoder(x))  # (B, T', latent_dim)
+
+    def decode_latents(self, quant):
+        return self.decoder(self.post_quant_proj(quant))
+
+    @torch.no_grad()
+    def init_random_(self, generator: torch.Generator) -> "SeqAutoencoder":
+        """Random weights from `generator` (on the module's device), as
+        flax's defaults: lecun-normal (std fan_in^-0.5) weights, zero
+        biases, unit norm scales; a fresh codebook (ops/vq.py)."""
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                fan_in = p[0].numel()
+                p.normal_(0.0, fan_in ** -0.5, generator=generator)
+        self.quantize.set_state(init_vq_state(self.quantize.cfg, generator,
+                                              device=self.quantize._codebook.embed.device))
+        return self
+
+
+class SeqTokenizer:
+    """Bundles a SeqAutoencoder (fp32, eval mode) with the user-facing calls
+    of the reference's VQVAE (vqvae.py:285-362): encode / tokenize /
+    decode_tokens / autoencode.  Inputs may be numpy or tensors on any
+    device; outputs are tensors on the tokenizer's device."""
+
+    def __init__(self, net: SeqAutoencoder):
+        self.net = net.float().eval()
+        # whether the card's fp32 products may run on TF32 while the tokenizer
+        # computes; the JAX default is exact fp32
+        self.tf32 = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.net.quantize._codebook.embed.device
+
+    @property
+    def vq_cfg(self) -> VQConfig:
+        return self.net.quantize.cfg
+
+    @property
+    def vq_state(self) -> VQState:
+        return self.net.quantize.state
+
+    @contextlib.contextmanager
+    def _precision(self):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = self.tf32
+        try:
+            with torch.inference_mode():
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device, torch.float32)
+
+    def encode(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, C) -> (quantized latents (B, T', D), tokens (B, T'))."""
+        with self._precision():
+            lat = self.net.encode_latents(self._input(x))
+            return vq_lookup(self.vq_cfg, self.vq_state, lat)
+
+    def tokenize(self, x) -> torch.Tensor:
+        return self.encode(x)[1]
+
+    def decode_tokens(self, tokens) -> torch.Tensor:
+        """(B, T') token ids -> (B, T, C) fp32."""
+        with self._precision():
+            quant = indices_to_embedding(self.vq_state, tokens)
+            return self.net.decode_latents(quant)
+
+    def autoencode(self, x) -> torch.Tensor:
+        quant, _ = self.encode(x)
+        with self._precision():
+            return self.net.decode_latents(quant)
+
+
+def seq_vqvae_from_config(domain: str, generator: torch.Generator = None,
+                          num_frames: int = 60, temporal_compress: int = 2,
+                          codebook_size: int = 256, latent_dim: int = 32,
+                          dim: int = 768, depth: int = 12, num_heads: int = 12,
+                          device=None) -> SeqTokenizer:
+    """A cam or gaze tokenizer at the released configs' widths by default
+    (reference cfgs/default/tokenization/vqvae/{cam_traj,gaze}/*.yaml), on
+    `device`: random weights from `generator` (on that device), or zeros
+    to be loaded over when `generator` is None."""
+    if domain not in DOMAINS:
+        raise ValueError(f"unknown seq-vqvae domain {domain!r}")
+    n_channels, mask_input = DOMAINS[domain]
+    vq_cfg = VQConfig(codebook_size=codebook_size, dim=latent_dim, use_cosine_sim=True)
+    net = SeqAutoencoder(n_channels, num_frames, latent_dim, temporal_compress, mask_input,
+                         dim, depth, num_heads, vq_cfg)
+    if device is not None:
+        net = net.to(device)
+    if generator is not None:
+        net.init_random_(generator)
+    return SeqTokenizer(net)

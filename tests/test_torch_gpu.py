@@ -677,7 +677,57 @@ def test_checkpoint_round_trip_greedy_tokens_on_the_card(cuda, tmp_path):
                           .astype(np.int32)}}
     init_full_input_modality(sample, MODALITY_INFO, "tok_rgb")
     init_empty_target_modality(sample, MODALITY_INFO, "tok_depth", 2, 5120)
-    greedy = eval_common.video_schedule("tok_rgb", "tok_depth", temperature=0.0)
+    greedy = eval_common.roar_schedule("tok_rgb", "tok_depth", temperature=0.0)
     a, b = (GenerationSampler(m).generate(sample, greedy, seed=5)["tok_depth"]["tensor"]
             for m in (model, loaded))
     np.testing.assert_array_equal(a, b)
+
+
+# the seq VQ-VAE in fp32 on the card against the CPU: the same products in
+# another order through 2 + 2 blocks
+SEQ_DECODE_ATOL = 1e-4
+SEQ_TIE_GAP = 1e-4
+
+
+@pytest.mark.parametrize("domain", ["cam", "gaze"])
+def test_seq_tokenizer_on_the_card_matches_the_cpu(cuda, domain):
+    import copy
+
+    from egom2p_torch.ops.vq import l2norm
+    from egom2p_torch.tokenizers.seq_vqvae import SeqTokenizer, seq_vqvae_from_config
+    cpu = seq_vqvae_from_config(domain, torch.Generator().manual_seed(0), dim=128, depth=2,
+                                num_heads=2)
+    card = SeqTokenizer(copy.deepcopy(cpu.net).to(cuda))
+    assert card.device.type == "cuda" and not card.tf32
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((4, 60, 9 if domain == "cam" else 3)).astype(np.float32)
+    if domain == "gaze":
+        x[..., 2] = rng.uniform(size=(4, 60)) > 0.2
+    lat = cpu.net.encode_latents(torch.from_numpy(x)).detach()
+    top2 = torch.topk(l2norm(lat) @ l2norm(cpu.vq_state.embed).t(), 2).values
+    clear = (top2[..., 0] - top2[..., 1] > SEQ_TIE_GAP).numpy()
+    ref, got = cpu.tokenize(x).numpy(), card.tokenize(x).cpu().numpy()
+    np.testing.assert_array_equal(got[clear], ref[clear])
+    tokens = rng.integers(0, 256, (4, 30))
+    torch.testing.assert_close(card.decode_tokens(tokens).cpu(), cpu.decode_tokens(tokens),
+                               atol=SEQ_DECODE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("task,shape,layers_x_steps", [("rgb2cam", (60, 9), 6 * 3),
+                                                       ("rgb2gaze", (60, 2), 6 * 5)])
+def test_seq_entry_points_on_the_card(cuda, tmp_path, monkeypatch, task, shape, layers_x_steps):
+    """rgb2cam / rgb2gaze with --smoke on the tiny model (6 encoder layers):
+    the encoder's attention on the flash64 kernel, 2 CFG branches a step."""
+    import importlib
+
+    from egom2p_torch.cli import eval_common
+    from egom2p_torch.ops.flash64 import flash64_attention
+    monkeypatch.setattr(eval_common, "SEQ_CONFIG", dict(dim=128, depth=2, num_heads=2))
+    np.savez(tmp_path / f"{task}_0.npz", np.random.default_rng(0).integers(0, 64000, 5120))
+    entry = importlib.import_module(f"egom2p_torch.cli.eval_model_{task}")
+    flash64_attention.launches = 0
+    (rec,) = entry.main(["--smoke", "--model", "egom2p_tiny_6e_6d_swiglu_nobias",
+                         "--data", str(tmp_path), "--out", str(tmp_path / "out")])
+    assert flash64_attention.launches == 2 * layers_x_steps
+    out = np.load(next(iter(rec["outputs"].values())))
+    assert out.shape == shape and np.isfinite(out).all()

@@ -268,14 +268,19 @@ def test_sass_diff_matches_instances_across_a_new_head_width_parameter():
 
 
 def test_eval_path_imports_no_jax():
-    """The slice's modules (eval entry points, checkpoints, Cosmos decode,
-    mp4 in and out) and chip_smoke.py load without JAX or the JAX package."""
+    """The slices' modules (eval entry points, checkpoints, Cosmos decode,
+    mp4 in and out; the cam / gaze VQ-VAE, VQ lookup, cam / gaze host
+    modules and metrics) and chip_smoke.py load without JAX or the JAX
+    package."""
     import subprocess
     code = ("import sys\n"
             "import chip_smoke\n"
             "import egom2p_torch.cli.eval_model_rgb2depth, egom2p_torch.cli.eval_model_depth2rgb\n"
             "import egom2p_torch.core.checkpoint, egom2p_torch.generate.decode\n"
             "import egom2p_torch.data.video_ingest, egom2p_torch.cli.run_training\n"
+            "import egom2p_torch.cli.eval_model_rgb2cam, egom2p_torch.cli.eval_model_rgb2gaze\n"
+            "import egom2p_torch.ops.vq, egom2p_torch.tokenizers.seq_vqvae\n"
+            "import egom2p_torch.data.cam_gaze, egom2p_torch.core.metrics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
             " 'egom2p_tpu')]\n"
             "assert not bad, bad\n")
