@@ -79,6 +79,33 @@
    64k head's share of live rows on one batch and,
    on one batch, the loss and gradients with the kernels against the same
    model with the plain versions swapped in.
+5b. Training on token shards, at full width: aligned tar shards of seeded
+   tokens at the released shapes (tok_rgb and tok_depth 5 x 32 x 32, V =
+   64000; tok_cam and tok_gaze 30, V = 256), 4 train shards of 16 samples
+   and a held-out shard of 16, a JSON data config mirroring
+   cfgs/egom2p/data_mod4.yaml with a `val` section, and the trainer at
+   cfgs/egom2p/main_mod4.yaml's settings (the YAML files where PyYAML is
+   installed, else JSON copies) with 2 forked loader workers (forked from
+   this process, whose CUDA context is up), 2 epochs of 4 steps and 2 eval
+   batches.  Checks 36 / 36 / 36 / 2 launches a step, finite losses near
+   ln V, that every train batch holds train samples only and every eval
+   batch held-out ones, 72 forward and 4 CE launches per validation pass
+   and only the 4 CE launches per fixed-eval pass (128 + 128 tokens: the
+   dense attention), the fixed-eval batches identical in both epochs and
+   the val_* / fixed_eval_* losses in log.txt.  Prints the shard step's
+   time beside phase 5's synthetic one, a profiled shard step with its
+   data (device idle share), the loader alone in batches/s with 0 and 2
+   workers; then --frozen_model_epochs 1: the trunk bitwise unchanged
+   after epoch 0, every trunk tensor moved after epoch 1.
+5c. Activation checkpointing: EgoM2P-base at B = 8 with
+   --use_act_checkpoint true through the trainer (72 forward, 36 dq, 36
+   dk/dv, 2 CE launches a step: the forward kernel runs again in each
+   block's backward); on one batch and one set of weights, the loss and
+   every gradient with remat none, full and dots bitwise equal, with their
+   times, peak memory and launches, and the forward kernel run twice on
+   the same inputs bitwise; then EgoM2P-large at B = 8 with remat full
+   (144 stock forward and 72 stock backward launches a step), within the
+   card's memory, every parameter moved.
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -1586,10 +1613,12 @@ def _head_live_shares(model, batch, n_tokens=2048):
     return shares
 
 
-def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_kind):
-    """TRAIN_STEPS steps of the port's trainer at cfgs/egom2p/main_mod4.yaml's
-    settings, checked; then a profiled step and the one-batch step check.
-    Returns (launch totals, median step ms)."""
+def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_kind,
+              steps=TRAIN_STEPS, extra=()):
+    """`steps` steps of the port's trainer at cfgs/egom2p/main_mod4.yaml's
+    settings (and the arguments `extra`), checked; then, where `plain_kind`
+    is given, a profiled step and the one-batch step check.  Returns
+    (launch totals, median step ms, peak GiB)."""
     from egom2p_torch.cli import run_training
     from egom2p_torch.data.loader import batch_to_device
     from egom2p_torch.models.egom2p import create_model
@@ -1600,9 +1629,9 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
             "--num_input_tokens", "2048", "--num_target_tokens", "2048", "--loss_type", "mod",
             "--batch_size", str(batch), "--accum_steps", "1", "--blr", "1e-4", "--min_blr", "0",
             "--opt_betas", "0.9", "0.95", "--weight_decay", "0.05", "--clip_grad", "1.0",
-            "--lr_schedule", "constant", "--epochs", "1",
-            "--epoch_size", str(batch * TRAIN_STEPS),
-            "--seed", "0", "--output_dir", out_dir, "--print_freq", "1"])
+            "--lr_schedule", "constant", "--epochs", "1", "--eval_freq", "0",
+            "--epoch_size", str(batch * steps),
+            "--seed", "0", "--output_dir", out_dir, "--print_freq", "1", *extra])
         per_step = []
         torch.cuda.reset_peak_memory_stats(dev)
         _reset_counts()
@@ -1617,25 +1646,18 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
         totals = _counts()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         ckpt_ok = (torch.load(f"{out_dir}/checkpoint-final.pth", map_location="cpu",
-                              mmap=True, weights_only=False)["step"] == TRAIN_STEPS)
-    if not ckpt_ok or len(per_step) != TRAIN_STEPS:
+                              mmap=True, weights_only=False)["step"] == steps)
+    if not ckpt_ok or len(per_step) != steps:
         raise AssertionError(f"{label}: {len(per_step)} steps ran, checkpoint ok: {ckpt_ok}")
     for step, (launches, metrics, _) in enumerate(per_step):
         if launches != expected:
             raise AssertionError(f"{label} step {step} launched {launches}, expected {expected}")
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"{label} step {step}: non-finite metrics {metrics}")
-    # a modality's loss is exactly 0 in a batch that holds none of its
-    # targets (the Dirichlet budgets often give cam and gaze none): check
-    # each at the first step that has its targets
-    for mod, vocab in (("tok_rgb", 64000), ("tok_depth", 64000), ("tok_cam", 256),
-                       ("tok_gaze", 256)):
-        losses = [m[f"loss_{mod}"] for _, m, _ in per_step if m[f"loss_{mod}"] != 0.0]
-        if not losses or abs(losses[0] - math.log(vocab)) > 0.5:
-            raise AssertionError(f"{label} {mod}: first losses {losses[:1]}, ln {vocab} = "
-                                 f"{math.log(vocab):.3f}")
+    _check_first_losses(label, per_step)
     model = out["model"]
-    init = create_model(args.model, run_training.MODS4, run_training.MODS4, device=dev)
+    init = create_model(args.model, sorted(run_training.MODS4), sorted(run_training.MODS4),
+                        device=dev)
     init.init_random_(torch.Generator(device=dev).manual_seed(args.seed))
     moved = [not torch.equal(a, b) for a, b in zip(model.parameters(), init.parameters())]
     del init
@@ -1653,6 +1675,10 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
           f"{tflop / step_ms * 1e3:.1f} TFLOP/s, {tflop / step_ms * 1e3 / BF16_PEAK_TFLOPS:.1%} "
           f"of the card's dense bf16 peak ({BF16_PEAK_TFLOPS:.0f} TFLOP/s); "
           f"launches per step {expected}")
+    if plain_kind is None:
+        del out, model
+        torch.cuda.empty_cache()
+        return totals, step_ms, peak_gib
     loader, _ = run_training.setup_data(args)
     it = iter(loader)
     data = batch_to_device(next(it), dev)
@@ -1665,21 +1691,21 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     step_check(model, data, expected, _plain_versions(plain_kind))
     del model, data
     torch.cuda.empty_cache()
-    return totals, step_ms
+    return totals, step_ms, peak_gib
 
 
 
 def train_slice_phase(dev):
     return train_run(dev, "EgoM2P-base", BASE_MODEL, B, DEFAULT_STEP,
-                     train_flops_per_sample(), "default")
+                     train_flops_per_sample(), "default")[:2]
 
 
 def fused_train_phase(dev, default_ms):
     """The base training run with both fused backward kernels switched on
     for this phase only."""
     with _env(EGOM2P_F64T_FUSED_BWD="1", EGOM2P_CE_PALLAS_BWD="1"):
-        totals, step_ms = train_run(dev, "EgoM2P-base, fused backwards", BASE_MODEL, B,
-                                    FUSED_STEP, train_flops_per_sample(), "fused")
+        totals, step_ms, _ = train_run(dev, "EgoM2P-base, fused backwards", BASE_MODEL, B,
+                                       FUSED_STEP, train_flops_per_sample(), "fused")
     print(f"fused backwards: step {step_ms:.1f} ms vs {default_ms:.1f} ms with the split "
           f"attention backward and the plain CE backward ({step_ms / default_ms - 1:+.1%})")
     return totals, step_ms
@@ -1732,7 +1758,442 @@ def large_train_phase(dev):
     route's kernels at head_dim 80 (heads of 68 zero-padded)."""
     return train_run(dev, "EgoM2P-large", LARGE_MODEL, LARGE_B, LARGE_STEP,
                      train_flops_per_sample(n_layers=24, dim=1020, h=int(2 * 4 * 1020 / 3)),
-                     "large")
+                     "large")[:2]
+
+
+# ---------------------------------------------------------------- phase 5b
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+# the released token shapes and vocabularies, by the registry's shard directory
+SHARD_MODS = {"tok_rgb": ("rgb", (5, 32, 32), 64000), "tok_depth": ("depth", (5, 32, 32), 64000),
+              "tok_cam": ("cam", (30,), 256), "tok_gaze": ("gaze", (30,), 256)}
+SHARDS, SHARD_SAMPLES = 4, 16           # train shards x samples; one held-out shard of 16
+SHARD_EPOCHS, SHARD_STEPS = 2, 4
+SHARD_WORKERS, SHARD_EVAL_ITERS = 2, 2
+LOADER_BATCHES = 24                     # timed batches of the loader alone
+# cfgs/egom2p/data_mod4.yaml and cfgs/alphas/mod4_uniform.yaml key for key,
+# and main_mod4.yaml's settings as arguments: used where PyYAML is missing
+DATA_MOD4 = {"train": {"datasets": {"example": {
+    "type": "multimodal", "in_domains": "tok_rgb-tok_depth-tok_gaze-tok_cam",
+    "out_domains": "tok_rgb-tok_depth-tok_gaze-tok_cam", "input_alphas": None,
+    "target_alphas": None, "alphas_config": "cfgs/alphas/mod4_uniform.yaml",
+    "num_input_tokens": 2048, "num_target_tokens": 2048,
+    "data_path": "/data/tokens/[rgb,depth,cam,gaze]/example/shard-{000000..000195}.tar",
+    "use_wds": True, "wds_n_repeats": 4, "wds_shuffle_buffer_tar": 1000}},
+    "weights": [1.0]}}
+_ALPHAS4 = {"input_alphas": [0.01, 0.1, 1.0, 10.0], "target_alphas": [0.01, 0.1, 1.0, 10.0]}
+ALPHAS_MOD4 = {"sampling_weights": [1.0, 1.0, 1.0, 1.0],
+               "alphas_mixture": {m: dict(_ALPHAS4) for m in
+                                  ("tok_rgb", "tok_depth", "tok_gaze", "tok_cam")}}
+MAIN_MOD4_ARGS = ["--run_name", "auto", "--num_input_tokens", "2048", "--num_target_tokens",
+                  "2048", "--loss_type", "mod", "--model", BASE_MODEL,
+                  "--use_act_checkpoint", "false", "--total_tokens", "500", "--blr", "0.0001",
+                  "--min_blr", "0", "--warmup_epochs", "-1", "--warmup_tokens", "10",
+                  "--batch_size", "8", "--accum_steps", "1", "--clip_grad", "1",
+                  "--eval_freq", "1", "--save_ckpt_freq", "1"]
+NO_LAUNCHES = {k: 0 for k in DEFAULT_STEP}
+# one eval pass of SHARD_EVAL_ITERS batches: validation at 2048 + 2048 runs
+# the training forward kernel (no backward) and both 64k heads' CE forward;
+# fixed eval at 128 + 128 takes the dense attention (128 * 128 < 256^2, as
+# in JAX), its heads still flash CE
+VAL_PASS = dict(NO_LAUNCHES, fwd=36 * SHARD_EVAL_ITERS, ce_fwd=2 * SHARD_EVAL_ITERS)
+FIXED_PASS = dict(NO_LAUNCHES, ce_fwd=2 * SHARD_EVAL_ITERS)
+
+
+def write_shards(root, name, n_shards, per_shard, seed):
+    """Aligned shards root/<rgb|depth|cam|gaze>/<name>/shard-NNNNNN.tar of
+    seeded tokens at the released shapes, as prepare_aligned_shards.py
+    writes them; returns (the data_path pattern, the set of the samples'
+    tok_rgb bytes)."""
+    import io
+    import tarfile
+    rng = np.random.default_rng(seed)
+    prints = set()
+    for shard in range(n_shards):
+        samples = [{m: rng.integers(0, vocab, shape).astype(np.int32)
+                    for m, (_, shape, vocab) in SHARD_MODS.items()} for _ in range(per_shard)]
+        prints |= {smp["tok_rgb"].tobytes() for smp in samples}
+        for m, (sub, _, _) in SHARD_MODS.items():
+            d = os.path.join(root, sub, name)
+            os.makedirs(d, exist_ok=True)
+            with tarfile.open(os.path.join(d, f"shard-{shard:06d}.tar"), "w") as tar:
+                for j, smp in enumerate(samples):
+                    buf = io.BytesIO()
+                    np.savez(buf, smp[m])
+                    info = tarfile.TarInfo(f"{name}_{shard:06d}_{j:04d}.npz")
+                    info.size = buf.tell()
+                    buf.seek(0)
+                    tar.addfile(info, buf)
+    return (f"{root}/[rgb,depth,cam,gaze]/{name}/shard-{{000000..{n_shards - 1:06d}}}.tar",
+            prints)
+
+
+def shard_configs(tmp, train_pattern, val_pattern):
+    """A JSON data config mirroring cfgs/egom2p/data_mod4.yaml on the shards
+    at `train_pattern` plus a `val` section on `val_pattern`, and the main
+    config's arguments: the repo's YAML files where PyYAML is installed,
+    else their JSON copies above.  Returns (data config path, arguments,
+    dataset name)."""
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    if yaml is not None:
+        with open(os.path.join(REPO_DIR, "cfgs/egom2p/data_mod4.yaml")) as f:
+            data = yaml.safe_load(f)
+        alphas = os.path.join(REPO_DIR, "cfgs/alphas/mod4_uniform.yaml")
+        main_args = ["--config", os.path.join(REPO_DIR, "cfgs/egom2p/main_mod4.yaml")]
+    else:
+        data = json.loads(json.dumps(DATA_MOD4))
+        alphas = os.path.join(tmp, "mod4_uniform.json")
+        with open(alphas, "w") as f:
+            json.dump(ALPHAS_MOD4, f)
+        main_args = list(MAIN_MOD4_ARGS)
+    (name, dataset), = data["train"]["datasets"].items()
+    dataset.update(data_path=train_pattern, alphas_config=alphas)
+    data["val"] = {"datasets": {name: {"data_path": val_pattern}}}
+    path = os.path.join(tmp, "data_mod4.json")
+    with open(path, "w") as f:
+        json.dump(data, f)
+    print("shard phase configs: " + ("cfgs/egom2p/main_mod4.yaml, data_mod4.yaml and "
+                                      "alphas/mod4_uniform.yaml through PyYAML" if yaml else
+                                      "JSON copies of cfgs/egom2p/{main,data}_mod4.yaml and "
+                                      "cfgs/alphas/mod4_uniform.yaml (no PyYAML here)"))
+    return path, main_args, name
+
+
+def _batch_equal(a, b) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[m][k], b[m][k])
+                                        for m in a for k in a[m])
+
+
+def _check_first_losses(label, per_step):
+    """A modality's loss is exactly 0 in a batch that holds none of its
+    targets (the Dirichlet budgets often give cam and gaze none): each is
+    checked at the first step that has its targets."""
+    for mod, vocab in (("tok_rgb", 64000), ("tok_depth", 64000), ("tok_cam", 256),
+                       ("tok_gaze", 256)):
+        losses = [m[f"loss_{mod}"] for _, m, _ in per_step if m[f"loss_{mod}"] != 0.0]
+        if not losses or abs(losses[0] - math.log(vocab)) > 0.5:
+            raise AssertionError(f"{label} {mod}: first losses {losses[:1]}, ln {vocab} = "
+                                 f"{math.log(vocab):.3f}")
+
+
+def shard_train_phase(dev, synthetic_ms):
+    """Phase 5b (docstring): the trainer on aligned token shards with forked
+    workers, validation and fixed eval; the shard step profiled with its
+    data; the loader alone; a frozen-trunk run.  Returns the launch totals
+    of the shard run."""
+    import egom2p_torch.data.loader as loader_mod
+    from egom2p_torch.cli import run_training
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_pattern, train_prints = write_shards(tmp, "example", SHARDS, SHARD_SAMPLES, 0)
+        val_pattern, val_prints = write_shards(tmp, "held_out", 1, SHARD_SAMPLES, 1)
+        data_config, main_args, name = shard_configs(tmp, train_pattern, val_pattern)
+        out_dir = os.path.join(tmp, "out")
+        argv = [*main_args, "--data_config", data_config, "--num_workers", str(SHARD_WORKERS),
+                "--lr_schedule", "constant", "--epochs", str(SHARD_EPOCHS),
+                "--epoch_size", str(B * SHARD_STEPS), "--eval_iters", str(SHARD_EVAL_ITERS),
+                "--seed", "0", "--output_dir", out_dir, "--print_freq", "1",
+                "--save_ckpt_freq", str(SHARD_EPOCHS + 1)]
+        args = run_training.get_args(argv)
+        if (args.model, args.batch_size, args.use_act_checkpoint) != (BASE_MODEL, B, False):
+            raise AssertionError(f"main_mod4's settings not taken: {args}")
+        phase = {"name": "train", "batches": {}}
+        evals, per_step = [], []
+        real_to_device, real_eval = loader_mod.batch_to_device, run_training.run_eval
+
+        def to_device(batch, device):
+            phase["batches"].setdefault(phase["name"], []).append(batch)
+            return real_to_device(batch, device)
+
+        def run_eval(factory, eval_step, prefix, *rest):
+            phase["name"] = prefix
+            before = _counts()
+            t0 = time.perf_counter()
+            stats = real_eval(factory, eval_step, prefix, *rest)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = _counts()
+            evals.append((prefix, {k: after[k] - before[k] for k in after},
+                          phase["batches"].pop(prefix), seconds))
+            phase["name"] = "train"
+            last.update(after)
+            return stats
+
+        def on_step(step, metrics, seconds):
+            now = _counts()
+            per_step.append(({k: now[k] - last[k] for k in now}, metrics, seconds))
+            last.update(now)
+
+        loader_mod.batch_to_device, run_training.run_eval = to_device, run_eval
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        last = _counts()
+        try:
+            out = run_training.main(args, on_step=on_step)
+        finally:
+            loader_mod.batch_to_device, run_training.run_eval = real_to_device, real_eval
+        totals = _counts()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        with open(os.path.join(out_dir, "log.txt")) as f:
+            records = [json.loads(line) for line in f]
+
+        # the run: launches, losses, the samples each step and eval read
+        label = "EgoM2P-base on shards"
+        if len(per_step) != SHARD_EPOCHS * SHARD_STEPS:
+            raise AssertionError(f"{label}: {len(per_step)} steps ran")
+        for step, (launches, metrics, _) in enumerate(per_step):
+            if launches != DEFAULT_STEP:
+                raise AssertionError(f"{label} step {step} launched {launches}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"{label} step {step}: non-finite metrics {metrics}")
+        _check_first_losses(label, per_step)
+        train_rows = [r.tobytes() for b in phase["batches"]["train"]
+                      for r in b["tok_rgb"]["tensor"]]
+        if (len(phase["batches"]["train"]) != len(per_step)
+                or not set(train_rows) <= train_prints or set(train_rows) & val_prints):
+            raise AssertionError(f"{label}: a train batch holds a sample that is not a train "
+                                 "shard's, or a held-out one")
+        by_prefix = {}
+        for prefix, launches, batches, seconds in evals:
+            by_prefix.setdefault(prefix, []).append(batches)
+            want = VAL_PASS if prefix.startswith("val_") else FIXED_PASS
+            if launches != want or len(batches) != SHARD_EVAL_ITERS:
+                raise AssertionError(f"{label} eval {prefix}: {len(batches)} batches, "
+                                     f"launches {launches}, expected {want}")
+            if not {r.tobytes() for b in batches for r in b["tok_rgb"]["tensor"]} <= val_prints:
+                raise AssertionError(f"{label} eval {prefix}: a sample from outside the "
+                                     "held-out shard")
+            print(f"{label} eval {prefix[:-1]}: {seconds * 1e3:.1f} ms for {len(batches)} "
+                  f"batches, launches {({k: v for k, v in launches.items() if v})}")
+        fixed = by_prefix[f"fixed_eval_{name}_"]
+        if len(fixed) != SHARD_EPOCHS or not all(
+                _batch_equal(a, b) for a, b in zip(fixed[0], fixed[1])):
+            raise AssertionError(f"{label}: the fixed-eval batches differ between epochs")
+        keys = {f"{p}_{name}_{k}" for p in ("val", "fixed_eval")
+                for k in ("loss", *(f"loss_{m}" for m in sorted(SHARD_MODS)))}
+        evaluated = [r for r in records if keys <= set(r)]
+        if [r["epoch"] for r in evaluated] != list(range(SHARD_EPOCHS)) or not all(
+                math.isfinite(r[k]) for r in evaluated for k in keys):
+            raise AssertionError(f"{label}: log.txt lacks the eval losses: {records}")
+        step_ms = float(np.median([s for _, _, s in per_step[1:]])) * 1e3
+        print(f"{label} (B={B}, {SHARD_WORKERS} workers): train steps ms "
+              + " ".join(f"{s * 1e3:.1f}" for _, _, s in per_step)
+              + f"; median {step_ms:.1f} ms ({B * 4096 / step_ms * 1e3:.0f} tokens/s) against "
+              f"{synthetic_ms:.1f} ms on --synthetic_data in phase 5 "
+              f"({step_ms / synthetic_ms - 1:+.1%}); peak memory {peak_gib:.2f} GiB; "
+              f"val {records[-1][f'val_{name}_loss']:.4f}, fixed eval "
+              f"{records[-1][f'fixed_eval_{name}_loss']:.4f}")
+
+        # one shard step with its data (next batch, copy to the card, step),
+        # profiled; the workers forked from this process, whose CUDA
+        # context is up
+        shard_profile(dev, out["model"], out["optimizer"], args)
+        del out
+        torch.cuda.empty_cache()
+        loader_rates(args)
+        frozen_run(dev, run_training, argv)
+    print(f"shard phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def shard_profile(dev, model, optimizer, args):
+    from torch.profiler import ProfilerActivity, profile
+
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.data.loader import batch_to_device
+    from egom2p_torch.train.egom2p_train import make_train_step
+
+    step_fn = make_train_step(model, optimizer, args.num_input_tokens, args.num_target_tokens,
+                              "mod")
+    gen = torch.Generator().manual_seed(7)
+    it = iter(run_training.setup_data(args)[0])
+    try:
+        def one():
+            step_fn(batch_to_device(next(it), dev), gen)
+            torch.cuda.synchronize()
+
+        one()  # the first batch waits for the workers' shuffle buffers
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ref_ms = float(np.median(times))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        it.close()
+    print(f"shard step with its data (next batch from {args.num_workers} workers, copy, step): "
+          + " ".join(f"{t:.1f}" for t in times) + f" ms, median {ref_ms:.1f}")
+    _device_breakdown(prof, "shard step with its data", wall_ms, ref_ms)
+
+
+def loader_rates(args):
+    """The shard loader alone: batches/s over LOADER_BATCHES batches after
+    the first, with 0 and SHARD_WORKERS workers."""
+    from egom2p_torch.cli import run_training
+    for workers in (0, SHARD_WORKERS):
+        args.num_workers = workers
+        it = iter(run_training.setup_data(args)[0])
+        try:
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(LOADER_BATCHES):
+                next(it)
+            seconds = time.perf_counter() - t0
+        finally:
+            it.close()
+        print(f"shard loader alone, {workers} workers: {LOADER_BATCHES / seconds:.2f} batches/s "
+              f"of B={B} ({LOADER_BATCHES * B / seconds:.1f} samples/s)")
+    args.num_workers = SHARD_WORKERS
+
+
+def frozen_run(dev, run_training, argv):
+    """--frozen_model_epochs 1 over 2 epochs of one step: the trunk bitwise
+    its seeded init after epoch 0 and every trunk tensor moved after epoch
+    1; the rest moved in epoch 0."""
+    from egom2p_torch.core.optim import shared_params_mask
+    from egom2p_torch.models.egom2p import create_model
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = run_training.get_args([*argv, "--frozen_model_epochs", "1", "--epochs", "2",
+                                      "--epoch_size", str(B), "--eval_freq", "0",
+                                      "--output_dir", out_dir])
+        init = create_model(BASE_MODEL, sorted(SHARD_MODS), sorted(SHARD_MODS), device=dev)
+        init.init_random_(torch.Generator(device=dev).manual_seed(args.seed))
+        start = dict(init.named_parameters())
+        moved = {}
+
+        def on_epoch(epoch, model, stats):
+            trunk = shared_params_mask(model)
+            moved[epoch] = {True: [], False: []}
+            for n, p in model.named_parameters():
+                moved[epoch][trunk[n]].append(not torch.equal(p, start[n]))
+
+        launches = []
+        last = _counts()
+
+        def on_step(step, metrics, seconds):
+            now = _counts()
+            launches.append({k: now[k] - last[k] for k in now})
+            last.update(now)
+
+        run_training.main(args, on_step=on_step, on_epoch=on_epoch)
+        del init, start
+    torch.cuda.empty_cache()
+    if (launches != [DEFAULT_STEP] * 2 or any(moved[0][True]) or not all(moved[0][False])
+            or not all(moved[1][True])):
+        raise AssertionError(f"frozen trunk: launches {launches}; trunk tensors moved after "
+                             f"epoch 0: {sum(moved[0][True])} (0 expected), after epoch 1: "
+                             f"{sum(moved[1][True])} of {len(moved[1][True])}")
+    print(f"frozen trunk (--frozen_model_epochs 1): {len(moved[0][True])} trunk tensors "
+          f"bitwise unchanged after epoch 0, all moved after epoch 1; the other "
+          f"{len(moved[0][False])} moved in epoch 0")
+
+
+# ---------------------------------------------------------------- phase 5c
+REMAT_STEP = dict(DEFAULT_STEP, fwd=72)   # the forward kernel again in every block's backward
+REMAT_TRAIN_STEPS = 4
+LARGE_REMAT_B, LARGE_REMAT_STEPS = 8, 4
+LARGE_REMAT_STEP = dict(LARGE_STEP, stock_fwd=144)
+
+
+def remat_phase(dev):
+    """Phase 5c (docstring): activation checkpointing.  Returns the launch
+    totals of the base remat run and of EgoM2P-large's."""
+    t_phase = time.perf_counter()
+    base_totals, full_ms, full_gib = train_run(
+        dev, "EgoM2P-base, remat full", BASE_MODEL, B, REMAT_STEP, train_flops_per_sample(),
+        None, steps=REMAT_TRAIN_STEPS, extra=("--use_act_checkpoint", "true"))
+    remat_check(dev)
+    large_totals, _, large_gib = train_run(
+        dev, f"EgoM2P-large, B = {LARGE_REMAT_B}, remat full", LARGE_MODEL, LARGE_REMAT_B,
+        LARGE_REMAT_STEP, train_flops_per_sample(n_layers=24, dim=1020, h=int(2 * 4 * 1020 / 3)),
+        None, steps=LARGE_REMAT_STEPS, extra=("--use_act_checkpoint", "true"))
+    if large_gib >= 80:
+        raise AssertionError(f"EgoM2P-large at B = {LARGE_REMAT_B}: {large_gib:.2f} GiB")
+    print(f"remat phase: {time.perf_counter() - t_phase:.1f} s")
+    return base_totals, large_totals
+
+
+def remat_check(dev):
+    """One batch and one set of EgoM2P-base weights at B = 8: the loss and
+    every gradient of a forward and backward with remat none, full and
+    dots, bitwise; the attention forward's launches, ms and peak memory of
+    each; and the training forward kernel run twice on the same inputs, as
+    a remat backward runs it again: o and l2 bitwise."""
+    import dataclasses
+
+    import egom2p_torch.ops.flash64_train as ft
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.data.loader import batch_to_device
+    from egom2p_torch.models.egom2p import create_model
+
+    args = run_training.get_args(["--synthetic_data", "--batch_size", str(B), "--seed", "0"])
+    it = iter(run_training.setup_data(args)[0])
+    data = batch_to_device(next(it), dev)
+    it.close()
+    model = create_model(BASE_MODEL, sorted(SHARD_MODS), sorted(SHARD_MODS), device=dev)
+    model.init_random_(torch.Generator(device=dev).manual_seed(0))
+    base_cfg = model.config
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss, _ = model(data, 2048, 2048, "mod", shuffle=torch.Generator().manual_seed(3))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach()
+
+    ref = None
+    for policy in ("none", "full", "dots"):
+        model.config = dataclasses.replace(base_cfg, use_act_checkpoint=policy != "none",
+                                           remat_policy="dots" if policy == "dots" else "full")
+        run()
+        before, held = _counts(), torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: v - before[k] for k, v in _counts().items() if v - before[k]}
+        times = [ms]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        grads = [p.grad for p in model.parameters()]
+        if ref is None:
+            ref = (loss, [g.clone() for g in grads])
+            same = True
+        else:
+            same = torch.equal(loss, ref[0]) and all(torch.equal(a, b)
+                                                     for a, b in zip(grads, ref[1]))
+        print(f"remat {policy}: forward + backward {float(np.median(times)):.1f} ms (median of "
+              f"3), peak {peak / 2 ** 30:.2f} GiB ({(peak - held) / 2 ** 30:.2f} above the "
+              f"weights and held tensors), loss {loss.item():.6f}, launches {launches}, loss "
+              f"and every gradient bitwise those of no remat: {same}")
+        want = dict(DEFAULT_STEP, fwd=36 if policy == "none" else 72)
+        if not same or launches != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"remat {policy}: bitwise {same}, launches {launches}")
+    model.config = base_cfg
+    del model, ref, data
+    torch.cuda.empty_cache()
+    # the forward kernel's recompute: the encoder's shape, key padding
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(B, 2048, HEADS * 64, device=dev, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    kv_blocked = torch.rand(B, 2048, device=dev, generator=g) < 0.3
+    o1, l1 = ft.flash64_train_fwd(q, k, v, kv_blocked)
+    o2, l2 = ft.flash64_train_fwd(q, k, v, kv_blocked)
+    if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
+        raise AssertionError("the training forward kernel's second run differs from its first")
+    print("flash64_train forward run twice on the same inputs (a remat backward's "
+          "recompute): o and l2 bitwise equal")
 
 
 # instances of the attention kernels: at head_dim 64 the SAFEMAX/SEG/L2
@@ -1853,6 +2314,8 @@ def main() -> int:
     train_rows = phase(train_kernel_phase, dev)
     ce_rows = phase(ce_phase, dev)
     train_launches, default_ms = phase(train_slice_phase, dev)
+    shard_launches = phase(shard_train_phase, dev, default_ms)
+    remat_launches, large_remat_launches = phase(remat_phase, dev)
     fused_rows = phase(fused_bwd_phase, dev)
     phase(ragged_bwd_phase, dev)
     ce_bwd_rows = phase(ce_bwd_phase, dev)
@@ -1887,6 +2350,11 @@ def main() -> int:
     # the library's backward computes dq, dk and dv in one call: the split
     # kernels' rows both carry it
     step_lib = step_case["library_ms"]
+    # launches on the phase 5b and 5c paths: the shard run (its steps and
+    # evals), the base and the large remat runs
+    paths = {part: {"shard_launches": shard_launches[part],
+                    "remat_launches": remat_launches[part]}
+             for part in ("fwd", "dq", "dkv", "ce_fwd")}
     for name, src, line, part, keys, products, tensors, lib, more in (
             ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",), 2, (2, 2), step_lib["fwd"],
              {"exp2_bound_ms": exp2_bound_ms(B, HEADS, 2048, 2048, SM_CLOCK_MHZ)}),
@@ -1896,7 +2364,8 @@ def main() -> int:
              step_lib["bwd"], {"library_computes": "dq, dk and dv"})):
         add(name, src, f"flash64_train.py:{line}", train_launches[part], errs(*keys),
             step_case["ms"][part], step_case["plain_ms"][part],
-            attention_bound_ms(products, B, HEADS, 2048, 2048, 64, *tensors), lib, **more)
+            attention_bound_ms(products, B, HEADS, 2048, 2048, 64, *tensors), lib, **more,
+            **paths[part])
     add("flash64_train_dqkv", "flash64_train.cu", "flash64_train.py:296",
         fused_launches["dqkv"], max(r["err"] for r in fused_rows),
         fused_rows[0]["ms"], fused_rows[0]["plain_ms"],
@@ -1907,7 +2376,7 @@ def main() -> int:
     add("flash_ce_fwd", "flash_ce_fwd.cu", "flash_ce.py:76", train_launches["ce_fwd"],
         max(r["err"] for r in ce_rows), ce_rows[0]["ms"], ce_rows[0]["plain_ms"],
         ce_fwd_bound_ms(ce_rows[0]["R"], 768, ce_rows[0]["V"]), None,
-        matmul_ms=ce_rows[0]["matmul_ms"])
+        matmul_ms=ce_rows[0]["matmul_ms"], **paths["ce_fwd"])
     # no single PyTorch call computes the CE backward: plain_ms is the chunked route
     add("flash_ce_bwd", "flash_ce_bwd.cu", "flash_ce.py:167", fused_launches["ce_bwd"],
         max(r["err"] for r in ce_bwd_rows), ce_bwd_rows[0]["ms"], ce_bwd_rows[0]["plain_ms"],
@@ -1922,12 +2391,14 @@ def main() -> int:
         large_launches["stock_fwd"], stock_errs("o"), stock_rows[0]["ms"]["fwd"],
         stock_rows[0]["plain_ms"]["fwd"],
         attention_bound_ms(2, B, LARGE_HEADS, 2048, 2048, LARGE_HD), lib["fwd"],
-        library_math_ms=lib["math_fwd"], instance="head_dim 80")
+        library_math_ms=lib["math_fwd"], instance="head_dim 80",
+        large_b8_remat_launches=large_remat_launches["stock_fwd"])
     add("stock_flash_bwd", "flash64_train.cu", "flash_attention.py:93",
         large_launches["stock_bwd"], stock_errs("dq", "dk", "dv"), stock_rows[0]["ms"]["bwd"],
         stock_rows[0]["plain_ms"]["bwd"],
         attention_bound_ms(5, B, LARGE_HEADS, 2048, 2048, LARGE_HD, 4, 4), lib["bwd"],
-        library_math_ms=lib["math_bwd"], instance="head_dim 80")
+        library_math_ms=lib["math_bwd"], instance="head_dim 80",
+        large_b8_remat_launches=large_remat_launches["stock_bwd"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

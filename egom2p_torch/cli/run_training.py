@@ -1,36 +1,59 @@
 """EgoM2P pretraining entry point of the PyTorch port, on one device.
 
-Port of run_training_egom2p.py: the same argument names for what is
-ported (and an optional --config YAML, which needs PyYAML; keys of what is
-not ported are ignored), the token-budget derivation of epochs
-and warmup, the cosine / inverse-sqrt / constant LR schedules, AdamW, the
-training loop (aborting on a non-finite loss), a JSON line per epoch in
-<output_dir>/log.txt, and checkpoints in the reference's .pth format
-(core/checkpoint.py): checkpoint-{epoch}.pth every --save_ckpt_freq epochs
-and checkpoint-final.pth after the last.  By default a run resumes from the
-latest checkpoint in its --output_dir (model, optimizer, step and the LR
-schedule's position; --no_auto_resume starts afresh), and --finetune PATH
-warm-starts from the tensors of a checkpoint whose shapes match.  A second
-run in the same --output_dir therefore resumes from the first run's latest
-checkpoint-{N}.pth (checkpoint-final.pth only where there is none), as the
-JAX package's trainer does.  It runs on the first CUDA device
-(--device cuda, the default) and raises when there is none; --device cpu
-asks for the CPU (tiny smoke runs and tests).
+Port of run_training_egom2p.py: the same argument names and defaults for
+what is ported, a --config file whose keys become defaults (JSON, or YAML
+where PyYAML is installed; keys of what is not ported are printed and
+ignored), the token-budget derivation of epochs and warmup, the cosine /
+inverse-sqrt / constant LR schedules, AdamW, the training loop (aborting on
+a non-finite loss), a JSON line per epoch in <output_dir>/log.txt, and
+checkpoints in the reference's .pth format (core/checkpoint.py):
+checkpoint-{epoch}.pth every --save_ckpt_freq epochs and
+checkpoint-final.pth after the last.
+
+Data: aligned token shards through --data_config (a data config's `train`
+datasets, each with its own masking, weighted by `train.weights`;
+data/tar_reader.py, data/loader.py with --num_workers forked workers), or
+--synthetic_data.  After every --eval_freq epochs the held-out `val`
+datasets (their config merged over the train dataset's of the same name)
+are evaluated over --eval_iters batches, with random token budgets
+(val_<name>_*) and with budgets pinned to --fixed_eval_input_tokens /
+--fixed_eval_target_tokens and a pinned masking seed (fixed_eval_<name>_*:
+the same batches every epoch); --synthetic_data evaluates a held-out
+synthetic pool.  --frozen_model_epochs N holds the shared trunk still for
+the first N epochs; --use_act_checkpoint recomputes every block in the
+backward (--remat_policy full or dots); --num_register_tokens adds learned
+encoder tokens.
+
+By default a run resumes from the latest checkpoint in its --output_dir
+(model, optimizer, step and the LR schedule's position; --no_auto_resume
+starts afresh), preferring the largest checkpoint-{N}.pth over
+checkpoint-final.pth, as the JAX package's trainer does.  On shards a
+resumed run opens a fresh stream, as the JAX trainer does; on
+--synthetic_data it replays the seeded stream's batches already trained on.
+--finetune PATH warm-starts from the tensors of a checkpoint whose shapes
+match.  It runs on the first CUDA device (--device cuda, the default) and
+raises when there is none; --device cpu asks for the CPU (tiny runs and
+tests).
+
+    python -m egom2p_torch.cli.run_training --config cfgs/egom2p/main_mod4.yaml
 
 Smoke run without data (the config's settings as arguments):
     python -m egom2p_torch.cli.run_training --synthetic_data \
         --model egom2p_base_12e_12d_swiglu_nobias --batch_size 8 \
         --lr_schedule constant --epochs 1 --epoch_size 48
 
-Not ported yet: training on token shards (--data_config), data-parallel
-and sharded training, validation and fixed-eval loops, asynchronous saves,
-frozen-trunk phases, S3 sync, wandb and profiling.
+Not ported yet: data-parallel and sharded training, TransferMasking
+(--input_domains / --target_domains), text modalities
+(--text_tokenizer_path), Hugging Face and S3 datasets, asynchronous saves,
+S3 sync, wandb and profiling.
 """
 from __future__ import annotations
 
 import argparse
 import math
 import os
+import random
+import re
 import time
 from typing import Callable, Dict, Optional
 
@@ -38,17 +61,25 @@ import numpy as np
 import torch
 
 MODS4 = ("tok_rgb", "tok_depth", "tok_cam", "tok_gaze")
+SYNTHETIC_ALPHAS = [0.01, 0.1, 1.0, 10.0]
 
 
 def get_args(argv=None):
-    from egom2p_torch.core.config import parse_args_with_config
+    from egom2p_torch.core.config import parse_args_with_config, str2bool
 
     p = argparse.ArgumentParser("EgoM2P pretraining (PyTorch)", allow_abbrev=False)
+    p.add_argument("--run_name", default="auto")
     p.add_argument("--num_input_tokens", type=int, default=2048)
     p.add_argument("--num_target_tokens", type=int, default=2048)
     p.add_argument("--loss_type", default="mod",
                    choices=["mod", "modality", "weighted_mod", "token"])
     p.add_argument("--model", default="egom2p_base_12e_12d_swiglu_nobias")
+    p.add_argument("--num_register_tokens", type=int, default=0)
+    p.add_argument("--use_act_checkpoint", type=str2bool, default=False,
+                   help="recompute every encoder and decoder block in the backward")
+    p.add_argument("--remat_policy", default="full", choices=["full", "dots"],
+                   help="full recomputes whole blocks; dots keeps the unbatched "
+                        "products' outputs and recomputes the rest")
     p.add_argument("--epochs", type=int, default=-1)
     p.add_argument("--total_tokens", type=float, default=500,
                    help="in billions; derives epochs when --epochs < 0")
@@ -65,7 +96,20 @@ def get_args(argv=None):
     p.add_argument("--lr_schedule", default="cosine",
                    choices=["cosine", "inverse_sqrt", "constant"])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data_config", default=None)
     p.add_argument("--epoch_size", type=int, default=1_000_000)
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="forked data-loader worker processes; 0 = one background thread")
+    p.add_argument("--eval_freq", type=int, default=1)
+    p.add_argument("--fixed_eval", action="store_true", default=True)
+    p.add_argument("--no_fixed_eval", dest="fixed_eval", action="store_false")
+    p.add_argument("--fixed_eval_input_tokens", type=int, default=128)
+    p.add_argument("--fixed_eval_target_tokens", type=int, default=128)
+    p.add_argument("--eval_iters", type=int, default=10)
+    p.add_argument("--frozen_model_epochs", type=int, default=0,
+                   help="hold the shared trunk still for the first N epochs")
+    p.add_argument("--text_tokenizer_path", default=None,
+                   help="text modalities are not ported: raises when set")
     p.add_argument("--synthetic_data", action="store_true",
                    help="random token streams instead of tar shards")
     p.add_argument("--scaled_modalities", action="store_true",
@@ -83,6 +127,8 @@ def get_args(argv=None):
 
 
 def modality_info(args) -> Dict:
+    """The four modalities' registry entries (the scaled ones with
+    --scaled_modalities)."""
     from egom2p_torch.data.modality_info import (MODALITY_INFO,
                                                  make_scaled_modality_info)
     if args.scaled_modalities:
@@ -90,30 +136,178 @@ def modality_info(args) -> Dict:
     return {m: dict(MODALITY_INFO[m]) for m in MODS4}
 
 
-def setup_data(args):
-    """The synthetic train mixture loader (reference:
-    run_training_egom2p.py:200-231): a seeded pool of 256 random token
-    streams through UnifiedMasking and MixtureLoader."""
-    from egom2p_torch.data.loader import DatasetStream, MixtureLoader
-    from egom2p_torch.data.masking import UnifiedMasking
-
-    if not args.synthetic_data:
-        raise NotImplementedError("training on token shards is not ported yet: "
-                                  "pass --synthetic_data")
+def _synthetic_pool(args, seed: int, n: int):
+    """`n` seeded random samples of the four modalities, and their info with
+    the synthetic alphas (reference: run_training_egom2p.py:200-231)."""
     info = modality_info(args)
     for m in info:
-        info[m]["input_alphas"] = [0.01, 0.1, 1.0, 10.0]
-        info[m]["target_alphas"] = [0.01, 0.1, 1.0, 10.0]
-    masking = UnifiedMasking(info, args.num_input_tokens, args.num_target_tokens,
-                             sampling_weights=[1.0] * 4, seed=args.seed)
-    rng = np.random.default_rng(args.seed)
-    # fixed pool so short smoke runs can demonstrably memorize
+        info[m]["input_alphas"] = list(SYNTHETIC_ALPHAS)
+        info[m]["target_alphas"] = list(SYNTHETIC_ALPHAS)
+    rng = np.random.default_rng(seed)
     pool = [{m: rng.integers(0, info[m]["vocab_size"],
                              size=info[m]["max_tokens"]).astype(np.int32)
-             for m in MODS4} for _ in range(256)]
-    loader = MixtureLoader([DatasetStream(lambda: iter(pool), masking)], info,
-                           args.batch_size * args.accum_steps, seed=args.seed)
-    return loader, sorted(MODS4)
+             for m in MODS4} for _ in range(n)]
+    return info, pool
+
+
+def expand_modality_shards(path: str, mod_info: Dict, fallback_name: str) -> Dict:
+    """'[rgb,depth]/.../shard-{000..195}.tar' -> aligned per-modality shard
+    lists, each modality keyed by the registry entry whose `path` is its
+    directory (run_training_egom2p.py:140-168).  One process reads every
+    shard (shard_split to rank 0 of 1)."""
+    from egom2p_torch.data.tar_reader import braceexpand, shard_split
+
+    m = re.search(r"\[([^\]]+)\]", path)
+    per_mod = {}
+    for mp in (m.group(1).split(",") if m else [""]):
+        expanded = braceexpand(path.replace(f"[{m.group(1)}]", mp) if m else path)
+        mod_key = next((k for k, v in mod_info.items() if v.get("path") == mp),
+                       mp or fallback_name)
+        per_mod[mod_key] = shard_split(expanded, 0, 1)
+    return per_mod
+
+
+def _shard_factory(per_mod: Dict, n_repeats: int, buffer: int, seed: int):
+    """The raw-sample stream of one dataset's shards: repeated, shuffled
+    through a buffer; a forked worker passes its own seed and reads its
+    share of the shards (run_training_egom2p.py:265-280)."""
+    from egom2p_torch.data.tar_reader import (multi_tarfile_samples, repeated,
+                                              shard_split, shuffled)
+    pyr = random.Random(seed)
+
+    def factory(seed=None, worker_id=0, num_workers=1):
+        r = random.Random(seed) if seed is not None else pyr
+        pm = per_mod
+        if num_workers > 1 and min(len(v) for v in per_mod.values()) >= num_workers:
+            pm = {k: shard_split(v, worker_id, num_workers) for k, v in per_mod.items()}
+        return shuffled(repeated(lambda: multi_tarfile_samples(pm), n_repeats), buffer, r)
+
+    return factory
+
+
+def _no_text(args) -> None:
+    if args.text_tokenizer_path:
+        raise NotImplementedError("text modalities (--text_tokenizer_path) are not ported")
+
+
+def setup_data(args):
+    """The train mixture loader and the sorted domains
+    (run_training_egom2p.py:171-288): --synthetic_data's seeded pool of 256
+    samples, or the data config's `train` datasets."""
+    from egom2p_torch.core.config import load_data_config, setup_sampling_mod_info
+    from egom2p_torch.data.loader import DatasetStream, MixtureLoader
+    from egom2p_torch.data.masking import UnifiedMasking
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+
+    _no_text(args)
+    batch = args.batch_size * args.accum_steps
+    if args.synthetic_data:
+        # a fixed pool, so that short smoke runs can demonstrably memorize
+        info, pool = _synthetic_pool(args, args.seed, 256)
+        masking = UnifiedMasking(info, args.num_input_tokens, args.num_target_tokens,
+                                 sampling_weights=[1.0] * 4, seed=args.seed)
+        loader = MixtureLoader([DatasetStream(lambda: iter(pool), masking, name="synthetic")],
+                               info, batch, seed=args.seed, num_workers=args.num_workers)
+        return loader, sorted(MODS4)
+    if not args.data_config:
+        raise ValueError("--data_config is required without --synthetic_data")
+    train = load_data_config(args.data_config)["train"]
+    streams, all_domains = [], set()
+    for name, dcfg in train["datasets"].items():
+        if dcfg.get("type") == "huggingface":
+            raise NotImplementedError(f"dataset {name}: Hugging Face datasets are not ported "
+                                      "(they download)")
+        mod_info, sampling_weights = setup_sampling_mod_info(dcfg, MODALITY_INFO)
+        all_domains |= set(mod_info)
+        masking = UnifiedMasking(mod_info,
+                                 dcfg.get("num_input_tokens") or args.num_input_tokens,
+                                 dcfg.get("num_target_tokens") or args.num_target_tokens,
+                                 sampling_weights=sampling_weights, seed=args.seed)
+        per_mod = expand_modality_shards(dcfg["data_path"], mod_info, name)
+        factory = _shard_factory(per_mod, dcfg.get("wds_n_repeats", 1),
+                                 dcfg.get("wds_shuffle_buffer_tar", 1000), args.seed)
+        streams.append(DatasetStream(factory, masking, name=name))
+    info_all = {m: MODALITY_INFO[m] for m in sorted(all_domains)}
+    loader = MixtureLoader(streams, info_all, batch, seed=args.seed,
+                           weights=train.get("weights"), num_workers=args.num_workers)
+    return loader, sorted(all_domains)
+
+
+def setup_val_data(args):
+    """({name: factory}, {name: factory}) of the held-out validation and
+    fixed-eval loaders (run_training_egom2p.py:291-389); each factory gives
+    a fresh iterator over the same held-out samples.  Validation draws
+    token budgets as training does (masking seed + 9999); fixed eval pins
+    each sample's budgets to (--fixed_eval_input_tokens,) * 2 and
+    (--fixed_eval_target_tokens,) * 2 with the masking seed + 77777, so its
+    batches are the same every epoch."""
+    from egom2p_torch.core.config import load_data_config, setup_sampling_mod_info
+    from egom2p_torch.data.loader import DatasetStream, MixtureLoader
+    from egom2p_torch.data.masking import UnifiedMasking
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+    from egom2p_torch.data.tar_reader import multi_tarfile_samples
+
+    _no_text(args)
+
+    def masking(mod_info, sampling_weights, fixed):
+        if fixed:
+            return UnifiedMasking(mod_info, (args.fixed_eval_input_tokens,) * 2,
+                                  (args.fixed_eval_target_tokens,) * 2,
+                                  sampling_weights=sampling_weights, seed=args.seed + 77777)
+        return UnifiedMasking(mod_info, args.num_input_tokens, args.num_target_tokens,
+                              sampling_weights=sampling_weights, seed=args.seed + 9999)
+
+    def make_factory(name, samples, mod_info, sampling_weights, fixed):
+        def factory():
+            stream = DatasetStream(samples, masking(mod_info, sampling_weights, fixed),
+                                   name=name)
+            return iter(MixtureLoader([stream], mod_info, args.batch_size,
+                                      seed=args.seed + 31337, prefetch=1))
+        return factory
+
+    if args.synthetic_data:
+        # a pool from another seed than the train pool's: held out
+        info, pool = _synthetic_pool(args, args.seed + 500_000, 64)
+        return ({"synthetic_val": make_factory("synthetic_val", lambda: iter(pool), info,
+                                               [1.0] * 4, False)},
+                {"synthetic_val": make_factory("synthetic_val", lambda: iter(pool), info,
+                                               [1.0] * 4, True)})
+    dc = load_data_config(args.data_config)
+    if "val" not in dc:
+        return {}, {}
+    train_cfgs = dc.get("train", {}).get("datasets", {})
+    val_factories, fixed_factories = {}, {}
+    for name, dcfg in dc["val"]["datasets"].items():
+        base = dict(train_cfgs.get(name, {}))
+        base.update({k: v for k, v in dcfg.items() if v is not None})
+        mod_info, sampling_weights = setup_sampling_mod_info(base, MODALITY_INFO)
+        per_mod = expand_modality_shards(base["data_path"], mod_info, name)
+        samples = lambda per_mod=per_mod: multi_tarfile_samples(per_mod)  # noqa: E731
+        val_factories[name] = make_factory(name, samples, mod_info, sampling_weights, False)
+        fixed_factories[name] = make_factory(name, samples, mod_info, sampling_weights, True)
+    return val_factories, fixed_factories
+
+
+def run_eval(factory, eval_step, prefix: str, eval_iters: int, keys, device) -> Dict[str, float]:
+    """Mean of `eval_step`'s metrics over up to `eval_iters` batches of a
+    fresh iterator from `factory`, named `prefix` + key; {} without a batch
+    (run_training_egom2p.py:634-666, one process)."""
+    from egom2p_torch.data.loader import batch_to_device
+
+    accum, n = {}, 0
+    it = factory()
+    try:
+        for _ in range(eval_iters):
+            try:
+                raw = next(it)
+            except StopIteration:
+                break
+            for k, v in eval_step(batch_to_device(raw, device)).items():
+                accum[k] = accum.get(k, 0.0) + float(v)
+            n += 1
+    finally:
+        it.close()
+    return {f"{prefix}{k}": accum.get(k, 0.0) / n for k in keys} if n else {}
 
 
 def lr_schedule(args) -> np.ndarray:
@@ -149,23 +343,53 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]] = None):
+def _raise_open_files_limit() -> None:
+    """Many-shard tar loading needs many open files (reference:
+    run_training_egom2p.py:840-841)."""
+    import resource
+    try:
+        _, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    except (ValueError, OSError):
+        pass
+
+
+def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]] = None,
+         on_epoch: Optional[Callable[[int, torch.nn.Module, Dict[str, float]], None]] = None):
     """Train; returns {"model", "optimizer", "step_seconds", "metrics"}.
 
     `on_step(step, metrics, seconds)` runs after every step; `seconds` is
-    the step's wall time between two device synchronizations."""
-    from egom2p_torch.core.checkpoint import auto_load_model, save_checkpoint, warm_start
-    from egom2p_torch.core.logging import JsonlLogger, MetricLogger
-    from egom2p_torch.core.optim import Optimizer
-    from egom2p_torch.data.loader import batch_to_device
-    from egom2p_torch.models.egom2p import create_model
-    from egom2p_torch.train.egom2p_train import make_train_step
+    the step's wall time between two device synchronizations.
+    `on_epoch(epoch, model, eval_stats)` runs at the end of every epoch,
+    after its checkpoint and evaluation."""
+    from egom2p_torch.core.config import setup_run_name
 
+    _raise_open_files_limit()
+    setup_run_name(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found: the trainer runs on the first CUDA device; "
                            "pass --device cpu to train on the CPU")
     device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
     loader, domains = setup_data(args)
+    # the forked workers start here, before the first CUDA call
+    loader_it = iter(loader)
+    try:
+        return _train(args, device, loader_it, domains, on_step, on_epoch)
+    finally:
+        loader_it.close()
+
+
+def _train(args, device, loader_it, domains, on_step, on_epoch):
+    from egom2p_torch.core.checkpoint import auto_load_model, save_checkpoint, warm_start
+    from egom2p_torch.core.logging import JsonlLogger, MetricLogger
+    from egom2p_torch.core.optim import Optimizer, freeze_until, shared_params_mask
+    from egom2p_torch.data.loader import batch_to_device
+    from egom2p_torch.models.egom2p import create_model
+    from egom2p_torch.train.egom2p_train import make_eval_step, make_train_step
+
+    val_factories, fixed_factories = setup_val_data(args)
+    if val_factories:
+        print(f"val datasets: {sorted(val_factories)}")
     sched = lr_schedule(args)
     global_batch = args.batch_size * args.accum_steps
     tokens_per_sample = args.num_input_tokens + args.num_target_tokens
@@ -174,15 +398,23 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
           f"{args.epochs} epochs, first LR {sched[0]:.3e}")
 
     model_info = modality_info(args) if args.scaled_modalities else None
-    model = create_model(args.model, domains, domains, modality_info=model_info, device=device)
+    model = create_model(args.model, domains, domains, modality_info=model_info, device=device,
+                         num_register_tokens=args.num_register_tokens,
+                         use_act_checkpoint=bool(args.use_act_checkpoint),
+                         remat_policy=args.remat_policy)
     model.init_random_(torch.Generator(device=device).manual_seed(args.seed))
     print(f"model {args.model}: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
     if args.finetune:
         warm_start(model, args.finetune)
     optimizer = Optimizer(model, sched, weight_decay=args.weight_decay,
                           betas=tuple(args.opt_betas), clip_grad=args.clip_grad)
+    if args.frozen_model_epochs > 0:
+        optimizer = freeze_until(args.frozen_model_epochs * niter_per_ep,
+                                 shared_params_mask(model), optimizer, model)
     step_fn = make_train_step(model, optimizer, args.num_input_tokens,
                               args.num_target_tokens, args.loss_type, args.accum_steps)
+    eval_steps = None
+    eval_keys = ["loss"] + [f"loss_{m}" for m in sorted(model.out_domains)]
     shuffle = torch.Generator().manual_seed(args.seed + 1)
     jsonl = JsonlLogger(args.output_dir)
 
@@ -200,48 +432,65 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
                                    out_domains=list(domains))
 
     step_seconds, history = [], []
-    loader_it = iter(loader)
-    try:
+    if args.synthetic_data:
         for _ in range(step):  # the seeded stream's batches already trained on
             next(loader_it)
-        for epoch in range(start_epoch, args.epochs):
-            logger = MetricLogger(print_freq=args.print_freq)
-            for _ in logger.log_every(range(niter_per_ep), header=f"Epoch [{epoch}]",
-                                      total=niter_per_ep):
-                raw = next(loader_it)
-                batch = batch_to_device(raw, device)
-                _sync(device)
-                t0 = time.perf_counter()
-                metrics = step_fn(batch, shuffle)
-                _sync(device)
-                seconds = time.perf_counter() - t0
-                values = {k: float(v) for k, v in metrics.items()}
-                if not np.isfinite(values["loss"]):
-                    # dump the offending batch and abort
-                    # (reference: run_training_egom2p.py:731-734)
-                    os.makedirs(args.output_dir, exist_ok=True)
-                    dump = os.path.join(args.output_dir, "debug_mod_dict.npz")
-                    np.savez(dump, **{f"{m}_{k}": v for m, d in raw.items()
-                                      for k, v in d.items()})
-                    print(f"Loss is {values['loss']}, stopping training. Batch dumped to {dump}")
-                    raise SystemExit(1)
-                logger.update(**values)
-                step_seconds.append(seconds)
-                history.append(values)
-                if on_step is not None:
-                    on_step(step, values, seconds)
-                step += 1
-            jsonl.write({"epoch": epoch, "tokens_seen_B": step * tokens_per_sample
-                         * global_batch / 1e9,
-                         **{k: v.global_avg for k, v in logger.meters.items()}})
-            if (epoch + 1) % args.save_ckpt_freq == 0 or epoch == args.epochs - 1:
-                path = save_checkpoint(args.output_dir,
-                                       "final" if epoch == args.epochs - 1 else epoch,
-                                       model, optimizer, step=step, epoch=epoch,
-                                       args=ckpt_args, shuffle_rng=shuffle.get_state())
-                print(f"saved {path}")
-    finally:
-        loader_it.close()
+    for epoch in range(start_epoch, args.epochs):
+        logger = MetricLogger(print_freq=args.print_freq)
+        for _ in logger.log_every(range(niter_per_ep), header=f"Epoch [{epoch}]",
+                                  total=niter_per_ep):
+            raw = next(loader_it)
+            batch = batch_to_device(raw, device)
+            _sync(device)
+            t0 = time.perf_counter()
+            metrics = step_fn(batch, shuffle)
+            _sync(device)
+            seconds = time.perf_counter() - t0
+            values = {k: float(v) for k, v in metrics.items()}
+            if not np.isfinite(values["loss"]):
+                # dump the offending batch and abort
+                # (reference: run_training_egom2p.py:731-734)
+                os.makedirs(args.output_dir, exist_ok=True)
+                dump = os.path.join(args.output_dir, "debug_mod_dict.npz")
+                np.savez(dump, **{f"{m}_{k}": v for m, d in raw.items()
+                                  for k, v in d.items()})
+                print(f"Loss is {values['loss']}, stopping training. Batch dumped to {dump}")
+                raise SystemExit(1)
+            logger.update(**values)
+            step_seconds.append(seconds)
+            history.append(values)
+            if on_step is not None:
+                on_step(step, values, seconds)
+            step += 1
+        jsonl.write({"epoch": epoch, "tokens_seen_B": step * tokens_per_sample
+                     * global_batch / 1e9,
+                     **{k: v.global_avg for k, v in logger.meters.items()}})
+        if (epoch + 1) % args.save_ckpt_freq == 0 or epoch == args.epochs - 1:
+            path = save_checkpoint(args.output_dir,
+                                   "final" if epoch == args.epochs - 1 else epoch,
+                                   model, optimizer, step=step, epoch=epoch,
+                                   args=ckpt_args, shuffle_rng=shuffle.get_state())
+            print(f"saved {path}")
+        stats = {}
+        if args.eval_freq and (epoch + 1) % args.eval_freq == 0 and val_factories:
+            if eval_steps is None:
+                eval_steps = (make_eval_step(model, args.num_input_tokens,
+                                             args.num_target_tokens, args.loss_type),
+                              make_eval_step(model, args.fixed_eval_input_tokens,
+                                             args.fixed_eval_target_tokens, args.loss_type))
+            for name, factory in val_factories.items():
+                stats.update(run_eval(factory, eval_steps[0], f"val_{name}_",
+                                      args.eval_iters, eval_keys, device))
+            if args.fixed_eval:
+                for name, factory in fixed_factories.items():
+                    stats.update(run_eval(factory, eval_steps[1], f"fixed_eval_{name}_",
+                                          args.eval_iters, eval_keys, device))
+            if stats:
+                print(f"Epoch [{epoch}] eval: "
+                      + "  ".join(f"{k}: {v:.4f}" for k, v in stats.items()))
+                jsonl.write({"epoch": epoch, **stats})
+        if on_epoch is not None:
+            on_epoch(epoch, model, stats)
     return {"model": model, "optimizer": optimizer, "step_seconds": step_seconds,
             "metrics": history}
 

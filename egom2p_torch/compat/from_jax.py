@@ -70,7 +70,7 @@ def egom2p_state_dict_from_jax(variables: Mapping, model) -> Dict[str, torch.Ten
                 sd[f"encoder_embeddings.{mod}.mod_emb"] = arr
             if mod in out_domains:
                 sd[f"decoder_embeddings.{mod}.mod_emb"] = arr
-        elif p0 == "mask_token":
+        elif p0 in ("mask_token", "register_tokens"):
             sd[p0] = arr
         elif re.fullmatch(r"(en|de)coder_embeddings_.+", p0) and path[1:] == ("token_emb",):
             side, mod = p0.split("_embeddings_", 1)

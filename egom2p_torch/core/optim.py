@@ -10,10 +10,14 @@ the same update.  Clipping scales g by clip / |g| when |g| > clip (torch
 adds 1e-6 to |g|, optax does not: a 1e-6 relative difference).  Only
 norm parameters, biases and other 1-D parameters go undecayed (mod_emb,
 mask_token and the token embeddings are decayed, as in the reference).
+
+`freeze_until` holds the shared trunk still for the first steps of a run
+(egom2p_tpu/core/optim.py:freeze_until, `--frozen_model_epochs`).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import re
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,7 +35,8 @@ class Optimizer:
     LR array (core/schedules.py), clamped at its last value.
 
     `step()` clips the gradients, sets this step's LR and applies the
-    update; it returns the global gradient norm before clipping."""
+    update, holding the parameters `freeze_until` names still while they
+    are frozen; it returns the global gradient norm before clipping."""
 
     def __init__(self, model: nn.Module, lr_schedule: Sequence[float],
                  weight_decay: float = 0.05, betas=(0.9, 0.95), eps: float = 1e-8,
@@ -41,6 +46,7 @@ class Optimizer:
             if p.requires_grad:
                 (skip if no_decay(name, p) else decay).append(p)
         self.params = decay + skip
+        self.frozen, self.frozen_steps = [], 0  # freeze_until
         self.lr_schedule = np.asarray(lr_schedule, dtype=np.float64)
         self.clip_grad = clip_grad
         self.step_count = 0
@@ -57,12 +63,20 @@ class Optimizer:
         return float(self.lr_schedule[min(self.step_count, len(self.lr_schedule) - 1)])
 
     def step(self) -> torch.Tensor:
+        frozen = self.frozen if self.step_count < self.frozen_steps else []
+        with torch.no_grad():
+            for p in frozen:
+                p.grad = torch.zeros_like(p)
+            held = [p.detach().clone() for p in frozen]
         clip = self.clip_grad if self.clip_grad else float("inf")
         gnorm = torch.nn.utils.clip_grad_norm_(self.params, clip)
         for group in self.adamw.param_groups:
             group["lr"] = self.lr
         self.adamw.step()
         self.step_count += 1
+        with torch.no_grad():
+            for p, h in zip(frozen, held):
+                p.copy_(h)
         return gnorm
 
     def state_dict(self):
@@ -72,3 +86,29 @@ class Optimizer:
         """Adam's moments and step, and the schedule's position."""
         self.adamw.load_state_dict(state["adamw"])
         self.step_count = int(state["step_count"])
+
+
+_TRUNK = re.compile(r"(encoder|decoder)\.\d+\..+|(encoder|decoder)_norm\..+")
+
+
+def shared_params_mask(model: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> True for the shared transformer trunk: the encoder
+    and decoder blocks and their final norms, the set the reference freezes
+    in its warm-start phases (egom2p_tpu/core/optim.py:shared_params_mask;
+    reference: egom2p_model.py:805-807).  decoder_proj_context, the
+    embeddings and the tokens stay trainable."""
+    return {name: bool(_TRUNK.fullmatch(name)) for name, _ in model.named_parameters()}
+
+
+def freeze_until(frozen_steps: int, frozen_mask: Dict[str, bool], optimizer: Optimizer,
+                 model: nn.Module) -> Optimizer:
+    """Hold `model`'s parameters that `frozen_mask` marks still while fewer
+    than `frozen_steps` steps have run (reference frozen-model phases:
+    run_training_egom2p.py:686-693), as egom2p_tpu/core/optim.py:freeze_until
+    does: their gradients are zeroed before clipping and Adam (the global
+    norm sees only the trainable ones, and their Adam moments stay at their
+    initial zeros while Adam's step count runs on), and their updates,
+    weight decay included, are undone after it.  Returns `optimizer`."""
+    optimizer.frozen_steps = frozen_steps
+    optimizer.frozen = [p for name, p in model.named_parameters() if frozen_mask.get(name)]
+    return optimizer

@@ -9,17 +9,33 @@ generation hooks.  Parameters are fp32; activations run in
 `config.compute_dtype` (bf16 by default; pass "float32" for exact-math
 parity tests).
 
+Also as in the JAX package: `num_register_tokens` learned tokens prepended
+to the encoder's sequence (live keys of every attention that reads it),
+stochastic depth per sample on every residual branch
+(`drop_path_rate_encoder` / `_decoder`, a linspace over the blocks, masks
+drawn from the forward's CPU generator before each block runs), and
+activation checkpointing of every encoder and decoder block
+(`use_act_checkpoint`): `remat_policy` "full" recomputes the whole block in
+the backward, "dots" keeps the outputs of the unbatched products (aten.mm
+and aten.addmm: jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+and recomputes the rest.  The hand-written attention kernels are
+autograd.Functions around calls the dispatcher does not see, so under
+either policy their forward runs again in the backward: a remat step
+launches the attention forward twice per call.
+
 Not ported yet: sequence-type decoder modalities and the causal decoder
-(`adapt_decoder_attention_mask`), the autoregressive logits, register tokens
-and unshared modality embeddings (the released models use none of them).
+(`adapt_decoder_attention_mask`), the autoregressive logits and unshared
+modality embeddings (the released models use none of them).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -54,7 +70,20 @@ class EgoM2PConfig:
     gated_mlp: bool = False
     qk_norm: bool = False
     act: str = "gelu"
+    num_register_tokens: int = 0
+    drop_path_rate_encoder: float = 0.0
+    drop_path_rate_decoder: float = 0.0
+    use_act_checkpoint: bool = False
+    remat_policy: str = "full"  # or "dots"
     compute_dtype: str = "bfloat16"
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of the unbatched products, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class EgoM2P(nn.Module):
@@ -79,19 +108,27 @@ class EgoM2P(nn.Module):
             if mod in self.encoder_embeddings:
                 self.decoder_embeddings[mod].mod_emb = self.encoder_embeddings[mod].mod_emb
 
+        if cfg.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'full' or 'dots'")
         act = ACTIVATIONS[cfg.act]
         common = dict(mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
                       proj_bias=cfg.proj_bias, mlp_bias=cfg.mlp_bias,
                       norm_bias=cfg.norm_bias, gated_mlp=cfg.gated_mlp,
                       qk_norm=cfg.qk_norm, act=act)
-        self.encoder = nn.ModuleList([Block(cfg.dim, cfg.num_heads, **common)
-                                      for _ in range(cfg.encoder_depth)])
+        dpr_enc = np.linspace(0, cfg.drop_path_rate_encoder, cfg.encoder_depth).tolist()
+        dpr_dec = np.linspace(0, cfg.drop_path_rate_decoder, cfg.decoder_depth).tolist()
+        self.encoder = nn.ModuleList([Block(cfg.dim, cfg.num_heads, drop_path=dpr_enc[i],
+                                            **common) for i in range(cfg.encoder_depth)])
         self.encoder_norm = LayerNorm(cfg.dim, bias=cfg.norm_bias)
-        self.decoder = nn.ModuleList([DecoderBlock(cfg.dim, cfg.num_heads, **common)
-                                      for _ in range(cfg.decoder_depth)])
+        self.decoder = nn.ModuleList([DecoderBlock(cfg.dim, cfg.num_heads,
+                                                   drop_path=dpr_dec[i], **common)
+                                      for i in range(cfg.decoder_depth)])
         self.decoder_norm = LayerNorm(cfg.dim, bias=cfg.norm_bias)
         self.decoder_proj_context = Linear(cfg.dim, cfg.dim)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.dim))
+        if cfg.num_register_tokens > 0:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, cfg.num_register_tokens, cfg.dim))
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -109,7 +146,8 @@ class EgoM2P(nn.Module):
         fan_in^-0.5) for linear layers, ones/zeros for norms."""
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("mod_emb", "mask_token") or name.endswith("token_emb.weight"):
+            if leaf in ("mod_emb", "mask_token", "register_tokens") or \
+                    name.endswith("token_emb.weight"):
                 p.normal_(0.0, 0.02, generator=generator)
             elif leaf == "bias":
                 p.zero_()
@@ -160,6 +198,14 @@ class EgoM2P(nn.Module):
         tokens_k = tokens_k.masked_fill(mask_k[..., None], 0.0)
         emb_k = emb_k.masked_fill(mask_k[..., None], 0.0)
         mod_k = mod_k.masked_fill(mask_k, -1)
+        R = self.config.num_register_tokens
+        if R > 0:  # live tokens ahead of the sequence, with no position or modality
+            B = tokens_k.shape[0]
+            reg = self.register_tokens.to(tokens_k.dtype).expand(B, R, -1)
+            tokens_k = torch.cat([reg, tokens_k], dim=1)
+            emb_k = torch.cat([torch.zeros_like(reg), emb_k], dim=1)
+            mask_k = torch.cat([mask_k.new_zeros(B, R), mask_k], dim=1)
+            mod_k = torch.cat([mod_k.new_full((B, R), -1), mod_k], dim=1)
         return tokens_k, emb_k, mask_k[:, None, :], mod_k
 
     # ------------------------------------------------------- decoder masking
@@ -233,14 +279,40 @@ class EgoM2P(nn.Module):
         return tokens_k, emb_k, mask_k[:, None, :], ids_k, sa_mask, mod_k
 
     # ------------------------------------------------------------- backbones
-    def forward_encoder(self, x, encoder_mask):
+    def _keep_masks(self, blk, branches: int, B: int, generator, device):
+        """A block's stochastic-depth masks (branches, B) in training, drawn
+        on the CPU from `generator` (the default generator when None), or
+        None (eval, or a rate of 0)."""
+        if not self.training or blk.drop_path == 0.0:
+            return None
+        keep = torch.full((branches, B), 1.0 - blk.drop_path)
+        return torch.bernoulli(keep, generator=generator).to(device)
+
+    def _run_block(self, blk, *args):
+        """A block, under activation checkpointing where the config asks for
+        it and a backward will follow."""
+        cfg = self.config
+        if not (cfg.use_act_checkpoint and torch.is_grad_enabled()):
+            return blk(*args)
+        kw = {}
+        if cfg.remat_policy == "dots":
+            from torch.utils.checkpoint import create_selective_checkpoint_contexts
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_policy)
+        # the block draws no random numbers (its masks come in `args`)
+        return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    def forward_encoder(self, x, encoder_mask, generator: Optional[torch.Generator] = None):
         for blk in self.encoder:
-            x = blk(x, encoder_mask)
+            keep = self._keep_masks(blk, 2, x.shape[0], generator, x.device)
+            x = self._run_block(blk, x, encoder_mask, keep)
         return self.encoder_norm(x)
 
-    def forward_decoder(self, y, context, encoder_mask, sa_mask=None):
+    def forward_decoder(self, y, context, encoder_mask, sa_mask=None,
+                        generator: Optional[torch.Generator] = None):
         for blk in self.decoder:
-            y = blk(y, context, sa_mask, encoder_mask)
+            keep = self._keep_masks(blk, 3, y.shape[0], generator, y.device)
+            y = self._run_block(blk, y, context, sa_mask, encoder_mask, keep)
         return self.decoder_norm(y)
 
     # ------------------------------------------------------------------ loss
@@ -322,7 +394,9 @@ class EgoM2P(nn.Module):
                 compute_dtype=None):
         """Training forward (reference: egom2p_model.py:683-734): returns
         (loss, {mod: loss}).  The decoder's modality order is a permutation
-        drawn from the CPU generator `shuffle`, or sorted order."""
+        drawn from the CPU generator `shuffle`, or sorted order; in training
+        mode the stochastic-depth masks are drawn from it after the
+        permutation."""
         compute_dtype = compute_dtype or self.compute_dtype
         enc_embeds = self.embed_encoder(mod_dict, compute_dtype)
         encoder_tokens, encoder_emb, encoder_mask, _ = self.forward_mask_encoder(
@@ -333,9 +407,10 @@ class EgoM2P(nn.Module):
         decoder_tokens, decoder_emb, _, target_ids, sa_mask, dec_mod_mask = \
             self.forward_mask_decoder(dec_embeds, num_decoder_tokens, perm)
 
-        x = self.forward_encoder(encoder_tokens + encoder_emb, encoder_mask)
+        x = self.forward_encoder(encoder_tokens + encoder_emb, encoder_mask, shuffle)
         context = self.decoder_proj_context(x) + encoder_emb
-        y = self.forward_decoder(decoder_tokens + decoder_emb, context, encoder_mask, sa_mask)
+        y = self.forward_decoder(decoder_tokens + decoder_emb, context, encoder_mask, sa_mask,
+                                 shuffle)
         return self.forward_loss(y, target_ids, dec_mod_mask, loss_type,
                                  [e["mod"] for e in dec_embeds])
 

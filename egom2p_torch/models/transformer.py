@@ -194,6 +194,15 @@ def _mlp(dim, mlp_ratio, gated_mlp, act, mlp_bias):
     return cls(dim, int(dim * mlp_ratio), act=act, bias=mlp_bias)
 
 
+def drop_path(h: torch.Tensor, rate: float, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """Stochastic depth per sample (reference: egom2p_utils.py:89-100): a
+    residual branch `h` (B, N, C) scaled by 1 / (1 - rate) where `keep` (B,)
+    is 1 and zeroed where it is 0; the identity without `keep` (eval)."""
+    if keep is None or rate == 0.0:
+        return h
+    return h / (1.0 - rate) * keep.to(h.dtype)[:, None, None]
+
+
 class Block(nn.Module):
     """Pre-norm self-attention block (reference: egom2p_utils.py:335-359)."""
 
@@ -201,17 +210,21 @@ class Block(nn.Module):
                  qkv_bias: bool = True, proj_bias: bool = True,
                  mlp_bias: bool = True, norm_bias: bool = True,
                  gated_mlp: bool = False, qk_norm: bool = False,
-                 act: Callable = gelu):
+                 act: Callable = gelu, drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, bias=norm_bias)
         self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm,
                               norm_bias)
         self.norm2 = LayerNorm(dim, bias=norm_bias)
         self.mlp = _mlp(dim, mlp_ratio, gated_mlp, act, mlp_bias)
 
-    def forward(self, x, mask=None):
-        x = x + self.attn(self.norm1(x), mask)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, mask=None, keep=None):
+        """`keep` (2, B): the drawn stochastic-depth masks of the attention
+        and MLP branches, or None."""
+        k = (None, None) if keep is None else keep
+        x = x + drop_path(self.attn(self.norm1(x), mask), self.drop_path, k[0])
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path, k[1])
 
 
 class DecoderBlock(nn.Module):
@@ -221,8 +234,9 @@ class DecoderBlock(nn.Module):
                  qkv_bias: bool = True, proj_bias: bool = True,
                  mlp_bias: bool = True, norm_bias: bool = True,
                  gated_mlp: bool = False, qk_norm: bool = False,
-                 act: Callable = gelu):
+                 act: Callable = gelu, drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, bias=norm_bias)
         self.self_attn = Attention(dim, num_heads, qkv_bias, proj_bias,
                                    qk_norm, norm_bias)
@@ -233,8 +247,11 @@ class DecoderBlock(nn.Module):
         self.norm2 = LayerNorm(dim, bias=norm_bias)
         self.mlp = _mlp(dim, mlp_ratio, gated_mlp, act, mlp_bias)
 
-    def forward(self, x, context, sa_mask=None, xa_mask=None):
-        x = x + self.self_attn(self.norm1(x), sa_mask)
-        x = x + self.cross_attn(self.query_norm(x), self.context_norm(context),
-                                xa_mask)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, context, sa_mask=None, xa_mask=None, keep=None):
+        """`keep` (3, B): the stochastic-depth masks of the self-attention,
+        cross-attention and MLP branches, or None."""
+        k = (None, None, None) if keep is None else keep
+        x = x + drop_path(self.self_attn(self.norm1(x), sa_mask), self.drop_path, k[0])
+        x = x + drop_path(self.cross_attn(self.query_norm(x), self.context_norm(context),
+                                          xa_mask), self.drop_path, k[1])
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path, k[2])

@@ -1,12 +1,14 @@
-"""EgoM2P pretraining step on one device.
+"""EgoM2P pretraining and evaluation steps on one device.
 
-Port of egom2p_tpu/train/egom2p_train.py:make_train_step (reference:
-run_training_egom2p.py:678-798): the batch is split into `accum_steps`
+Port of egom2p_tpu/train/egom2p_train.py:make_train_step and
+make_eval_step (reference: run_training_egom2p.py:678-834): the batch is split into `accum_steps`
 micro-batches, each micro-batch's loss / accum_steps is back-propagated into
 the summed gradients, and the optimizer clips and applies the update.
 Parameters are fp32 and activations run in the model's compute dtype (bf16
-by default), with no loss scaling.  Data, tensor and FSDP parallelism are
-not ported yet.
+by default), with no loss scaling.  The eval step is the deterministic
+forward: eval mode (no stochastic depth), the decoder's modalities in
+sorted order, no gradient.  Data, tensor and FSDP parallelism are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -50,3 +52,18 @@ def make_train_step(model: EgoM2P, optimizer: Optimizer, num_input_tokens: int,
                 **{f"loss_{m}": v / accum_steps for m, v in mod_sums.items()}}
 
     return train_step
+
+
+def make_eval_step(model: EgoM2P, num_input_tokens: int, num_target_tokens: int,
+                   loss_type: str = "mod"):
+    """Returns eval_step(batch) -> {"loss", "loss_<mod>"}: fp32 0-d device
+    tensors of the deterministic loss; the model is left in eval mode
+    (train_step sets training mode again)."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+        model.eval()
+        loss, mod_loss = model(batch, num_input_tokens, num_target_tokens, loss_type)
+        return {"loss": loss, **{f"loss_{m}": v for m, v in mod_loss.items()}}
+
+    return eval_step

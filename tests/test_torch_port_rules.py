@@ -270,8 +270,8 @@ def test_sass_diff_matches_instances_across_a_new_head_width_parameter():
 def test_eval_path_imports_no_jax():
     """The slices' modules (eval entry points, checkpoints, Cosmos decode,
     mp4 in and out; the cam / gaze VQ-VAE, VQ lookup, cam / gaze host
-    modules and metrics) and chip_smoke.py load without JAX or the JAX
-    package."""
+    modules and metrics; the shard reader, loader, configs and train and
+    eval steps) and chip_smoke.py load without JAX or the JAX package."""
     import subprocess
     code = ("import sys\n"
             "import chip_smoke\n"
@@ -281,6 +281,8 @@ def test_eval_path_imports_no_jax():
             "import egom2p_torch.cli.eval_model_rgb2cam, egom2p_torch.cli.eval_model_rgb2gaze\n"
             "import egom2p_torch.ops.vq, egom2p_torch.tokenizers.seq_vqvae\n"
             "import egom2p_torch.data.cam_gaze, egom2p_torch.core.metrics\n"
+            "import egom2p_torch.data.tar_reader, egom2p_torch.data.loader\n"
+            "import egom2p_torch.core.config, egom2p_torch.train.egom2p_train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
             " 'egom2p_tpu')]\n"
             "assert not bad, bad\n")
@@ -306,3 +308,22 @@ def test_video_ingest_builds_the_repo_source_only(monkeypatch, tmp_path):
         vi.build()
     (cmd,) = seen
     assert cmd[0] == "g++" and [a for a in cmd if a.endswith((".cpp", ".cc", ".c"))] == [vi.SOURCE]
+
+
+def test_chip_smoke_config_copies_mirror_the_yaml_files():
+    """chip_smoke.py's JSON copies of cfgs/egom2p/data_mod4.yaml and
+    cfgs/alphas/mod4_uniform.yaml (used on a machine without PyYAML) equal
+    the files key for key, and its argument copy of main_mod4.yaml gives the
+    trainer the settings --config gives it (the data config and output
+    directory apart: the script names its own)."""
+    yaml = pytest.importorskip("yaml")
+    from egom2p_torch.cli import run_training
+    cfgs = REPO / "cfgs"
+    assert chip_smoke.DATA_MOD4 == yaml.safe_load((cfgs / "egom2p/data_mod4.yaml").read_text())
+    assert chip_smoke.ALPHAS_MOD4 == yaml.safe_load(
+        (cfgs / "alphas/mod4_uniform.yaml").read_text())
+    by_config = vars(run_training.get_args(["--config", str(cfgs / "egom2p/main_mod4.yaml")]))
+    by_args = vars(run_training.get_args(chip_smoke.MAIN_MOD4_ARGS))
+    own = ("config", "data_config", "output_dir")
+    assert {k: v for k, v in by_config.items() if k not in own} == \
+        {k: v for k, v in by_args.items() if k not in own}

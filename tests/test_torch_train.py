@@ -421,27 +421,37 @@ def test_trainer_device_choices():
 
 def test_trainer_args_and_config(tmp_path):
     """The JAX trainer's argument names; --config YAML values become
-    defaults, the command line wins; real shards are not ported yet."""
+    defaults, the command line wins; the config's data config is read (its
+    four modalities), and its shards, absent here, are skipped until a
+    whole pass has given no sample, which raises."""
     args = run_training.get_args(["--config", str(REPO / "cfgs/egom2p/main_mod4.yaml"),
                                   "--batch_size", "2"])
     assert (args.model, args.num_input_tokens, args.blr, args.batch_size) == \
         ("egom2p_base_12e_12d_swiglu_nobias", 2048, 1e-4, 2)
+    assert (args.data_config, args.use_act_checkpoint, args.eval_freq) == \
+        ("cfgs/egom2p/data_mod4.yaml", False, 1)
     args.lr_schedule, args.epochs, args.epoch_size = "constant", 1, 48
     np.testing.assert_allclose(run_training.lr_schedule(args), np.full(24, 1e-4 * 2 / 256))
     args.synthetic_data = False
-    with pytest.raises(NotImplementedError):
-        run_training.setup_data(args)
+    args.data_config = str(REPO / args.data_config)
+    loader, domains = run_training.setup_data(args)
+    assert domains == sorted(MODS4)
+    it = iter(loader)
+    with pytest.raises(RuntimeError, match="gave none"):
+        next(it)
 
 
 def test_trainer_imports_no_jax():
-    """Importing the trainer loads neither JAX nor the JAX package nor
-    PyYAML."""
+    """Importing the trainer and its data modules, and setting up its
+    loaders, loads neither JAX nor the JAX package nor PyYAML."""
     code = ("import sys\nimport egom2p_torch.cli.run_training as r\n"
             "import egom2p_torch.train.egom2p_train, egom2p_torch.core.optim\n"
             "import egom2p_torch.core.config, egom2p_torch.core.logging\n"
             "import egom2p_torch.data.loader, egom2p_torch.data.masking\n"
             "import egom2p_torch.ops.flash64_train, egom2p_torch.ops.flash_ce\n"
-            "r.get_args(['--synthetic_data'])\n"
+            "import egom2p_torch.data.tar_reader\n"
+            "a = r.get_args(['--synthetic_data', '--scaled_modalities'])\n"
+            "r.setup_data(a), r.setup_val_data(a)\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'egom2p_tpu', 'yaml') if m in sys.modules]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
