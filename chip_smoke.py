@@ -106,6 +106,30 @@
    the same inputs bitwise; then EgoM2P-large at B = 8 with remat full
    (144 stock forward and 72 stock backward launches a step), within the
    card's memory, every parameter moved.
+5d. The tokenizer half of training, at full width, end to end into the
+   trainer: the cam and gaze VQ-VAEs (dim 768, 12 + 12 blocks, latent 32,
+   256 codes) trained through egom2p_torch.cli.run_training_vqvae.main at
+   cfgs/vqvae/{cam,gaze}.yaml's settings (the YAML files where PyYAML is
+   installed, else JSON copies in the script; B = 128, exact fp32) on 1024
+   seeded trajectories each (smooth camera paths; gaze tracks with a
+   validity channel): an epoch of 8 steps and eval, then a resume for a
+   second.  Checks finite losses, every parameter and the codebook moved,
+   codes expired and replaced, no kernel launch (30 tokens take the dense
+   attention, as in JAX), the checkpoint loaded back bitwise through
+   load_seq_vqvae_pth; prints step ms, samples/s, model FLOP/s against the
+   FP32 peak, peak memory, the step on TF32 in turns with exact fp32, the
+   tokens TF32 changes on a fixed batch and a profiled cam step.  Then --tokenize of 16 clip
+   files on each trained checkpoint (the first through main(), the others
+   through tokenize_file with the checkpoint loaded once; tokens equal the
+   trained tokenizer's),
+   tokenize_videos.write_batch on 16 staged seeded uint8 clips for rgb and
+   depth at DV4x8x8's full width (ms per batch of 8; tokens read back from
+   the tars equal forward's), the `-tok` rename, prepare_aligned_shards.py,
+   and 2 EgoM2P-base steps at B = 8 on the result through
+   cli/run_training's --data_config (36 / 36 / 36 / 2 launches a step,
+   finite losses, each modality's first loss within CHAIN_LOSS_RTOL of the
+   plain versions' forward on the same step: the cam / gaze targets come
+   from briefly trained tokenizers, so ln V is not the loss to expect).
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -1546,6 +1570,19 @@ def _plain_versions(kind: str):
                     (ft, "flash64_train_dkv", ft.flash64_train_reference_dkv)]
 
 
+@contextlib.contextmanager
+def _swapped(swaps):
+    """The wrappers in `swaps` replaced by their plain versions."""
+    kernels = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for (mod, name, _), kernel in zip(swaps, kernels):
+            setattr(mod, name, kernel)
+
+
 def step_check(model, batch, expected, swaps, n_tokens=2048):
     """Loss and gradients of one step on `batch` (n_tokens input and target
     tokens), kernels vs plain versions (the wrappers in `swaps` replaced by
@@ -1572,14 +1609,8 @@ def step_check(model, batch, expected, swaps, n_tokens=2048):
     after = _counts()
     if {k: after[k] - before[k] for k in after} != expected:
         raise AssertionError("the kernel run of the step check missed a kernel")
-    kernels = [getattr(mod, name) for mod, name, _ in swaps]
-    for mod, name, plain in swaps:
-        setattr(mod, name, plain)
-    try:
+    with _swapped(swaps):
         loss_p, tok_p, grads_p = run()
-    finally:
-        for (mod, name, _), kernel in zip(swaps, kernels):
-            setattr(mod, name, kernel)
     num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(grads_k, grads_p)))
     den = math.sqrt(sum((b ** 2).sum().item() for b in grads_p))
     tok_err = abs(tok_k - tok_p) / abs(tok_p)
@@ -2204,6 +2235,372 @@ WGMMA64_INSTANCES = {"flash64_fwd_kernel": 6 + 2, "flash64_dq_kernel": 4,
                      "flash64_dkv_kernel": 8 + 2, "flash_ce_fwd_kernel": 1}
 
 
+# ---------------------------------------------------------------- phase 5d
+# cfgs/vqvae/{cam,gaze}.yaml key for key: used where PyYAML is missing
+VQVAE_CONFIGS = {domain: {
+    "run_name": "auto", "encoder_type": enc, "decoder_type": enc, "domain": domain,
+    "num_frames": 60, "post_mlp": True, "temporal_downsampling": 2, "codebook_size": 256,
+    "latent_dim": 32, "norm_codes": True, "quantizer_type": "lucid", "coef_ema_dead_code": 32.0,
+    "code_replacement_policy": "batch_random", "commitment_weight": 1.0,
+    "quantizer_ema_decay": 0.99, "kmeans_init": False, "loss_fn": loss, "codebook_weight": 1.0,
+    "dtype": "fp32", "epochs": 200, "opt": "adamw", "opt_betas": [0.9, 0.99], "blr": blr,
+    "warmup_lr": 0.000001, "min_lr": 0.0, "warmup_epochs": 5, "batch_size": 128,
+    "clip_grad": 1.0, "save_ckpt_freq": 10, "output_dir": f"output/vqvae_{domain}",
+    "log_wandb": False}
+    for domain, enc, loss, blr in (("cam", "CamTransformer", "mse", 0.000025),
+                                   ("gaze", "GazeTransformer", "mse_mask", 0.00005))}
+VQ_SAMPLES, VQ_B, VQ_STEPS = 1024, 128, 8   # 1024 trajectories at B = 128: 8 steps an epoch
+VQ_WIDTH = (768, 12)                    # the configs' dim and depth (the flags' defaults)
+PIPE_CLIPS = 16                         # clips of the tokenizer chain, 2 batches of 8
+FP32_PEAK_TFLOPS, TF32_PEAK_TFLOPS = 67.0, 495.0   # H100 SXM dense, NVIDIA's data sheet
+TF32_STEPS = 3
+# the chain's first step, each modality's loss against the plain versions'
+# forward on the same step: bf16 attention in another order, as in
+# step_check (whose CE over single samples moved by up to 1e-3 relative)
+CHAIN_LOSS_RTOL = 2e-3
+
+
+def seq_vqvae_train_flops(dim=768, depth=12, tokens=30, channels=9, latent=32, codes=256):
+    """Model FLOPs of one VQ-VAE training sample: the products of the forward
+    (the patch conv and the output projection over 2 frames a token, the
+    encoder and decoder blocks with their attention over `tokens`, the
+    post-MLPs, the quant projections, the codebook lookup) times 3."""
+    block = 24 * dim ** 2 + 4 * tokens * dim            # qkv, proj, MLP 4x; QK^T and AV
+    per_token = 2 * depth * block + 2 * 16 * dim ** 2 + 4 * dim * latent
+    per_token += 2 * 2 * 2 * channels * dim + 2 * codes * latent
+    return 3 * tokens * per_token
+
+
+def vqvae_configs(tmp):
+    """The cam / gaze configs: the repo's YAML files where PyYAML is
+    installed, else JSON copies of them."""
+    try:
+        import yaml  # noqa: F401
+        paths = {d: os.path.join(REPO_DIR, f"cfgs/vqvae/{d}.yaml") for d in VQVAE_CONFIGS}
+    except ImportError:
+        paths = {}
+        for d, cfg in VQVAE_CONFIGS.items():
+            paths[d] = os.path.join(tmp, f"vqvae_{d}.json")
+            with open(paths[d], "w") as f:
+                json.dump(cfg, f)
+    print("tokenizer phase configs: " + ("cfgs/vqvae/{cam,gaze}.yaml through PyYAML"
+                                         if paths["cam"].endswith(".yaml") else
+                                         "JSON copies of cfgs/vqvae/{cam,gaze}.yaml (no PyYAML)"))
+    return paths
+
+
+def _vq_launches():
+    from egom2p_torch.ops.flash64 import flash64_attention
+    return {**_counts(), "flash64": flash64_attention.launches}
+
+
+def vqvae_train_run(dev, tmp, domain, config, data_path):
+    """Train one tokenizer at its config's settings for one epoch and eval
+    through run_training_vqvae.main, then resume it for a second epoch;
+    check it and print its numbers.  Returns (the checkpoint, the trained
+    tokenizer, the run's args)."""
+    import egom2p_torch.ops.vq as vq_mod
+    from egom2p_torch.cli import run_training_vqvae as rtv
+
+    out_dir = os.path.join(tmp, f"vqvae_{domain}")
+    base = ["--config", config, "--data_path", data_path, "--output_dir", out_dir,
+            "--device", "cuda", "--print_freq", "4", "--seed", "0"]
+    args = rtv.get_args(base + ["--epochs", "1"])
+    if (args.batch_size, args.vq_dim, args.vq_depth, args.dtype) != (VQ_B, *VQ_WIDTH, "fp32"):
+        raise AssertionError(f"the {domain} config's settings not taken: {args}")
+    expired, steps = [], []
+    real_update = vq_mod._updated_state
+
+    def counting(cfg, *a):
+        new = real_update(cfg, *a)
+        expired.append(int((new.cluster_size < cfg.threshold_ema_dead_code).sum()))
+        return new
+
+    vq_mod._updated_state = counting
+    _reset_counts()
+    from egom2p_torch.ops.flash64 import flash64_attention
+    flash64_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.perf_counter()
+        first = rtv.main(base + ["--epochs", "1"], on_step=lambda s, m, sec: steps.append((m, sec)))
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = rtv.main(base + ["--epochs", "2"], on_step=lambda s, m, sec: steps.append((m, sec)))
+        t_resume = time.perf_counter() - t0
+    finally:
+        vq_mod._updated_state = real_update
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = _vq_launches()
+    label = f"{domain} VQ-VAE (B = {args.batch_size}, exact fp32)"
+    if any(launches.values()):
+        raise AssertionError(f"{label}: kernel launches {launches} (the dense path expected)")
+    if len(steps) != 2 * VQ_STEPS or not all(math.isfinite(v) for m, _ in steps
+                                             for v in m.values()):
+        raise AssertionError(f"{label}: {len(steps)} steps, metrics {[m for m, _ in steps]}")
+    if not any(expired):
+        raise AssertionError(f"{label}: no code expired and was replaced")
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        records = [json.loads(line) for line in f]
+    if [r["epoch"] for r in records] != [0, 1] or not all(
+            math.isfinite(r[k]) for r in records for k in ("eval_loss", "eval_mse",
+                                                           "eval_codebook_usage")):
+        raise AssertionError(f"{label}: log.txt {records}")
+    tok = res["tokenizer"]
+    init = rtv.build_tokenizer(args, dev, torch.Generator(dev).manual_seed(args.seed))
+    still = [n for n, p in tok.net.named_parameters()
+             if torch.equal(p, dict(init.net.named_parameters())[n])]
+    cb, cb0 = tok.net.quantize.state, init.net.quantize.state
+    if still or torch.equal(cb.embed, cb0.embed) or torch.equal(cb.cluster_size, cb0.cluster_size):
+        raise AssertionError(f"{label}: unmoved parameters {still[:5]} or codebook")
+    del init
+    ckpt = os.path.join(out_dir, "checkpoint-final.pth")
+    t0 = time.perf_counter()
+    loaded = rtv.load_tokenizer_state(args, ckpt, dev)  # load_seq_vqvae_pth at the flags' widths
+    t_load = time.perf_counter() - t0
+    if any(not torch.equal(v, loaded.net.state_dict()[k])
+           for k, v in tok.net.state_dict().items()):
+        raise AssertionError(f"{label}: the checkpoint does not load back bitwise")
+    del loaded, first
+    times = [s for _, s in steps]
+    step_ms = float(np.median(times[1:VQ_STEPS] + times[VQ_STEPS + 1:])) * 1e3
+    flops = seq_vqvae_train_flops(channels=tok.net.encoder.in_channels) * args.batch_size
+    n_params = sum(p.numel() for p in tok.net.parameters())
+    print(f"{label}: {n_params / 1e6:.1f}M params; steps ms "
+          + " ".join(f"{s * 1e3:.1f}" for s in times)
+          + f"; median {step_ms:.1f} ms ({args.batch_size / step_ms * 1e3:.0f} samples/s, "
+          f"{flops / step_ms / 1e9:.1f} TFLOP/s = {flops / step_ms / 1e9 / FP32_PEAK_TFLOPS:.1%} "
+          f"of the {FP32_PEAK_TFLOPS:.0f} TFLOP/s FP32 peak, bound "
+          f"{flops / FP32_PEAK_TFLOPS / 1e9:.1f} ms); peak memory {peak_gib:.2f} GiB; expired "
+          f"codes a step {expired}; losses {steps[0][0]['loss']:.4f} -> {steps[-1][0]['loss']:.4f};"
+          f" eval {records[-1]['eval_loss']:.4f}, usage {records[-1]['eval_codebook_usage']:.3f}; "
+          f"runs {t_first:.1f} s + resumed {t_resume:.1f} s, checkpoint "
+          f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB loaded back bitwise in {t_load:.1f} s; "
+          f"launches {launches}")
+    return ckpt, res, args, step_ms, flops
+
+
+def vqvae_tf32(dev, domain, res, args, step_ms, flops, fixed):
+    """After the run: the tokens of a fixed batch that TF32 changes, the
+    step's time on TF32 beside exact fp32 (in turns, on the trained model)
+    and, for cam, one exact-fp32 step's device time by kernel class."""
+    from egom2p_torch.train.vqvae_train import make_vqvae_train_step
+    tok = res["tokenizer"]
+    exact = tok.tokenize(fixed)
+    tok.tf32 = True
+    tf32 = tok.tokenize(fixed)
+    tok.tf32 = False
+    step = make_vqvae_train_step(tok.net, res["optimizer"], args.loss_fn, args.codebook_weight)
+    gen = torch.Generator(dev).manual_seed(5)
+    batch = torch.from_numpy(fixed[:args.batch_size]).to(dev)
+    times = {False: [], True: []}
+    for allow in (False, True, True, False) * TF32_STEPS:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        metrics = step(batch, generator=gen)
+        float(metrics["loss"])
+        times[allow].append((time.perf_counter() - t0) * 1e3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    if domain == "cam":  # one exact-fp32 step under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(batch, generator=gen)["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _device_breakdown(prof, f"{domain} VQ-VAE step", wall_ms, ms[False])
+    print(f"{domain} VQ-VAE step on TF32 {ms[True]:.1f} ms ({flops / ms[True] / 1e9:.1f} TFLOP/s, "
+          f"{flops / ms[True] / 1e9 / TF32_PEAK_TFLOPS:.1%} of the {TF32_PEAK_TFLOPS:.0f} TFLOP/s "
+          f"TF32 peak) against exact fp32 {ms[False]:.1f} ms in turns ({step_ms:.1f} in the run); "
+          f"TF32 changes {int((exact != tf32).sum())} of {exact.numel()} tokens of a fixed batch "
+          f"of {len(fixed)}")
+
+
+def video_batches(dev, tmp, tokenize_videos, keys):
+    """rgb and depth tokens of PIPE_CLIPS staged seeded uint8 clips through
+    tokenize_videos.write_batch at full width (DV4x8x8, 256 px, 16 frames,
+    batches of 8), read back and held against forward's; extracted to
+    per-key .npz directories.  Returns {modality: directory}."""
+    import tarfile
+    args = tokenize_videos.get_args(["--input", tmp, "--output-dir", tmp, "--smoke",
+                                     "--device", "cuda"])
+    tok = tokenize_videos.load_tokenizer(args, dev)
+    rng = np.random.default_rng(11)
+    dirs, per_batch = {}, []
+    for mod in ("rgb", "depth"):
+        clips = rng.integers(0, 256, (PIPE_CLIPS, args.max_frames, args.size, args.size, 3),
+                             dtype=np.uint8)
+        tok.forward(clips[:B])  # warm-up
+        out_dir = os.path.join(tmp, f"{mod}_tars")
+        os.makedirs(out_dir)
+        with tarfile.open(os.path.join(out_dir, "shard-000000.tar"), "w") as tar:
+            for i in range(0, PIPE_CLIPS, B):
+                batch = [(keys[j], clips[j], "shard-000000.tar") for j in range(i, i + B)]
+                t0 = time.perf_counter()
+                tokenize_videos.write_batch(tok, batch, lambda name: tar,
+                                            args.temporal_window)
+                per_batch.append((time.perf_counter() - t0) * 1e3)
+        dirs[mod] = os.path.join(tmp, f"{mod}_npz")
+        with tarfile.open(os.path.join(out_dir, "shard-000000.tar")) as tar:
+            tar.extractall(dirs[mod], filter="data")
+        for i in range(0, PIPE_CLIPS, B):
+            want = tok.forward(clips[i:i + B], temporal_window=args.temporal_window)
+            got = np.stack([np.load(os.path.join(dirs[mod], f"{k}.npz"))["arr_0"]
+                            for k in keys[i:i + B]])
+            if got.dtype != np.int32 or got.shape != (B, 5, 32, 32) or not np.array_equal(
+                    got, want):
+                raise AssertionError(f"tokenize_videos {mod}: the tar's tokens differ from "
+                                     f"forward's ({got.dtype}, {got.shape})")
+    del tok
+    torch.cuda.empty_cache()
+    print(f"tokenize_videos write_batch (DV4x8x8, B = {B}, {args.max_frames} x {args.size}^2, "
+          f"exact fp32 network): ms per batch " + " ".join(f"{t:.1f}" for t in per_batch)
+          + f", median {np.median(per_batch):.1f} ms; tokens read back from the tars equal "
+          "forward's")
+    return dirs
+
+
+def _plain_first_losses(real_make, plain):
+    """make_train_step whose first step runs, before its own, the forward
+    on the plain versions of the kernels (without gradient: the route does
+    not depend on it) with the step's batch, weights and decoder order (the
+    CPU generator's state copied), and records each modality's loss in
+    `plain`."""
+    def make(model, optimizer, n_in, n_tgt, loss_type="mod", accum_steps=1):
+        step = real_make(model, optimizer, n_in, n_tgt, loss_type, accum_steps)
+
+        def first(batch, shuffle=None):
+            if not plain:
+                if accum_steps != 1 or shuffle is None:
+                    raise AssertionError("the plain first step needs one micro-batch and "
+                                         "the step's generator")
+                order = torch.Generator()
+                order.set_state(shuffle.get_state())
+                model.train()
+                with _swapped(_plain_versions("default")), torch.no_grad():
+                    _, mod_loss = model(batch, n_in, n_tgt, loss_type, shuffle=order)
+                plain.update({f"loss_{m}": v.item() for m, v in mod_loss.items()})
+            return step(batch, shuffle)
+        return first
+    return make
+
+
+def tokenizer_pipeline_phase(dev):
+    """Phase 5d (docstring): the tokenizer half of training at full width,
+    end to end into the trainer.  Returns the launch totals of its
+    pretraining run."""
+    from egom2p_torch.cli import run_training, tokenize_videos
+    from egom2p_torch.cli import run_training_vqvae as rtv
+    from egom2p_torch.train import egom2p_train
+    from egom2p_torch.data.cam_gaze import smooth_cam_trajectories, smooth_gaze_tracks
+
+    t_phase = time.perf_counter()
+    torch.cuda.init()  # the memory statistics below need the context up
+    with tempfile.TemporaryDirectory() as tmp:
+        configs = vqvae_configs(tmp)
+        rng = np.random.default_rng(21)
+        train = {"cam": smooth_cam_trajectories(rng, VQ_SAMPLES)[1].astype(np.float32),
+                 "gaze": smooth_gaze_tracks(rng, VQ_SAMPLES)}
+        keys = [f"ego_{i:02d}" for i in range(PIPE_CLIPS)]
+        mods = {}
+        for domain, data in train.items():
+            data_path = os.path.join(tmp, f"{domain}_train.npy")
+            np.save(data_path, data)
+            ckpt, res, args, step_ms, flops = vqvae_train_run(dev, tmp, domain, configs[domain],
+                                                              data_path)
+            # --tokenize on the trained checkpoint: one .npy per clip of the chain
+            clips_dir = os.path.join(tmp, f"{domain}_clips")
+            os.makedirs(clips_dir)
+            clips = [os.path.join(clips_dir, f"{k}.npy") for k in keys]
+            for c, d in zip(clips, data[-PIPE_CLIPS:]):
+                np.save(c, d)
+            tok_argv = ["--config", configs[domain], "--tokenize", "--resume", ckpt,
+                        "--tokenize_save_path", os.path.join(tmp, f"{domain}_tok"),
+                        "--device", "cuda", "--tokenize_path"]
+            t0 = time.perf_counter()
+            outs = [rtv.main(tok_argv + [clips[0]])]  # the entry point, its checkpoint load
+            t_main = time.perf_counter() - t0
+            # the other files with the checkpoint loaded once
+            tok_args = rtv.get_args(tok_argv + [clips[0]])
+            loaded = rtv.load_tokenizer_state(tok_args, ckpt, dev)
+            t0 = time.perf_counter()
+            outs += [rtv.tokenize_file(tok_args, loaded, c) for c in clips[1:]]
+            t_files = time.perf_counter() - t0
+            del loaded
+            x = np.stack([rtv.prepare_samples(args, c)[0][0] for c in clips])
+            want = res["tokenizer"].tokenize(x).cpu().numpy()
+            got = np.stack([np.load(p)["arr_0"] for p in outs])
+            if got.dtype != np.int16 or not np.array_equal(got, want):
+                raise AssertionError(f"{domain} --tokenize: tokens differ from the trained "
+                                     "tokenizer's")
+            for p in outs:  # the user's rename: <key>-tok.npz -> <key>.npz
+                os.rename(p, p.replace("-tok.npz", ".npz"))
+            mods[domain] = os.path.dirname(outs[0])
+            print(f"{domain} --tokenize on the trained checkpoint: main() on one clip file "
+                  f"{t_main:.1f} s with its load, then {len(clips) - 1} files "
+                  f"{t_files / (len(clips) - 1) * 1e3:.1f} ms each; tokens equal the trained "
+                  f"tokenizer's; {len(np.unique(got))} distinct codes")
+            vqvae_tf32(dev, domain, res, args, step_ms, flops,
+                       rtv.load_seq_data(args, data_path)[:args.batch_size])
+            del res
+            torch.cuda.empty_cache()
+        mods.update(video_batches(dev, tmp, tokenize_videos, keys))
+        shards = os.path.join(tmp, "shards")
+        proc = subprocess.run([sys.executable, os.path.join(REPO_DIR, "prepare_aligned_shards.py"),
+                               *(f"--modality={m}={d}" for m, d in mods.items()),
+                               "--output-dir", shards, "--shard-size", str(PIPE_CLIPS)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0 or f"aligned keys: {PIPE_CLIPS}" not in proc.stdout:
+            raise AssertionError(f"prepare_aligned_shards.py: {proc.stdout}{proc.stderr}")
+        pattern = f"{shards}/[rgb,depth,cam,gaze]/shard-{{000000..000000}}.tar"
+        data_config, main_args, _ = shard_configs(tmp, pattern, pattern)
+        argv = [*main_args, "--data_config", data_config, "--lr_schedule", "constant",
+                "--epochs", "1", "--epoch_size", str(PIPE_CLIPS), "--eval_freq", "0",
+                "--seed", "0", "--output_dir", os.path.join(tmp, "pretrain"), "--print_freq", "1"]
+        per_step = []
+        _reset_counts()
+        last = _counts()
+
+        def on_step(step, metrics, seconds):
+            now = _counts()
+            per_step.append(({k: now[k] - last[k] for k in now}, metrics, seconds))
+            last.update(now)
+
+        plain = {}
+        real_make = egom2p_train.make_train_step
+        egom2p_train.make_train_step = _plain_first_losses(real_make, plain)
+        try:
+            run_training.main(run_training.get_args(argv), on_step=on_step)
+        finally:
+            egom2p_train.make_train_step = real_make
+        totals = _counts()
+        label = "EgoM2P-base on the chain's shards"
+        if len(per_step) != PIPE_CLIPS // B or any(l != DEFAULT_STEP for l, _, _ in per_step) \
+                or not all(math.isfinite(v) for _, m, _ in per_step for v in m.values()):
+            raise AssertionError(f"{label}: {per_step}")
+        # the cam / gaze targets come from tokenizers 16 steps into training
+        # that use a few codes, so ln V is not the first loss to expect
+        # (gaze 6.08 against ln 256 = 5.55 on an H100): each modality's first
+        # loss is held to the plain versions' on the same step instead
+        first = per_step[0][1]
+        errs = {m: abs(first[m] - v) / max(abs(v), 1e-30) for m, v in plain.items()}
+        print(f"{label}: first losses, kernels vs plain versions: "
+              + ", ".join(f"{m} {first[m]:.5f} vs {v:.5f}" for m, v in plain.items())
+              + "; rel " + " ".join(f"{e:.2e}" for e in errs.values()))
+        if sorted(plain) != sorted(k for k in first if k.startswith("loss_tok_")) \
+                or max(errs.values()) > CHAIN_LOSS_RTOL:
+            raise AssertionError(f"{label}: the first losses differ from the plain versions' "
+                                 f"beyond {CHAIN_LOSS_RTOL}")
+        print(f"{label} (B = {B}): {len(per_step)} steps, ms "
+              + " ".join(f"{s * 1e3:.1f}" for _, _, s in per_step) + " (the first with its "
+              "plain forward), losses " + " ".join(f"{m['loss']:.4f}" for _, m, _ in per_step)
+              + f", launches a step {per_step[0][0]}")
+    torch.cuda.empty_cache()
+    print(f"tokenizer pipeline phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def _demangled(names):
     """{mangled: demangled} by the toolkit's cu++filt (the mangled name where
     it is missing)."""
@@ -2316,6 +2713,7 @@ def main() -> int:
     train_launches, default_ms = phase(train_slice_phase, dev)
     shard_launches = phase(shard_train_phase, dev, default_ms)
     remat_launches, large_remat_launches = phase(remat_phase, dev)
+    pipeline_launches = phase(tokenizer_pipeline_phase, dev)
     fused_rows = phase(fused_bwd_phase, dev)
     phase(ragged_bwd_phase, dev)
     ce_bwd_rows = phase(ce_bwd_phase, dev)
@@ -2350,10 +2748,11 @@ def main() -> int:
     # the library's backward computes dq, dk and dv in one call: the split
     # kernels' rows both carry it
     step_lib = step_case["library_ms"]
-    # launches on the phase 5b and 5c paths: the shard run (its steps and
-    # evals), the base and the large remat runs
+    # launches on the phase 5b, 5c and 5d paths: the shard run (its steps and
+    # evals), the base and the large remat runs, the tokenizer chain's steps
     paths = {part: {"shard_launches": shard_launches[part],
-                    "remat_launches": remat_launches[part]}
+                    "remat_launches": remat_launches[part],
+                    "pipeline_launches": pipeline_launches[part]}
              for part in ("fwd", "dq", "dkv", "ce_fwd")}
     for name, src, line, part, keys, products, tensors, lib, more in (
             ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",), 2, (2, 2), step_lib["fwd"],

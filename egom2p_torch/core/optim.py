@@ -13,6 +13,13 @@ mask_token and the token embeddings are decayed, as in the reference).
 
 `freeze_until` holds the shared trunk still for the first steps of a run
 (egom2p_tpu/core/optim.py:freeze_until, `--frozen_model_epochs`).
+
+The VQ-VAE trainer's optimizer is another chain (run_training_vqvae.py:
+633-641): clip_by_global_norm then optax.adamw with no mask, so every
+parameter decays (`Optimizer(..., decay_all=True)`), and with --freeze_enc
+`freeze_masked` after AdamW: the frozen parameters' gradients still count
+in the clip norm and their Adam moments still accumulate; only their
+updates, weight decay included, are zeroed.
 """
 from __future__ import annotations
 
@@ -34,19 +41,24 @@ class Optimizer:
     (egom2p_tpu.core.optim.create_optimizer).  `lr_schedule` is the per-step
     LR array (core/schedules.py), clamped at its last value.
 
+    `decay_all` decays every parameter, norms and biases too (the VQ-VAE
+    trainer's unmasked optax.adamw).
+
     `step()` clips the gradients, sets this step's LR and applies the
     update, holding the parameters `freeze_until` names still while they
-    are frozen; it returns the global gradient norm before clipping."""
+    are frozen and those `freeze_masked` names always; it returns the
+    global gradient norm before clipping."""
 
     def __init__(self, model: nn.Module, lr_schedule: Sequence[float],
                  weight_decay: float = 0.05, betas=(0.9, 0.95), eps: float = 1e-8,
-                 clip_grad: Optional[float] = 1.0):
+                 clip_grad: Optional[float] = 1.0, decay_all: bool = False):
         decay, skip = [], []
         for name, p in model.named_parameters():
             if p.requires_grad:
-                (skip if no_decay(name, p) else decay).append(p)
+                (skip if no_decay(name, p) and not decay_all else decay).append(p)
         self.params = decay + skip
         self.frozen, self.frozen_steps = [], 0  # freeze_until
+        self.masked = []                        # freeze_masked
         self.lr_schedule = np.asarray(lr_schedule, dtype=np.float64)
         self.clip_grad = clip_grad
         self.step_count = 0
@@ -67,6 +79,7 @@ class Optimizer:
         with torch.no_grad():
             for p in frozen:
                 p.grad = torch.zeros_like(p)
+            frozen = frozen + self.masked  # gradients kept: clipped and in Adam's moments
             held = [p.detach().clone() for p in frozen]
         clip = self.clip_grad if self.clip_grad else float("inf")
         gnorm = torch.nn.utils.clip_grad_norm_(self.params, clip)
@@ -111,4 +124,26 @@ def freeze_until(frozen_steps: int, frozen_mask: Dict[str, bool], optimizer: Opt
     weight decay included, are undone after it.  Returns `optimizer`."""
     optimizer.frozen_steps = frozen_steps
     optimizer.frozen = [p for name, p in model.named_parameters() if frozen_mask.get(name)]
+    return optimizer
+
+
+def freeze_modules_mask(model: nn.Module,
+                        module_names: Sequence[str] = ("encoder", "quant_proj")) -> Dict[str, bool]:
+    """Parameter name -> True for the parameters under any module named in
+    `module_names` (egom2p_tpu/core/optim.py:freeze_modules_mask): the
+    reference's FREEZE_MODULES encoder freeze for VQ-VAE finetuning
+    (reference: egom2p/vq/vqvae.py:32, 200-223)."""
+    names = set(module_names)
+    return {name: bool(names & set(name.split(".")[:-1]))
+            for name, _ in model.named_parameters()}
+
+
+def freeze_masked(frozen_mask: Dict[str, bool], optimizer: Optimizer,
+                  model: nn.Module) -> Optimizer:
+    """Hold `model`'s parameters that `frozen_mask` marks still for good,
+    as egom2p_tpu/core/optim.py:freeze_masked chained after clipping and
+    AdamW does (--freeze_enc): their gradients stay, count in the clip
+    norm and fill their Adam moments; their updates, weight decay included,
+    are undone after each step.  Returns `optimizer`."""
+    optimizer.masked = [p for name, p in model.named_parameters() if frozen_mask.get(name)]
     return optimizer

@@ -12,7 +12,8 @@ the JAX package.  Host-side numpy utilities matching the reference datasets:
     (reference: egom2p/data/gaze_dataset.py:169-193),
   * ATE / RTE / RRE trajectory metrics used by the cam round-trip golden test
     (reference: example_data/tok_cam_example.py:88-201),
-  * seeded smooth camera paths for the tokenizer's checks (the port's own).
+  * seeded smooth camera paths and gaze tracks for the tokenizers' checks
+    (the port's own).
 """
 from __future__ import annotations
 
@@ -78,6 +79,26 @@ def smooth_cam_trajectories(rng: np.random.Generator, n: int) -> Tuple[np.ndarra
         gts.append(canonicalize_cam(poses))
     gt = np.stack(gts)
     return normalize_cam(gt).astype(np.float32), gt
+
+
+def smooth_gaze_tracks(rng: np.random.Generator, n: int, invalid: float = 0.2) -> np.ndarray:
+    """n smooth 60-frame gaze tracks drawn from `rng`, as the gaze dataset
+    gives them to the tokenizer (n, 60, 3) fp32: x, y in [-1, 1] (a slow
+    sweep of random frequency and phase per axis plus a little jitter) and
+    a validity channel with runs of invalid frames covering about `invalid`
+    of each track (blinks, the gaze outside the frame), where x, y are 0."""
+    t = np.linspace(0.0, 2.0, 60)
+    freq = rng.uniform(0.3, 1.5, (n, 1, 2))
+    phase = rng.uniform(0, 2 * np.pi, (n, 1, 2))
+    xy = 0.6 * np.sin(2 * np.pi * freq * t[None, :, None] + phase)
+    xy = np.clip(xy + rng.normal(0.0, 0.02, xy.shape), -1.0, 1.0)
+    valid = np.ones((n, 60))
+    for row in valid:
+        gap = int(rng.integers(0, int(2 * invalid * 60) + 1))
+        start = int(rng.integers(0, 60 - gap + 1))
+        row[start:start + gap] = 0.0
+    xy *= valid[..., None]
+    return np.concatenate([xy, valid[..., None]], axis=-1).astype(np.float32)
 
 
 def convert_gaze(gaze: np.ndarray, orig_res, resize_res, new_res=(480, 480)) -> np.ndarray:

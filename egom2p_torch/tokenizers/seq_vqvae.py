@@ -21,11 +21,17 @@ reference .pth loads with a key-checked copy (core/checkpoint.py).  The
 tokenizer computes in fp32, as the JAX package's default; on the card its
 products run in exact fp32 unless `SeqTokenizer.tf32` allows TF32.
 
+Training: `SeqAutoencoder.autoencode_train` is the forward of the JAX train
+step (egom2p_tpu/train/vqvae_train.py:make_vqvae_train_step): it quantizes
+through ops/vq.py:vq_forward under the codebook as it was, then writes the
+updated codebook (EMA statistics, expired codes replaced) into the buffers;
+train/vqvae_train.py builds the step around it.
+
 Shapes of the released configs: cam (B, 60, 9) -> 30 tokens of 256 codes;
 gaze (B, 60, 3) (x, y, valid) -> 30 tokens, decoded to (B, 60, 2).
 
 Not ported yet: the gradient-trained quantizers (GradVQAutoencoder /
-GradVQTokenizer over ops/quantizers.py) and the training step.
+GradVQTokenizer over ops/quantizers.py).
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ from torch import nn
 
 from egom2p_torch.models.transformer import Block, LayerNorm, Linear, Mlp
 from egom2p_torch.ops.posemb import build_1d_sincos_posemb
-from egom2p_torch.ops.vq import VQConfig, VQState, indices_to_embedding, init_vq_state, vq_lookup
+from egom2p_torch.ops.vq import (VQConfig, VQState, indices_to_embedding, init_vq_state,
+                                 vq_forward, vq_lookup)
 
 # domain -> (data channels, whether a validity channel masks the input)
 DOMAINS = {"cam": (9, False), "gaze": (2, True)}
@@ -148,6 +155,7 @@ class Quantizer(nn.Module):
         cb = self._codebook
         return VQState(embed=cb.embed, cluster_size=cb.cluster_size, initted=cb.initted)
 
+    @torch.no_grad()
     def set_state(self, state: VQState) -> None:
         for name in ("embed", "cluster_size", "initted"):
             buf = getattr(self._codebook, name)
@@ -174,6 +182,20 @@ class SeqAutoencoder(nn.Module):
 
     def decode_latents(self, quant):
         return self.decoder(self.post_quant_proj(quant))
+
+    def autoencode_train(self, x, **draws):
+        """(B, T, C) -> (reconstruction (B, T, C'), commitment loss, tokens
+        (B, T')), differentiable, as the JAX train step's loss computes them
+        (egom2p_tpu/train/vqvae_train.py:77-89): the decoder sees the codes
+        of the codebook as it was before this batch; the codebook buffers
+        then take the batch's update.  `draws` go to
+        vq_forward (`generator`, or `replace_idx` / `lbg_noise`): without
+        them no code expires."""
+        lat = self.encode_latents(x)
+        quant, commit, tokens, new_state = vq_forward(self.quantize.cfg, self.quantize.state,
+                                                      lat, **draws)
+        self.quantize.set_state(new_state)
+        return self.decode_latents(quant), commit, tokens
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> "SeqAutoencoder":
@@ -254,16 +276,24 @@ class SeqTokenizer:
 def seq_vqvae_from_config(domain: str, generator: torch.Generator = None,
                           num_frames: int = 60, temporal_compress: int = 2,
                           codebook_size: int = 256, latent_dim: int = 32,
+                          ema_decay: float = 0.99, threshold_ema_dead_code: float = 0.25,
+                          commitment_weight: float = 1.0, kmeans_init: bool = False,
+                          code_replacement_policy: str = "batch_random",
                           dim: int = 768, depth: int = 12, num_heads: int = 12,
                           device=None) -> SeqTokenizer:
     """A cam or gaze tokenizer at the released configs' widths by default
     (reference cfgs/default/tokenization/vqvae/{cam_traj,gaze}/*.yaml), on
     `device`: random weights from `generator` (on that device), or zeros
-    to be loaded over when `generator` is None."""
+    to be loaded over when `generator` is None.  The quantizer's knobs are
+    egom2p_tpu/tokenizers/seq_vqvae.py:seq_vqvae_from_config's; the
+    codebook is cosine-sim, as there."""
     if domain not in DOMAINS:
         raise ValueError(f"unknown seq-vqvae domain {domain!r}")
     n_channels, mask_input = DOMAINS[domain]
-    vq_cfg = VQConfig(codebook_size=codebook_size, dim=latent_dim, use_cosine_sim=True)
+    vq_cfg = VQConfig(codebook_size=codebook_size, dim=latent_dim, decay=ema_decay,
+                      threshold_ema_dead_code=threshold_ema_dead_code,
+                      commitment_weight=commitment_weight, use_cosine_sim=True,
+                      kmeans_init=kmeans_init, code_replacement_policy=code_replacement_policy)
     net = SeqAutoencoder(n_channels, num_frames, latent_dim, temporal_compress, mask_input,
                          dim, depth, num_heads, vq_cfg)
     if device is not None:

@@ -1,0 +1,96 @@
+"""The cam / gaze VQ-VAE tokenizer's training step.
+
+Port of egom2p_tpu/train/vqvae_train.py (reference:
+run_training_vqvae.py:1011-1074, 1076-1419) for the lucid quantizer, on one
+device:
+
+  * fp32 throughout (the released tokenizer configs train in fp32,
+    cfgs/vqvae/{cam,gaze}.yaml `dtype: fp32`);
+  * reconstruction losses `mse` and `mse_mask` (the gaze target's last
+    channel weights each frame);
+  * the codebook's commitment loss and EMA update from ops/vq.py through
+    SeqAutoencoder.autoencode_train: the decoder sees the codes of the
+    codebook as it was before the batch;
+  * the optimizer is core/optim.py's Optimizer (the caller builds the
+    VQ-VAE chain: clipping, unmasked AdamW, freeze_masked for
+    --freeze_enc), and the EMA of the weights (reference ModelEma) follows
+    every `ema_update_freq` optimizer steps.
+
+Not ported yet: the gradient-trained quantizers (taming, memcodes:
+make_grad_vqvae_train_step) and the perceptual loss of the video domains.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from egom2p_torch.core.optim import Optimizer
+
+
+def reconst_loss(pred: torch.Tensor, target: torch.Tensor, loss_fn: str,
+                 n_channels: int) -> torch.Tensor:
+    """(reference: run_training_vqvae.py:1011-1074)."""
+    if loss_fn == "mse":
+        return (pred - target).square().mean()
+    if loss_fn == "mse_mask":
+        # gaze: the target's last channel is the validity mask
+        data, mask = target[..., :n_channels], target[..., n_channels:]
+        se = (pred - data).square() * mask
+        return se.sum() / torch.clamp(mask.sum() * n_channels, min=1.0)
+    raise ValueError(f"unknown loss_fn {loss_fn}")
+
+
+def init_ema(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """A copy of `net`'s parameters, the EMA's start (reference ModelEma,
+    run_training_vqvae.py:715-724)."""
+    return {name: p.detach().clone() for name, p in net.named_parameters()}
+
+
+@torch.no_grad()
+def ema_update(ema: Optional[Dict[str, torch.Tensor]], net: nn.Module, step: int,
+               ema_decay: Optional[float], ema_update_freq: int) -> None:
+    """e <- e * decay + p * (1 - decay) for every parameter, in place, when
+    `step` (the optimizer's step count before this update) is a multiple of
+    `ema_update_freq` (egom2p_tpu/train/vqvae_train.py:_ema_update)."""
+    if ema_decay is None or ema is None or step % ema_update_freq != 0:
+        return
+    for name, p in net.named_parameters():
+        ema[name].mul_(ema_decay).add_(p.detach() * (1 - ema_decay))
+
+
+def make_vqvae_train_step(net: nn.Module, optimizer: Optimizer, loss_fn: str = "mse",
+                          codebook_weight: float = 1.0,
+                          ema: Optional[Dict[str, torch.Tensor]] = None,
+                          ema_decay: Optional[float] = None,
+                          ema_update_freq: int = 1) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The train step of a SeqAutoencoder `net`
+    (egom2p_tpu/train/vqvae_train.py:make_vqvae_train_step).
+
+    `step(batch, **draws)` runs one step on a (B, T, C) fp32 batch on the
+    net's device: loss = reconst + codebook_weight * commit, its gradients,
+    the optimizer's step, the codebook's update and, with `ema` and
+    `ema_decay`, the weights' EMA.  `draws` pick the replacements of
+    expired codes (vq_forward's `generator`, or `replace_idx` /
+    `lbg_noise`).  Returns the JAX step's metrics (loss, reconst_loss,
+    code_loss, codebook_usage: the share of codes this batch used) and the
+    global gradient norm before clipping (grad_norm), as 0-d tensors."""
+    n_channels = net.encoder.in_channels
+    codebook_size = net.quantize.cfg.codebook_size
+
+    def step(batch: torch.Tensor, **draws) -> Dict[str, torch.Tensor]:
+        net.train()
+        pred, commit, tokens = net.autoencode_train(batch, **draws)
+        rec = reconst_loss(pred, batch, loss_fn, n_channels)
+        loss = rec + codebook_weight * commit
+        optimizer.zero_grad()
+        loss.backward()
+        count = optimizer.step_count
+        grad_norm = optimizer.step()
+        ema_update(ema, net, count, ema_decay, ema_update_freq)
+        used = torch.bincount(tokens.reshape(-1), minlength=codebook_size) > 0
+        return {"loss": loss.detach(), "reconst_loss": rec.detach(), "code_loss": commit.detach(),
+                "codebook_usage": used.float().mean(), "grad_norm": grad_norm.detach()}
+
+    return step

@@ -271,7 +271,8 @@ def test_eval_path_imports_no_jax():
     """The slices' modules (eval entry points, checkpoints, Cosmos decode,
     mp4 in and out; the cam / gaze VQ-VAE, VQ lookup, cam / gaze host
     modules and metrics; the shard reader, loader, configs and train and
-    eval steps) and chip_smoke.py load without JAX or the JAX package."""
+    eval steps; the VQ-VAE trainer, its eval and the two shard tools) and
+    chip_smoke.py load without JAX or the JAX package."""
     import subprocess
     code = ("import sys\n"
             "import chip_smoke\n"
@@ -283,6 +284,8 @@ def test_eval_path_imports_no_jax():
             "import egom2p_torch.data.cam_gaze, egom2p_torch.core.metrics\n"
             "import egom2p_torch.data.tar_reader, egom2p_torch.data.loader\n"
             "import egom2p_torch.core.config, egom2p_torch.train.egom2p_train\n"
+            "import egom2p_torch.cli.run_training_vqvae, egom2p_torch.cli.tokenize_videos\n"
+            "import egom2p_torch.train.vqvae_train, egom2p_torch.train.vqvae_eval\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
             " 'egom2p_tpu')]\n"
             "assert not bad, bad\n")
@@ -311,19 +314,45 @@ def test_video_ingest_builds_the_repo_source_only(monkeypatch, tmp_path):
 
 
 def test_chip_smoke_config_copies_mirror_the_yaml_files():
-    """chip_smoke.py's JSON copies of cfgs/egom2p/data_mod4.yaml and
-    cfgs/alphas/mod4_uniform.yaml (used on a machine without PyYAML) equal
-    the files key for key, and its argument copy of main_mod4.yaml gives the
-    trainer the settings --config gives it (the data config and output
-    directory apart: the script names its own)."""
+    """chip_smoke.py's JSON copies of cfgs/egom2p/data_mod4.yaml,
+    cfgs/alphas/mod4_uniform.yaml and cfgs/vqvae/{cam,gaze}.yaml (used on a
+    machine without PyYAML) equal the files key for key, and its argument
+    copy of main_mod4.yaml gives the trainer the settings --config gives it
+    (the data config and output directory apart: the script names its
+    own)."""
     yaml = pytest.importorskip("yaml")
     from egom2p_torch.cli import run_training
     cfgs = REPO / "cfgs"
     assert chip_smoke.DATA_MOD4 == yaml.safe_load((cfgs / "egom2p/data_mod4.yaml").read_text())
     assert chip_smoke.ALPHAS_MOD4 == yaml.safe_load(
         (cfgs / "alphas/mod4_uniform.yaml").read_text())
+    assert sorted(chip_smoke.VQVAE_CONFIGS) == ["cam", "gaze"]
+    for domain, cfg in chip_smoke.VQVAE_CONFIGS.items():
+        assert cfg == yaml.safe_load((cfgs / f"vqvae/{domain}.yaml").read_text()), domain
     by_config = vars(run_training.get_args(["--config", str(cfgs / "egom2p/main_mod4.yaml")]))
     by_args = vars(run_training.get_args(chip_smoke.MAIN_MOD4_ARGS))
     own = ("config", "data_config", "output_dir")
     assert {k: v for k, v in by_config.items() if k not in own} == \
         {k: v for k, v in by_args.items() if k not in own}
+
+
+@pytest.mark.parametrize("domain,channels", [("cam", 9), ("gaze", 2)])
+def test_chip_smoke_vqvae_flops_count_the_forward_products(domain, channels):
+    """seq_vqvae_train_flops is 3 x the forward's products that torch's
+    FLOP counter sees, at a small width: the encoder, the codebook lookup
+    and the decoder."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from egom2p_torch.ops.vq import vq_lookup
+    from egom2p_torch.tokenizers.seq_vqvae import seq_vqvae_from_config
+    tok = seq_vqvae_from_config(domain, torch.Generator().manual_seed(0), dim=64, depth=2,
+                                num_heads=2, latent_dim=8, codebook_size=16)
+    batch = 2
+    x = torch.randn(batch, 60, channels + (domain == "gaze"))
+    with FlopCounterMode(display=False) as counter:
+        net = tok.net
+        quant, _ = vq_lookup(net.quantize.cfg, net.quantize.state, net.encode_latents(x))
+        net.decode_latents(quant)
+    # training = forward + backward = 3 x the forward, per sample
+    assert 3 * counter.get_total_flops() == batch * chip_smoke.seq_vqvae_train_flops(
+        dim=64, depth=2, channels=channels, latent=8, codes=16)
