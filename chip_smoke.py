@@ -130,6 +130,27 @@
    finite losses, each modality's first loss within CHAIN_LOSS_RTOL of the
    plain versions' forward on the same step: the cam / gaze targets come
    from briefly trained tokenizers, so ln V is not the loss to expect).
+5e. The trainer across processes, EgoM2P-base at full width on synthetic
+   data.  First one rank over NCCL, launched as users launch it (torchrun
+   --standalone --nproc_per_node 1 with this script as the worker, which
+   calls cli/run_training.main): 2 epochs of 3 steps at B = 8 with
+   --profile, --async_save true and --save_ckpt_freq 1.  Checks the first
+   step's loss and grad_norm bitwise equal to phase 5's single process,
+   36 / 36 / 36 / 2 launches a step, a trace that names the four training
+   kernels and checkpoint-0.pth (written on a background thread) bitwise
+   the model and optimizer state at its step; prints the step ms beside
+   phase 5's and the NCCL kernels' share of the profiled epoch.  Then two
+   ranks sharing the card over gloo (this script spawns them with RANK,
+   WORLD_SIZE and LOCAL_RANK=0; each forms the group, then calls main()),
+   B = 4 per rank, 2 steps at --accum_steps 1 and a val pass, then 2 at 2:
+   the first step's CE per target token within STEP_LOSS_RTOL and its
+   summed gradients within STEP_GRAD_REL_L2 (relative L2) of one process
+   stepping the global batch the two ranks' seeded loaders gave, the
+   parameters bitwise equal on both ranks after every step, 36 / 36 / 36 /
+   2 launches per micro-batch, and the val pass within STEP_LOSS_RTOL of
+   one process's eval of the same rows.  Its step times are a correctness
+   run's (two ranks on one card, gradients reduced through the host), not
+   a scaling number.
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -1649,7 +1670,7 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     """`steps` steps of the port's trainer at cfgs/egom2p/main_mod4.yaml's
     settings (and the arguments `extra`), checked; then, where `plain_kind`
     is given, a profiled step and the one-batch step check.  Returns
-    (launch totals, median step ms, peak GiB)."""
+    (launch totals, median step ms, peak GiB, the first step's metrics)."""
     from egom2p_torch.cli import run_training
     from egom2p_torch.data.loader import batch_to_device
     from egom2p_torch.models.egom2p import create_model
@@ -1709,7 +1730,7 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     if plain_kind is None:
         del out, model
         torch.cuda.empty_cache()
-        return totals, step_ms, peak_gib
+        return totals, step_ms, peak_gib, per_step[0][1]
     loader, _ = run_training.setup_data(args)
     it = iter(loader)
     data = batch_to_device(next(it), dev)
@@ -1722,20 +1743,22 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     step_check(model, data, expected, _plain_versions(plain_kind))
     del model, data
     torch.cuda.empty_cache()
-    return totals, step_ms, peak_gib
+    return totals, step_ms, peak_gib, per_step[0][1]
 
 
 
 def train_slice_phase(dev):
-    return train_run(dev, "EgoM2P-base", BASE_MODEL, B, DEFAULT_STEP,
-                     train_flops_per_sample(), "default")[:2]
+    """Phase 5: (launch totals, median step ms, the first step's metrics)."""
+    totals, step_ms, _, first = train_run(dev, "EgoM2P-base", BASE_MODEL, B, DEFAULT_STEP,
+                                          train_flops_per_sample(), "default")
+    return totals, step_ms, first
 
 
 def fused_train_phase(dev, default_ms):
     """The base training run with both fused backward kernels switched on
     for this phase only."""
     with _env(EGOM2P_F64T_FUSED_BWD="1", EGOM2P_CE_PALLAS_BWD="1"):
-        totals, step_ms, _ = train_run(dev, "EgoM2P-base, fused backwards", BASE_MODEL, B,
+        totals, step_ms, _, _ = train_run(dev, "EgoM2P-base, fused backwards", BASE_MODEL, B,
                                        FUSED_STEP, train_flops_per_sample(), "fused")
     print(f"fused backwards: step {step_ms:.1f} ms vs {default_ms:.1f} ms with the split "
           f"attention backward and the plain CE backward ({step_ms / default_ms - 1:+.1%})")
@@ -2138,11 +2161,11 @@ def remat_phase(dev):
     """Phase 5c (docstring): activation checkpointing.  Returns the launch
     totals of the base remat run and of EgoM2P-large's."""
     t_phase = time.perf_counter()
-    base_totals, full_ms, full_gib = train_run(
+    base_totals, full_ms, full_gib, _ = train_run(
         dev, "EgoM2P-base, remat full", BASE_MODEL, B, REMAT_STEP, train_flops_per_sample(),
         None, steps=REMAT_TRAIN_STEPS, extra=("--use_act_checkpoint", "true"))
     remat_check(dev)
-    large_totals, _, large_gib = train_run(
+    large_totals, _, large_gib, _ = train_run(
         dev, f"EgoM2P-large, B = {LARGE_REMAT_B}, remat full", LARGE_MODEL, LARGE_REMAT_B,
         LARGE_REMAT_STEP, train_flops_per_sample(n_layers=24, dim=1020, h=int(2 * 4 * 1020 / 3)),
         None, steps=LARGE_REMAT_STEPS, extra=("--use_act_checkpoint", "true"))
@@ -2601,6 +2624,486 @@ def tokenizer_pipeline_phase(dev):
     return totals
 
 
+# ---------------------------------------------------------------- phase 5e
+# the one-rank run over NCCL: 2 epochs of DP_EPOCH_STEPS steps at B = 8, the
+# first epoch profiled, its checkpoint written on a background thread
+DP_EPOCH_STEPS = 3
+# the two ranks sharing the card over gloo: DP_B rows per rank, DP_STEPS
+# steps at --accum_steps 1 (then a val pass), then DP_STEPS at 2
+DP_B, DP_STEPS = 4, 2
+DP_TIMEOUT_S = 600
+DP_CONFIG = {"model": BASE_MODEL, "tokens": 2048, "device": "cuda", "scaled": False,
+             "kernels": True}
+FLASH_KERNEL_NAMES = ("flash64_fwd_kernel", "flash64_dq_kernel", "flash64_dkv_kernel",
+                      "flash_ce_fwd_kernel")
+
+
+def _dp_argv(cfg, out_dir, batch, epoch_size, epochs, *extra):
+    """The trainer's arguments of phase 5's run (main_mod4.yaml's settings,
+    synthetic data, constant LR, seed 0) at `cfg`'s model and size."""
+    n = str(cfg["tokens"])
+    return ["--synthetic_data", "--model", cfg["model"], "--num_input_tokens", n,
+            "--num_target_tokens", n, "--loss_type", "mod", "--batch_size", str(batch),
+            "--blr", "1e-4", "--min_blr", "0", "--opt_betas", "0.9", "0.95",
+            "--weight_decay", "0.05", "--clip_grad", "1.0", "--lr_schedule", "constant",
+            "--epochs", str(epochs), "--epoch_size", str(epoch_size), "--seed", "0",
+            "--device", cfg["device"], "--output_dir", out_dir, "--print_freq", "1",
+            *(["--scaled_modalities"] if cfg["scaled"] else []), *extra]
+
+
+def _capture_optimizers(keep_grads: bool):
+    """The trainer's Optimizers, in the order it makes them; with
+    `keep_grads` each keeps the gradients of its first step as it applied
+    them (summed over the ranks, before clipping) in `.first_grads`."""
+    import egom2p_torch.core.optim as optim
+    made, init, step = [], optim.Optimizer.__init__, optim.Optimizer.step
+
+    def init_(self, *a, **kw):
+        init(self, *a, **kw)
+        self.first_grads = None
+        made.append(self)
+
+    def step_(self):
+        if keep_grads and self.first_grads is None:
+            self.first_grads = [p.grad.detach().clone() for p in self.params]
+        return step(self)
+
+    optim.Optimizer.__init__, optim.Optimizer.step = init_, step_
+    return made
+
+
+def _host_copy(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _counting_on_step(per_step, after=None):
+    """on_step for the trainer: each step's launches by wrapper, metrics and
+    seconds into `per_step`, then `after()`."""
+    _reset_counts()
+    last = _counts()
+
+    def on_step(step, metrics, seconds):
+        now = _counts()
+        per_step.append({"launches": {k: now[k] - last[k] for k in now}, "metrics": metrics,
+                         "seconds": seconds})
+        last.update(now)
+        if after is not None:
+            after()
+
+    return on_step
+
+
+def dp_nccl_worker(cfg, out_json):
+    """Phase 5e's one-rank run, under torchrun: the trainer's main() with
+    --profile, --async_save true and --save_ckpt_freq 1 over 2 epochs; writes
+    each step's launches and metrics, and whether checkpoint-0.pth holds
+    the model and optimizer state at its step, to `out_json`."""
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.core.checkpoint import load_pth
+
+    run_dir = os.path.join(os.path.dirname(out_json), "nccl-run")
+    made, per_step, snap = _capture_optimizers(keep_grads=False), [], {}
+
+    def on_epoch(epoch, model, stats):
+        if epoch == 0:  # after its (async) save returned: no step in between
+            snap["model"] = _host_copy(model.state_dict())
+            snap["optimizer"] = _host_copy(made[-1].state_dict())
+
+    args = run_training.get_args(_dp_argv(
+        cfg, run_dir, B, B * DP_EPOCH_STEPS, 2, "--accum_steps", "1", "--eval_freq", "0",
+        "--profile", "--async_save", "true", "--save_ckpt_freq", "1"))
+    run_training.main(args, on_step=_counting_on_step(per_step), on_epoch=on_epoch)
+    ckpt = load_pth(os.path.join(run_dir, "checkpoint-0.pth"))
+    with open(out_json, "w") as f:
+        json.dump({"steps": per_step, "ckpt_step": ckpt["step"],
+                   "ckpt_equal": _tree_equal(snap["model"], ckpt["model"])
+                   and _tree_equal(snap["optimizer"], ckpt["optimizer"]),
+                   "trace": os.path.join(run_dir, "profile", "trace-rank0.json"),
+                   "world": int(os.environ["WORLD_SIZE"])}, f)
+
+
+def _per_token(metrics, counts, prefix="loss_"):
+    """The modalities' losses weighted by their target counts (step_check:
+    the mean of the modalities' means is noisy where one holds few
+    targets)."""
+    return sum(metrics[prefix + m] * c for m, c in counts.items()) / sum(counts.values())
+
+
+def _target_counts(batch):
+    return {m: float((~np.asarray(d["target_mask"]).astype(bool)).sum()) for m, d in batch.items()}
+
+
+def dp_rank_worker(cfg, out_dir):
+    """One of phase 5e's ranks (or of --cards N's): rank RANK of WORLD_SIZE.
+    Over gloo (cfg["backend"]) it forms the group itself, over NCCL the
+    trainer forms it from torchrun's environment; then the trainer's main()
+    at --accum_steps 1 (with a val pass) and 2, checking after every step
+    that its parameters equal rank 0's bitwise.  Rank 0 then leaves the
+    group and steps one process on the global batch the ranks' loaders
+    gave, evaluates the val pass's rows and times one process's step at
+    the rank's batch.  Writes rank{RANK}.json to `out_dir`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from egom2p_torch.cli import run_training
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if cfg["backend"] == "gloo":
+        dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    made = _capture_optimizers(keep_grads=rank == 0)
+    runs, kept = {}, {}
+    for accum in (1, 2):
+        per_step, synced, stats = [], [], {}
+
+        def check_sync():
+            flat = torch.cat([p.detach().reshape(-1) for p in made[-1].params])
+            ref = flat.clone()
+            dist.broadcast(ref, 0)
+            synced.append(bool(torch.equal(ref, flat)))
+
+        run_dir = os.path.join(out_dir, f"rank{rank}-accum{accum}")
+        b = cfg["batch"]
+        args = run_training.get_args(_dp_argv(
+            cfg, run_dir, b, b * world * accum * DP_STEPS, 1, "--accum_steps", str(accum),
+            "--eval_freq", "1" if accum == 1 else "0", "--eval_iters", "1", "--no_fixed_eval",
+            "--async_save", "false"))
+        out = run_training.main(args, on_step=_counting_on_step(per_step, check_sync),
+                                on_epoch=lambda epoch, model, st: stats.update(st))
+        runs[accum] = {"steps": per_step, "synced": synced, "stats": stats,
+                       "world": dist.get_world_size(), "backend": dist.get_backend()}
+        if rank == 0:
+            kept[accum] = {"grads": made[-1].first_grads,
+                           "model": out["model"] if accum == 1 else None}
+        del out
+    dist.destroy_process_group()
+    result = {"runs": runs}
+    if rank == 0:
+        result["reference"] = _dp_reference(cfg, kept, runs, world)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _dp_reference(cfg, kept, runs, world):
+    """One process (no group) on the global batch of the ranks' first loader
+    batches: the first step's metrics and gradients against the ranks',
+    the eval step on the val pass's rows against the ranks' val pass, and
+    the median ms of 3 steps at one rank's batch (after one warm-up)."""
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.core import distributed
+    from egom2p_torch.core.optim import Optimizer
+    from egom2p_torch.data.loader import batch_to_device
+    from egom2p_torch.models.egom2p import create_model
+    from egom2p_torch.train.egom2p_train import make_eval_step, make_train_step
+
+    dev = (torch.device("cuda", distributed.local_rank()) if cfg["device"] == "cuda"
+           else torch.device("cpu"))
+    n, b = cfg["tokens"], cfg["batch"]
+    real_rank, real_world = distributed.rank, distributed.world_size
+
+    def model_at_init(remat):
+        info = run_training.modality_info(args) if cfg["scaled"] else None
+        model = create_model(cfg["model"], sorted(run_training.MODS4), sorted(run_training.MODS4),
+                             device=dev, modality_info=info, use_act_checkpoint=remat)
+        model.init_random_(torch.Generator(device=dev).manual_seed(0))
+        return model
+
+    out = {}
+    try:
+        for accum in (1, 2):
+            args = run_training.get_args(_dp_argv(cfg, "unused", b, b, 1,
+                                                  "--accum_steps", str(accum)))
+            rows = []
+            for r in range(world):  # rank r's loader: its seed, its first batch
+                distributed.rank = lambda r=r: r
+                it = iter(run_training.setup_data(args)[0])
+                rows.append(next(it))
+                it.close()
+            distributed.rank = real_rank
+            glob = {m: {k: np.concatenate([part[m][k] for part in rows]) for k in d}
+                    for m, d in rows[0].items()}
+            # remat gives the same loss and gradients bitwise (phase 5c)
+            model = model_at_init(cfg["reference_remat"])
+            opt = Optimizer(model, [1e-4], clip_grad=1.0)
+            metrics = make_train_step(model, opt, n, n, "mod", accum)(
+                batch_to_device(glob, dev), torch.Generator().manual_seed(1))
+            ref = {k: float(v) for k, v in metrics.items()}
+            got = runs[accum]["steps"][0]["metrics"]
+            grads, ref_grads = kept[accum]["grads"], opt.first_grads
+            num = math.sqrt(sum(((a.float() - b_.float()) ** 2).sum().item()
+                                for a, b_ in zip(grads, ref_grads)))
+            den = math.sqrt(sum((b_.float() ** 2).sum().item() for b_ in ref_grads))
+            counts = _target_counts(glob)
+            out[accum] = {"rows": int(glob["tok_rgb"]["tensor"].shape[0]),
+                          "loss": got["loss"], "ref_loss": ref["loss"],
+                          "per_token": _per_token(got, counts),
+                          "ref_per_token": _per_token(ref, counts),
+                          "grad_norm": got["grad_norm"], "ref_grad_norm": ref["grad_norm"],
+                          "grad_rel_l2": num / den}
+            del model, opt, metrics, grads, ref_grads
+            kept[accum]["grads"] = None
+        # the val pass: every rank read the same global batch and took its rows
+        distributed.world_size = lambda: world
+        args = run_training.get_args(_dp_argv(cfg, "unused", b, b, 1))
+        factory = run_training.setup_val_data(args)[0]["synthetic_val"]
+        distributed.world_size = real_world
+        it = factory()
+        val = next(it)
+        it.close()
+        ev = make_eval_step(kept[1]["model"], n, n, "mod")(batch_to_device(val, dev))
+        ev = {f"val_synthetic_val_{k}": float(v) for k, v in ev.items()}
+        counts = _target_counts(val)
+        stats = runs[1]["stats"]
+        out["eval"] = {"rows": int(val["tok_rgb"]["tensor"].shape[0]),
+                       "loss": stats["val_synthetic_val_loss"],
+                       "ref_loss": ev["val_synthetic_val_loss"],
+                       "per_token": _per_token(stats, counts, "val_synthetic_val_loss_"),
+                       "ref_per_token": _per_token(ev, counts, "val_synthetic_val_loss_")}
+        kept.clear()
+        # one process's step at one rank's batch, beside the ranks' steps
+        model = model_at_init(False)
+        opt = Optimizer(model, [1e-4], clip_grad=1.0)
+        step = make_train_step(model, opt, n, n, "mod")
+        single = batch_to_device({m: {k: v[:b] for k, v in d.items()} for m, d in val.items()},
+                                 dev)
+        gen, times = torch.Generator().manual_seed(1), []
+        for _ in range(4):
+            _sync_device(dev)
+            t0 = time.perf_counter()
+            step(single, gen)
+            _sync_device(dev)
+            times.append(time.perf_counter() - t0)
+        out["single_ms"] = float(np.median(times[1:])) * 1e3
+    finally:
+        distributed.rank, distributed.world_size = real_rank, real_world
+    return out
+
+
+def _sync_device(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _trace_stats(path):
+    """(kernel names found of FLASH_KERNEL_NAMES, NCCL kernels' share of the
+    device kernel time, kernel ms) of a chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    total = sum(e.get("dur", 0) for e in kernels)
+    nccl = sum(e.get("dur", 0) for e in kernels if "nccl" in e.get("name", "").lower())
+    names = [k for k in FLASH_KERNEL_NAMES if any(k in e.get("name", "") for e in kernels)]
+    return names, (nccl / total if total else 0.0), total / 1e3
+
+
+def data_parallel_phase(dev, first, default_ms, cfg=None):
+    """Phase 5e (docstring): the trainer across processes.  `first` is
+    phase 5's first-step metrics and `default_ms` its median step ms.
+    Returns the one-rank run's launch totals."""
+    cfg = dict(DP_CONFIG if cfg is None else cfg)
+    t_phase = time.perf_counter()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    script = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        # 1. one rank over NCCL, launched as users launch it
+        out_json = os.path.join(tmp, "nccl.json")
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "1", script, "--dp-worker", "nccl",
+                               cfg_path, out_json], cwd=REPO_DIR, capture_output=True,
+                              text=True, timeout=DP_TIMEOUT_S)
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:])
+            raise AssertionError(f"the one-rank torchrun run exited {proc.returncode}")
+        with open(out_json) as f:
+            nccl = json.load(f)
+        steps = nccl["steps"]
+        if nccl["world"] != 1 or len(steps) != 2 * DP_EPOCH_STEPS:
+            raise AssertionError(f"one-rank run: world {nccl['world']}, {len(steps)} steps")
+        if cfg["kernels"] and any(s["launches"] != DEFAULT_STEP for s in steps):
+            raise AssertionError(f"one-rank run launched {[s['launches'] for s in steps]}")
+        got = steps[0]["metrics"]
+        same = got["loss"] == first["loss"] and got["grad_norm"] == first["grad_norm"]
+        print(f"one rank over NCCL (torchrun): first step loss {got['loss']!r} grad_norm "
+              f"{got['grad_norm']!r}; phase 5's single process {first['loss']!r} "
+              f"{first['grad_norm']!r}: {'bitwise equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("the one-rank NCCL step differs from the single-process step")
+        if not nccl["ckpt_equal"] or nccl["ckpt_step"] != DP_EPOCH_STEPS:
+            raise AssertionError("checkpoint-0.pth (async) is not the state at its step")
+        names, nccl_share, kernel_ms = _trace_stats(nccl["trace"])
+        if cfg["kernels"] and names != list(FLASH_KERNEL_NAMES):
+            raise AssertionError(f"the profile names {names} of {FLASH_KERNEL_NAMES}")
+        unprofiled = [s["seconds"] * 1e3 for s in steps[DP_EPOCH_STEPS + 1:]]
+        step_ms = float(np.median(unprofiled))
+        print(f"one rank over NCCL: step ms " + " ".join(f"{s['seconds'] * 1e3:.1f}"
+                                                         for s in steps)
+              + f" (epoch 0 profiled); median of epoch 1's last {len(unprofiled)} "
+              f"{step_ms:.1f} ms (an async save of epoch 0 in flight) vs phase 5's "
+              f"{default_ms:.1f} ms ({step_ms / default_ms - 1:+.1%}); NCCL kernels "
+              f"{nccl_share:.3%} of the profiled epoch's {kernel_ms:.1f} ms of kernel time; "
+              f"trace names {', '.join(names) or 'no flash kernel'}; checkpoint-0.pth "
+              f"(async) bitwise the state at step {nccl['ckpt_step']}")
+        totals = {k: sum(s["launches"][k] for s in steps) for k in steps[0]["launches"]}
+
+        # 2. two ranks sharing the card over gloo, each through main()
+        res = _run_ranks({**cfg, "batch": DP_B, "backend": "gloo", "reference_remat": False},
+                         tmp, 2, script)
+    _check_ranks(res, 2, cfg["kernels"], "two ranks on one card",
+                 "ranks sharing the card, gradients through the host: not a scaling number")
+    print(f"data-parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def _run_ranks(cfg, tmp, world, script):
+    """The `world` rank processes of dp_rank_worker: spawned here with RANK,
+    WORLD_SIZE and LOCAL_RANK 0 (gloo, one card), or by torchrun, one per
+    card (NCCL).  Returns their rank{r}.json contents."""
+    cfg_path = os.path.join(tmp, "ranks.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    worker = [script, "--dp-worker", "ranks", cfg_path, tmp]
+    if cfg["backend"] == "gloo":
+        # half the host's threads each, as torchrun would limit them
+        env = {**os.environ, "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+               "OMP_NUM_THREADS": str(max((os.cpu_count() or 2) // world, 1))}
+        procs = [subprocess.Popen([sys.executable, *worker], cwd=REPO_DIR,
+                                  env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    else:
+        procs = [subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                   "--nproc_per_node", str(world), *worker], cwd=REPO_DIR,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        for log in logs:
+            print(log[-4000:])
+        raise AssertionError(f"the rank processes exited {[p.returncode for p in procs]}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def _check_ranks(res, world, kernels, label, timing_note):
+    """The ranks' runs against one process on the global batch: the first
+    step's CE per target token within STEP_LOSS_RTOL and its gradients
+    within STEP_GRAD_REL_L2, every rank's parameters equal rank 0's after
+    every step, the same metrics on every rank, 36 / 36 / 36 / 2 launches
+    per micro-batch, and the val pass within STEP_LOSS_RTOL."""
+    for accum in ("1", "2"):
+        runs = [r["runs"][accum] for r in res]
+        expected = {k: v * int(accum) for k, v in DEFAULT_STEP.items()}
+        for r, run in enumerate(runs):
+            if run["world"] != world or len(run["steps"]) != DP_STEPS or not all(run["synced"]):
+                raise AssertionError(f"accum {accum} rank {r}: world {run['world']}, "
+                                     f"{len(run['steps'])} steps, parameters equal to rank "
+                                     f"0's {run['synced']}")
+            if kernels and any(s["launches"] != expected for s in run["steps"]):
+                raise AssertionError(f"accum {accum} rank {r} launched "
+                                     f"{[s['launches'] for s in run['steps']]}")
+            if run["steps"][0]["metrics"] != runs[0]["steps"][0]["metrics"]:
+                raise AssertionError(f"accum {accum}: rank {r}'s metrics differ from rank 0's")
+        ref = res[0]["reference"][accum]
+        tok_err = abs(ref["per_token"] - ref["ref_per_token"]) / abs(ref["ref_per_token"])
+        print(f"{label} ({runs[0]['backend']}), {ref['rows'] // world // int(accum)} rows per "
+              f"rank, accum {accum}: first step CE per target token {ref['per_token']:.6f} vs "
+              f"{ref['ref_per_token']:.6f} for one process on the {ref['rows']}-row global "
+              f"batch (rel {tok_err:.2e}; the training loss {ref['loss']:.6f} vs "
+              f"{ref['ref_loss']:.6f}, grad_norm {ref['grad_norm']:.6f} vs "
+              f"{ref['ref_grad_norm']:.6f}), gradient rel L2 {ref['grad_rel_l2']:.2e}; "
+              f"parameters bitwise equal on all {world} ranks after each of {DP_STEPS} steps; "
+              f"step ms by rank " + " / ".join(
+                  " ".join(f"{s['seconds'] * 1e3:.1f}" for s in run["steps"]) for run in runs)
+              + f" (the first of a run is its warm-up; {timing_note})")
+        if not math.isfinite(ref["per_token"]) or tok_err > STEP_LOSS_RTOL \
+                or ref["grad_rel_l2"] > STEP_GRAD_REL_L2:
+            raise AssertionError(f"accum {accum}: the ranks' step disagrees with one "
+                                 "process's step on the global batch")
+    ev = res[0]["reference"]["eval"]
+    ev_err = abs(ev["per_token"] - ev["ref_per_token"]) / abs(ev["ref_per_token"])
+    print(f"{label}: val pass on the {ev['rows']}-row global batch: loss {ev['loss']:.6f} vs "
+          f"{ev['ref_loss']:.6f} for one process, CE per target token rel {ev_err:.2e}; one "
+          f"process's step at one rank's rows: {res[0]['reference']['single_ms']:.1f} ms")
+    if any(r["runs"]["1"]["stats"] != res[0]["runs"]["1"]["stats"] for r in res) \
+            or ev_err > STEP_LOSS_RTOL:
+        raise AssertionError("the ranks' val pass disagrees with one process's eval")
+
+
+def cards_check(world: int) -> int:
+    """`python3 chip_smoke.py --cards N`: the trainer data-parallel over N
+    cards of one host with NCCL, launched by torchrun, EgoM2P-base at B = 8
+    per card, checked as phase 5e checks its two ranks (_check_ranks); the
+    per-step times beside one process's step at B = 8 on one card."""
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke --cards {world}: {torch.cuda.device_count()} CUDA devices",
+              file=sys.stderr)
+        return 2
+    from egom2p_torch.ops import _build
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    _build.load()  # once, before the ranks load it
+    t0 = time.perf_counter()
+    cfg = {**DP_CONFIG, "batch": B, "backend": "nccl", "reference_remat": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        res = _run_ranks(cfg, tmp, world, os.path.abspath(__file__))
+    _check_ranks(res, world, cfg["kernels"], f"{world} cards",
+                 f"{world} cards of one host")
+    print(f"data-parallel check on {world} cards: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def dp_worker(argv) -> int:
+    """The phase 5e worker processes: `--dp-worker nccl CONFIG OUT_JSON`
+    under torchrun, `--dp-worker ranks CONFIG OUT_DIR` with RANK and
+    WORLD_SIZE set (dp_rank_worker)."""
+    kind, cfg_path, out = argv
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets for every phase
+    torch.backends.cudnn.allow_tf32 = False
+    (dp_nccl_worker if kind == "nccl" else dp_rank_worker)(cfg, out)
+    return 0
+
+
 def _demangled(names):
     """{mangled: demangled} by the toolkit's cu++filt (the mangled name where
     it is missing)."""
@@ -2710,10 +3213,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rows = phase(train_kernel_phase, dev)
     ce_rows = phase(ce_phase, dev)
-    train_launches, default_ms = phase(train_slice_phase, dev)
+    train_launches, default_ms, first_metrics = phase(train_slice_phase, dev)
     shard_launches = phase(shard_train_phase, dev, default_ms)
     remat_launches, large_remat_launches = phase(remat_phase, dev)
     pipeline_launches = phase(tokenizer_pipeline_phase, dev)
+    dp_launches = phase(data_parallel_phase, dev, first_metrics, default_ms)
     fused_rows = phase(fused_bwd_phase, dev)
     phase(ragged_bwd_phase, dev)
     ce_bwd_rows = phase(ce_bwd_phase, dev)
@@ -2752,7 +3256,8 @@ def main() -> int:
     # evals), the base and the large remat runs, the tokenizer chain's steps
     paths = {part: {"shard_launches": shard_launches[part],
                     "remat_launches": remat_launches[part],
-                    "pipeline_launches": pipeline_launches[part]}
+                    "pipeline_launches": pipeline_launches[part],
+                    "dp_launches": dp_launches[part]}
              for part in ("fwd", "dq", "dkv", "ce_fwd")}
     for name, src, line, part, keys, products, tensors, lib, more in (
             ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",), 2, (2, 2), step_lib["fwd"],
@@ -2807,4 +3312,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_check(int(sys.argv[2])))
     sys.exit(main())

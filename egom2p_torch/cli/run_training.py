@@ -1,4 +1,5 @@
-"""EgoM2P pretraining entry point of the PyTorch port, on one device.
+"""EgoM2P pretraining entry point of the PyTorch port, on one device or
+data-parallel across processes.
 
 Port of run_training_egom2p.py: the same argument names and defaults for
 what is ported, a --config file whose keys become defaults (JSON, or YAML
@@ -7,13 +8,16 @@ ignored), the token-budget derivation of epochs and warmup, the cosine /
 inverse-sqrt / constant LR schedules, AdamW, the training loop (aborting on
 a non-finite loss), a JSON line per epoch in <output_dir>/log.txt, and
 checkpoints in the reference's .pth format (core/checkpoint.py):
-checkpoint-{epoch}.pth every --save_ckpt_freq epochs and
-checkpoint-final.pth after the last.
+checkpoint-{epoch}.pth every --save_ckpt_freq epochs (written on a
+background thread with --async_save, the default) and checkpoint-final.pth
+after the last (always blocking).
 
 Data: aligned token shards through --data_config (a data config's `train`
 datasets, each with its own masking, weighted by `train.weights`;
 data/tar_reader.py, data/loader.py with --num_workers forked workers), or
---synthetic_data.  After every --eval_freq epochs the held-out `val`
+--synthetic_data (with --input_domains and --target_domains, TransferMasking:
+fixed input and target modalities; the shard path keeps the Dirichlet
+masking, as the JAX trainer does).  After every --eval_freq epochs the held-out `val`
 datasets (their config merged over the train dataset's of the same name)
 are evaluated over --eval_iters batches, with random token budgets
 (val_<name>_*) and with budgets pinned to --fixed_eval_input_tokens /
@@ -22,30 +26,44 @@ the same batches every epoch); --synthetic_data evaluates a held-out
 synthetic pool.  --frozen_model_epochs N holds the shared trunk still for
 the first N epochs; --use_act_checkpoint recomputes every block in the
 backward (--remat_policy full or dots); --num_register_tokens adds learned
-encoder tokens.
+encoder tokens.  --profile writes a torch.profiler trace of the first
+epoch's steps to <output_dir>/profile; --log_wandb logs to wandb where it
+is installed (else nothing).
+
+Across processes (torchrun; core/distributed.py, train/egom2p_train.py):
+each process trains on its device (cuda:LOCAL_RANK) with a loader batch of
+--batch_size x --accum_steps rows, seeded seed + 7919 x rank, on its share
+of the shards; the global batch, batch_size x processes x accum_steps,
+sets the steps per epoch, the LR (blr x global / 256) and the warmup, and
+each step computes the JAX step's loss and gradients on it.  Validation
+reads every shard at batch_size x processes rows a batch, each process
+evaluating its rows.  Rank 0 alone prints, writes log.txt and writes the
+checkpoints, whose keys are the model's own (no `module.` prefix).
 
 By default a run resumes from the latest checkpoint in its --output_dir
 (model, optimizer, step and the LR schedule's position; --no_auto_resume
 starts afresh), preferring the largest checkpoint-{N}.pth over
 checkpoint-final.pth, as the JAX package's trainer does.  On shards a
 resumed run opens a fresh stream, as the JAX trainer does; on
---synthetic_data it replays the seeded stream's batches already trained on.
---finetune PATH warm-starts from the tensors of a checkpoint whose shapes
-match.  It runs on the first CUDA device (--device cuda, the default) and
+--synthetic_data each process replays its seeded stream's batches already
+trained on.  --finetune PATH warm-starts from the tensors of a checkpoint
+whose shapes match.  It runs on CUDA (--device cuda, the default) and
 raises when there is none; --device cpu asks for the CPU (tiny runs and
-tests).
+tests; gloo across processes).
 
     python -m egom2p_torch.cli.run_training --config cfgs/egom2p/main_mod4.yaml
+    torchrun --standalone --nproc_per_node 8 -m egom2p_torch.cli.run_training \
+        --config cfgs/egom2p/main_mod4.yaml
 
 Smoke run without data (the config's settings as arguments):
     python -m egom2p_torch.cli.run_training --synthetic_data \
         --model egom2p_base_12e_12d_swiglu_nobias --batch_size 8 \
         --lr_schedule constant --epochs 1 --epoch_size 48
 
-Not ported yet: data-parallel and sharded training, TransferMasking
-(--input_domains / --target_domains), text modalities
-(--text_tokenizer_path), Hugging Face and S3 datasets, asynchronous saves,
-S3 sync, wandb and profiling.
+Not ported yet (each raises where it is asked for): FSDP (--fsdp true),
+tensor parallelism (--tensor_parallel > 1), S3 checkpoint sync
+(--s3_save_dir) and S3 or Hugging Face datasets, and text modalities
+(--text_tokenizer_path).
 """
 from __future__ import annotations
 
@@ -123,6 +141,26 @@ def get_args(argv=None):
     p.add_argument("--finetune", default=None,
                    help="warm-start checkpoint (.pth); tensors of another shape keep their init")
     p.add_argument("--print_freq", type=int, default=10)
+    p.add_argument("--input_domains", default=None,
+                   help="hyphen-separated; with --target_domains, TransferMasking on "
+                        "--synthetic_data (fixed input and target modalities)")
+    p.add_argument("--target_domains", default=None)
+    p.add_argument("--async_save", type=str2bool, default=True,
+                   help="periodic checkpoints written on a background thread "
+                        "(the final save always blocks)")
+    p.add_argument("--profile", action="store_true",
+                   help="a torch.profiler trace of the first epoch's steps in "
+                        "<output_dir>/profile")
+    p.add_argument("--log_wandb", action="store_true", default=False)
+    p.add_argument("--no_log_wandb", dest="log_wandb", action="store_false")
+    p.add_argument("--wandb_project", default="egom2p-train")
+    p.add_argument("--wandb_entity", default=None)
+    p.add_argument("--wandb_run_name", default="auto")
+    p.add_argument("--fsdp", type=str2bool, default=False,
+                   help="not ported: raises when true")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="not ported: raises above 1")
+    p.add_argument("--s3_save_dir", default=None, help="not ported: raises when set")
     return parse_args_with_config(p, argv)
 
 
@@ -150,11 +188,14 @@ def _synthetic_pool(args, seed: int, n: int):
     return info, pool
 
 
-def expand_modality_shards(path: str, mod_info: Dict, fallback_name: str) -> Dict:
+def expand_modality_shards(path: str, mod_info: Dict, fallback_name: str,
+                           split: bool = True) -> Dict:
     """'[rgb,depth]/.../shard-{000..195}.tar' -> aligned per-modality shard
     lists, each modality keyed by the registry entry whose `path` is its
-    directory (run_training_egom2p.py:140-168).  One process reads every
-    shard (shard_split to rank 0 of 1)."""
+    directory (run_training_egom2p.py:140-168).  split=True gives this
+    process its share of the shards (train streams); split=False every
+    shard (validation: every process reads the same stream)."""
+    from egom2p_torch.core import distributed
     from egom2p_torch.data.tar_reader import braceexpand, shard_split
 
     m = re.search(r"\[([^\]]+)\]", path)
@@ -163,7 +204,8 @@ def expand_modality_shards(path: str, mod_info: Dict, fallback_name: str) -> Dic
         expanded = braceexpand(path.replace(f"[{m.group(1)}]", mp) if m else path)
         mod_key = next((k for k, v in mod_info.items() if v.get("path") == mp),
                        mp or fallback_name)
-        per_mod[mod_key] = shard_split(expanded, 0, 1)
+        per_mod[mod_key] = (shard_split(expanded, distributed.rank(), distributed.world_size())
+                            if split else expanded)
     return per_mod
 
 
@@ -191,26 +233,40 @@ def _no_text(args) -> None:
 
 
 def setup_data(args):
-    """The train mixture loader and the sorted domains
+    """This process's train mixture loader and the sorted domains
     (run_training_egom2p.py:171-288): --synthetic_data's seeded pool of 256
-    samples, or the data config's `train` datasets."""
+    samples, or the data config's `train` datasets (this process's share
+    of their shards).  Each process loads --batch_size x --accum_steps rows
+    a batch, seeded seed + 7919 x rank."""
+    from egom2p_torch.core import distributed
     from egom2p_torch.core.config import load_data_config, setup_sampling_mod_info
     from egom2p_torch.data.loader import DatasetStream, MixtureLoader
-    from egom2p_torch.data.masking import UnifiedMasking
+    from egom2p_torch.data.masking import TransferMasking, UnifiedMasking
     from egom2p_torch.data.modality_info import MODALITY_INFO
 
     _no_text(args)
     batch = args.batch_size * args.accum_steps
+    seed = args.seed + distributed.rank() * 7919
+    transfer = bool(args.input_domains) + bool(args.target_domains)
+    if transfer == 1:
+        raise ValueError("--input_domains and --target_domains go together")
     if args.synthetic_data:
         # a fixed pool, so that short smoke runs can demonstrably memorize
         info, pool = _synthetic_pool(args, args.seed, 256)
-        masking = UnifiedMasking(info, args.num_input_tokens, args.num_target_tokens,
-                                 sampling_weights=[1.0] * 4, seed=args.seed)
+        if transfer:
+            masking = TransferMasking(info, args.input_domains.split("-"),
+                                      args.target_domains.split("-"))
+        else:
+            masking = UnifiedMasking(info, args.num_input_tokens, args.num_target_tokens,
+                                     sampling_weights=[1.0] * 4, seed=args.seed)
         loader = MixtureLoader([DatasetStream(lambda: iter(pool), masking, name="synthetic")],
-                               info, batch, seed=args.seed, num_workers=args.num_workers)
+                               info, batch, seed=seed, num_workers=args.num_workers)
         return loader, sorted(MODS4)
     if not args.data_config:
         raise ValueError("--data_config is required without --synthetic_data")
+    if transfer:
+        print("--input_domains / --target_domains: the shard path keeps the data config's "
+              "masking, as the JAX trainer does")
     train = load_data_config(args.data_config)["train"]
     streams, all_domains = [], set()
     for name, dcfg in train["datasets"].items():
@@ -228,7 +284,7 @@ def setup_data(args):
                                  dcfg.get("wds_shuffle_buffer_tar", 1000), args.seed)
         streams.append(DatasetStream(factory, masking, name=name))
     info_all = {m: MODALITY_INFO[m] for m in sorted(all_domains)}
-    loader = MixtureLoader(streams, info_all, batch, seed=args.seed,
+    loader = MixtureLoader(streams, info_all, batch, seed=seed,
                            weights=train.get("weights"), num_workers=args.num_workers)
     return loader, sorted(all_domains)
 
@@ -236,11 +292,14 @@ def setup_data(args):
 def setup_val_data(args):
     """({name: factory}, {name: factory}) of the held-out validation and
     fixed-eval loaders (run_training_egom2p.py:291-389); each factory gives
-    a fresh iterator over the same held-out samples.  Validation draws
+    a fresh iterator over the same held-out samples, in global batches of
+    --batch_size x processes rows that every process reads alike (every
+    shard, split=False; run_eval takes this process's rows).  Validation draws
     token budgets as training does (masking seed + 9999); fixed eval pins
     each sample's budgets to (--fixed_eval_input_tokens,) * 2 and
     (--fixed_eval_target_tokens,) * 2 with the masking seed + 77777, so its
     batches are the same every epoch."""
+    from egom2p_torch.core import distributed
     from egom2p_torch.core.config import load_data_config, setup_sampling_mod_info
     from egom2p_torch.data.loader import DatasetStream, MixtureLoader
     from egom2p_torch.data.masking import UnifiedMasking
@@ -248,6 +307,7 @@ def setup_val_data(args):
     from egom2p_torch.data.tar_reader import multi_tarfile_samples
 
     _no_text(args)
+    batch = args.batch_size * distributed.world_size()
 
     def masking(mod_info, sampling_weights, fixed):
         if fixed:
@@ -261,7 +321,7 @@ def setup_val_data(args):
         def factory():
             stream = DatasetStream(samples, masking(mod_info, sampling_weights, fixed),
                                    name=name)
-            return iter(MixtureLoader([stream], mod_info, args.batch_size,
+            return iter(MixtureLoader([stream], mod_info, batch,
                                       seed=args.seed + 31337, prefetch=1))
         return factory
 
@@ -281,7 +341,7 @@ def setup_val_data(args):
         base = dict(train_cfgs.get(name, {}))
         base.update({k: v for k, v in dcfg.items() if v is not None})
         mod_info, sampling_weights = setup_sampling_mod_info(base, MODALITY_INFO)
-        per_mod = expand_modality_shards(base["data_path"], mod_info, name)
+        per_mod = expand_modality_shards(base["data_path"], mod_info, name, split=False)
         samples = lambda per_mod=per_mod: multi_tarfile_samples(per_mod)  # noqa: E731
         val_factories[name] = make_factory(name, samples, mod_info, sampling_weights, False)
         fixed_factories[name] = make_factory(name, samples, mod_info, sampling_weights, True)
@@ -289,12 +349,17 @@ def setup_val_data(args):
 
 
 def run_eval(factory, eval_step, prefix: str, eval_iters: int, keys, device) -> Dict[str, float]:
-    """Mean of `eval_step`'s metrics over up to `eval_iters` batches of a
-    fresh iterator from `factory`, named `prefix` + key; {} without a batch
-    (run_training_egom2p.py:634-666, one process)."""
+    """Mean of `eval_step`'s metrics over up to `eval_iters` global batches
+    of a fresh iterator from `factory`, named `prefix` + key; {} without a
+    batch (run_training_egom2p.py:634-666).  Each process evaluates its
+    rows [r b, (r + 1) b) of every batch (eval_step gives the global
+    batch's loss); every process enters every collective, and the means
+    are reduced over the processes."""
+    from egom2p_torch.core import distributed
     from egom2p_torch.data.loader import batch_to_device
 
-    accum, n = {}, 0
+    world, rank = distributed.world_size(), distributed.rank()
+    accum, n = dict.fromkeys(keys, 0.0), 0
     it = factory()
     try:
         for _ in range(eval_iters):
@@ -302,22 +367,33 @@ def run_eval(factory, eval_step, prefix: str, eval_iters: int, keys, device) -> 
                 raw = next(it)
             except StopIteration:
                 break
-            for k, v in eval_step(batch_to_device(raw, device)).items():
-                accum[k] = accum.get(k, 0.0) + float(v)
+            b = next(iter(next(iter(raw.values())).values())).shape[0] // world
+            mine = {m: {k: v[rank * b:(rank + 1) * b] for k, v in d.items()}
+                    for m, d in raw.items()}
+            for k, v in eval_step(batch_to_device(mine, device)).items():
+                if k in accum:
+                    accum[k] += float(v)
             n += 1
     finally:
         it.close()
-    return {f"{prefix}{k}": accum.get(k, 0.0) / n for k in keys} if n else {}
+    reduced = distributed.all_reduce_metrics({**accum, "__n": float(n)})
+    n_all = reduced.pop("__n")
+    return {f"{prefix}{k}": reduced[k] / n_all for k in keys} if n_all > 0 else {}
+
+
+def _global_batch(args) -> int:
+    from egom2p_torch.core import distributed
+    return args.batch_size * distributed.world_size() * args.accum_steps
 
 
 def lr_schedule(args) -> np.ndarray:
-    """Epochs, warmup and the per-step LR from the token budgets
-    (reference: run_training_egom2p.py:446-469); sets args.epochs and
-    args.warmup_steps where they are derived."""
+    """Epochs, warmup and the per-step LR from the token budgets and the
+    global batch (reference: run_training_egom2p.py:446-469); sets
+    args.epochs and args.warmup_steps where they are derived."""
     from egom2p_torch.core.schedules import (constant_scheduler, cosine_scheduler,
                                              inverse_sqrt_scheduler)
 
-    global_batch = args.batch_size * args.accum_steps
+    global_batch = _global_batch(args)
     tokens_per_sample = args.num_input_tokens + args.num_target_tokens
     if args.epochs < 0:
         if args.total_tokens <= 0:
@@ -354,34 +430,52 @@ def _raise_open_files_limit() -> None:
         pass
 
 
+def _not_ported(args) -> None:
+    if args.fsdp:
+        raise NotImplementedError("--fsdp: sharded training is not ported (data parallelism is)")
+    if args.tensor_parallel > 1:
+        raise NotImplementedError("--tensor_parallel: tensor parallelism is not ported")
+    if args.s3_save_dir:
+        raise NotImplementedError("--s3_save_dir: S3 checkpoint sync is not ported")
+
+
 def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]] = None,
          on_epoch: Optional[Callable[[int, torch.nn.Module, Dict[str, float]], None]] = None):
     """Train; returns {"model", "optimizer", "step_seconds", "metrics"}.
 
+    Under torchrun (or in a process group the caller formed) each process
+    trains its share of the global batch (the module's docstring).
     `on_step(step, metrics, seconds)` runs after every step; `seconds` is
     the step's wall time between two device synchronizations.
     `on_epoch(epoch, model, eval_stats)` runs at the end of every epoch,
     after its checkpoint and evaluation."""
+    from egom2p_torch.core import distributed
     from egom2p_torch.core.config import setup_run_name
 
+    _not_ported(args)
     _raise_open_files_limit()
     setup_run_name(args)
     if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device found: the trainer runs on the first CUDA device; "
+        raise RuntimeError("no CUDA device found: the trainer runs on CUDA devices; "
                            "pass --device cpu to train on the CPU")
-    device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
+    distributed.init_distributed_mode(args.device)
+    device = (torch.device("cuda", distributed.local_rank()) if args.device == "cuda"
+              else torch.device("cpu"))
     loader, domains = setup_data(args)
-    # the forked workers start here, before the first CUDA call
+    # the forked workers start here, before the model's first CUDA call
     loader_it = iter(loader)
     try:
-        return _train(args, device, loader_it, domains, on_step, on_epoch)
+        with distributed.main_prints_only():
+            return _train(args, device, loader_it, domains, on_step, on_epoch)
     finally:
         loader_it.close()
 
 
 def _train(args, device, loader_it, domains, on_step, on_epoch):
-    from egom2p_torch.core.checkpoint import auto_load_model, save_checkpoint, warm_start
-    from egom2p_torch.core.logging import JsonlLogger, MetricLogger
+    from egom2p_torch.core import distributed
+    from egom2p_torch.core.checkpoint import (auto_load_model, save_checkpoint, wait_for_saves,
+                                              warm_start)
+    from egom2p_torch.core.logging import JsonlLogger, MetricLogger, WandbLogger
     from egom2p_torch.core.optim import Optimizer, freeze_until, shared_params_mask
     from egom2p_torch.data.loader import batch_to_device
     from egom2p_torch.models.egom2p import create_model
@@ -391,11 +485,12 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
     if val_factories:
         print(f"val datasets: {sorted(val_factories)}")
     sched = lr_schedule(args)
-    global_batch = args.batch_size * args.accum_steps
+    global_batch = _global_batch(args)
     tokens_per_sample = args.num_input_tokens + args.num_target_tokens
     niter_per_ep = max(args.epoch_size // global_batch, 1)
-    print(f"device {device}, global batch {global_batch}, {niter_per_ep} steps per epoch, "
-          f"{args.epochs} epochs, first LR {sched[0]:.3e}")
+    print(f"device {device}, {distributed.world_size()} process(es), global batch "
+          f"{global_batch}, {niter_per_ep} steps per epoch, {args.epochs} epochs, "
+          f"first LR {sched[0]:.3e}")
 
     model_info = modality_info(args) if args.scaled_modalities else None
     model = create_model(args.model, domains, domains, modality_info=model_info, device=device,
@@ -411,21 +506,25 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
     if args.frozen_model_epochs > 0:
         optimizer = freeze_until(args.frozen_model_epochs * niter_per_ep,
                                  shared_params_mask(model), optimizer, model)
-    step_fn = make_train_step(model, optimizer, args.num_input_tokens,
-                              args.num_target_tokens, args.loss_type, args.accum_steps)
     eval_steps = None
     eval_keys = ["loss"] + [f"loss_{m}" for m in sorted(model.out_domains)]
     shuffle = torch.Generator().manual_seed(args.seed + 1)
     jsonl = JsonlLogger(args.output_dir)
+    wandb = WandbLogger(args) if args.log_wandb and distributed.is_main_process() else None
 
     step, start_epoch = 0, 0
     if args.auto_resume:
+        distributed.barrier()  # no process reads a checkpoint another is writing
         ckpt, path = auto_load_model(args.output_dir, model, optimizer)
         if ckpt is not None:
             step = ckpt["step"]
             start_epoch = step // niter_per_ep
             shuffle.set_state(ckpt["shuffle_rng"])
             print(f"resumed from {path} at step {step}, epoch {start_epoch}")
+    # every process starts from rank 0's weights
+    distributed.broadcast_module_(model)
+    step_fn = make_train_step(model, optimizer, args.num_input_tokens,
+                              args.num_target_tokens, args.loss_type, args.accum_steps)
     # the checkpoint's args as the reference pickles them: a Namespace
     # naming the model and its domains
     ckpt_args = argparse.Namespace(**vars(args), in_domains=list(domains),
@@ -433,8 +532,9 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
 
     step_seconds, history = [], []
     if args.synthetic_data:
-        for _ in range(step):  # the seeded stream's batches already trained on
+        for _ in range(step):  # this process's seeded batches already trained on
             next(loader_it)
+    profiler = _start_profile(args, device) if args.profile else None
     for epoch in range(start_epoch, args.epochs):
         logger = MetricLogger(print_freq=args.print_freq)
         for _ in logger.log_every(range(niter_per_ep), header=f"Epoch [{epoch}]",
@@ -451,7 +551,8 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
                 # dump the offending batch and abort
                 # (reference: run_training_egom2p.py:731-734)
                 os.makedirs(args.output_dir, exist_ok=True)
-                dump = os.path.join(args.output_dir, "debug_mod_dict.npz")
+                dump = os.path.join(args.output_dir, f"debug_mod_dict_rank{distributed.rank()}.npz"
+                                    if distributed.world_size() > 1 else "debug_mod_dict.npz")
                 np.savez(dump, **{f"{m}_{k}": v for m, d in raw.items()
                                   for k, v in d.items()})
                 print(f"Loss is {values['loss']}, stopping training. Batch dumped to {dump}")
@@ -462,15 +563,29 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
             if on_step is not None:
                 on_step(step, values, seconds)
             step += 1
+            if wandb is not None:
+                wandb.log({**values, "tokens_seen": step * tokens_per_sample * global_batch},
+                          step=step)
+        if profiler is not None:
+            profiler.stop()
+            path = os.path.join(args.output_dir, "profile",
+                                f"trace-rank{distributed.rank()}.json")
+            profiler.export_chrome_trace(path)
+            print(f"profile trace -> {path}")
+            profiler = None
         jsonl.write({"epoch": epoch, "tokens_seen_B": step * tokens_per_sample
                      * global_batch / 1e9,
                      **{k: v.global_avg for k, v in logger.meters.items()}})
         if (epoch + 1) % args.save_ckpt_freq == 0 or epoch == args.epochs - 1:
-            path = save_checkpoint(args.output_dir,
-                                   "final" if epoch == args.epochs - 1 else epoch,
-                                   model, optimizer, step=step, epoch=epoch,
-                                   args=ckpt_args, shuffle_rng=shuffle.get_state())
-            print(f"saved {path}")
+            final = epoch == args.epochs - 1
+            if distributed.is_main_process():
+                # periodic saves overlap the next steps; the final one blocks
+                blocking = final or not args.async_save
+                path = save_checkpoint(args.output_dir, "final" if final else epoch,
+                                       model, optimizer, step=step, epoch=epoch,
+                                       args=ckpt_args, shuffle_rng=shuffle.get_state(),
+                                       blocking=blocking)
+                print(f"saved{'' if blocking else ' (async)'} {path}")
         stats = {}
         if args.eval_freq and (epoch + 1) % args.eval_freq == 0 and val_factories:
             if eval_steps is None:
@@ -489,10 +604,30 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
                 print(f"Epoch [{epoch}] eval: "
                       + "  ".join(f"{k}: {v:.4f}" for k, v in stats.items()))
                 jsonl.write({"epoch": epoch, **stats})
+                if wandb is not None:
+                    wandb.log(stats, step=step)
         if on_epoch is not None:
             on_epoch(epoch, model, stats)
+    wait_for_saves()  # an in-flight periodic save, before the run ends
+    distributed.barrier()  # and before any process goes on to read it
+    if wandb is not None:
+        wandb.finish()
     return {"model": model, "optimizer": optimizer, "step_seconds": step_seconds,
             "metrics": history}
+
+
+def _start_profile(args, device):
+    """A started torch.profiler over the first epoch's steps: host and, on
+    CUDA, device activity (run_training_egom2p.py:558-561, 595-598)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(os.path.join(args.output_dir, "profile"), exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
 
 
 if __name__ == "__main__":

@@ -43,9 +43,10 @@ video tokens of clip <stem>.
 
 Everything runs on the first CUDA device (--device cuda, the default) and
 raises when there is none; --device cpu asks for the CPU.  Checkpoints are
-.pth files: the JAX package's orbax directories are not read.  --async_save
-is accepted and every save is synchronous.  Not ported yet (ROADMAP Queue 1
-item 9): the video and feature domains, the gradient quantizers
+.pth files: the JAX package's orbax directories are not read.  With
+--async_save (the default) a periodic checkpoint is written on a background
+thread after its state is copied to host memory; the final save blocks.
+Not ported yet (ROADMAP Queue 1 item 9): the video and feature domains, the gradient quantizers
 (--quantizer_type taming / memcodes) and --encoder_ckpt; each raises.
 """
 from __future__ import annotations
@@ -114,7 +115,8 @@ def get_args(argv=None):
     p.add_argument("--weight_decay", type=float, default=1e-4)
     p.add_argument("--save_ckpt_freq", type=int, default=1)
     p.add_argument("--async_save", type=str2bool, default=True,
-                   help="accepted; every save is synchronous")
+                   help="periodic checkpoints written on a background thread "
+                        "(the final save always blocks)")
     p.add_argument("--seed", type=int, default=0)
     # evaluation (reference: run_training_vqvae.py:778-806, 1296-1419)
     p.add_argument("--eval_freq", type=int, default=1)
@@ -320,7 +322,7 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
     from a device synchronization to its metrics on the host.  Returns {"tokenizer",
     "optimizer", "ema", "step_seconds", "metrics"}."""
     from egom2p_torch.cli.eval_common import resolve_device
-    from egom2p_torch.core.checkpoint import save_checkpoint
+    from egom2p_torch.core.checkpoint import save_checkpoint, wait_for_saves
     from egom2p_torch.core.logging import JsonlLogger, MetricLogger
     from egom2p_torch.core.optim import Optimizer, freeze_masked, freeze_modules_mask
     from egom2p_torch.core.schedules import cosine_scheduler
@@ -404,10 +406,13 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
         jsonl.write(epoch_stats)
         if (epoch + 1) % args.save_ckpt_freq == 0 or epoch == args.epochs - 1:
             extra = {} if ema is None else {"model_ema": _ema_state(net, ema)}
-            path = save_checkpoint(args.output_dir,
-                                   "final" if epoch == args.epochs - 1 else epoch, net,
-                                   optimizer, step=step, epoch=epoch, args=args, **extra)
-            print(f"saved {path}")
+            final = epoch == args.epochs - 1
+            blocking = final or not args.async_save
+            path = save_checkpoint(args.output_dir, "final" if final else epoch, net,
+                                   optimizer, step=step, epoch=epoch, args=args,
+                                   blocking=blocking, **extra)
+            print(f"saved{'' if blocking else ' (async)'} {path}")
+    wait_for_saves()
     return {"tokenizer": tok, "optimizer": optimizer, "ema": ema,
             "step_seconds": step_seconds, "metrics": history}
 

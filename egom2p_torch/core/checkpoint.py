@@ -21,6 +21,7 @@ import argparse
 import glob
 import os
 import re
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -41,22 +42,78 @@ def load_pth(path: str) -> Dict:
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _to_host(obj, memo: Dict):
+    """`obj` with every tensor copied to host memory; tensors that share a
+    storage share its copy, so the file holds the storages torch.save
+    would write for the originals."""
+    if isinstance(obj, torch.Tensor):
+        storage = obj.untyped_storage()
+        key = (obj.device, storage.data_ptr())
+        if key not in memo:
+            memo[key] = storage.cpu() if obj.device.type != "cpu" else storage.clone()
+        return torch.empty(0, dtype=obj.dtype).set_(memo[key], obj.storage_offset(),
+                                                    obj.size(), obj.stride())
+    if isinstance(obj, dict):
+        return type(obj)((k, _to_host(v, memo)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v, memo) for v in obj)
+    return obj
+
+
+def _write(state: Dict, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+# the one save in flight: a second save, or wait_for_saves, joins it first
+_SAVE_THREAD: Optional[threading.Thread] = None
+_SAVE_ERROR: list = []
+
+
+def wait_for_saves() -> None:
+    """Block until the save in flight (blocking=False) is on disk; raises
+    what its write raised."""
+    global _SAVE_THREAD
+    if _SAVE_THREAD is not None:
+        _SAVE_THREAD.join()
+        _SAVE_THREAD = None
+    if _SAVE_ERROR:
+        raise _SAVE_ERROR.pop()
+
+
 def save_checkpoint(output_dir: str, tag, model: nn.Module, optimizer=None, step: int = 0,
-                    epoch: int = -1, args=None, **extra) -> str:
+                    epoch: int = -1, args=None, blocking: bool = True, **extra) -> str:
     """Write checkpoint-{tag}.pth (to a temporary name, then renamed into
     place: an interrupted save leaves the previous file whole).  `args` is
-    stored as an argparse.Namespace."""
+    stored as an argparse.Namespace.  The model's and the optimizer's
+    state is copied to host memory before it returns; with blocking=False
+    the file is written on a background thread (the next steps cannot
+    change what it holds): wait_for_saves() before relying on the file
+    (egom2p_tpu/core/checkpoint.py:36-61)."""
+    global _SAVE_THREAD
     if isinstance(args, dict):
         args = argparse.Namespace(**args)
     state = {"model": model.state_dict(), "step": int(step), "epoch": int(epoch), "args": args,
              **extra}
     if optimizer is not None:
         state["optimizer"] = optimizer.state_dict()
+    state = _to_host(state, {})
     path = checkpoint_path(output_dir, tag)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
+    wait_for_saves()
+    if blocking:
+        _write(state, path)
+        return path
+
+    def write():
+        try:
+            _write(state, path)
+        except BaseException as e:  # raised again by wait_for_saves
+            _SAVE_ERROR.append(e)
+
+    _SAVE_THREAD = threading.Thread(target=write, name=f"save {os.path.basename(path)}")
+    _SAVE_THREAD.start()
     return path
 
 

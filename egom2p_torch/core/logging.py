@@ -1,8 +1,10 @@
-"""Metric logging: smoothed console meters and per-epoch JSON lines.
+"""Metric logging: smoothed console meters, per-epoch JSON lines and an
+optional wandb sink.
 
-Copy of egom2p_tpu/core/logging.py's SmoothedValue, MetricLogger and
-JsonlLogger (reference: egom2p/utils/logger.py:20-182,
-run_training_egom2p.py:669-671), for one process.
+Copy of egom2p_tpu/core/logging.py's SmoothedValue, MetricLogger,
+JsonlLogger and WandbLogger (reference: egom2p/utils/logger.py:20-228,
+run_training_egom2p.py:669-671).  Across processes only rank 0 writes the
+JSON lines.
 """
 from __future__ import annotations
 
@@ -79,6 +81,34 @@ class JsonlLogger:
         self.path = os.path.join(output_dir, filename)
 
     def write(self, record: Dict):
+        from egom2p_torch.core import distributed
+        if not distributed.is_main_process():  # one writer per (possibly shared) file system
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({k: (float(v) if hasattr(v, "item") else v)
                                 for k, v in record.items()}) + "\n")
+
+
+class WandbLogger:
+    """Thin optional wandb sink (reference: logger.py:185-228): a no-op
+    where wandb cannot be imported or its run cannot start."""
+
+    def __init__(self, args):
+        try:
+            import wandb
+            self._run = wandb.init(project=getattr(args, "wandb_project", None),
+                                   entity=getattr(args, "wandb_entity", None),
+                                   name=getattr(args, "wandb_run_name", None),
+                                   config=vars(args) if hasattr(args, "__dict__") else None)
+            self._wandb = wandb
+        except Exception as e:  # no package, no login, no network: log nothing
+            print(f"[wandb disabled: {e}]")
+            self._run = self._wandb = None
+
+    def log(self, metrics: Dict, step: Optional[int] = None):
+        if self._run is not None:
+            self._wandb.log(metrics, step=step)
+
+    def finish(self):
+        if self._run is not None:
+            self._run.finish()

@@ -10,8 +10,15 @@ keep-k per modality with the cumsum-compressed decoder attention encoding.
 The random draws come in the JAX package's order, so one seed gives the
 same masks in both.  Without `sampling_weights` the mixture component is a
 uniform draw; without a target budget (`target_tokens_range=None`) every
-token that is not an input is a target.  Not ported yet: sequence
-modalities (span masking and the text tokenizer).
+token that is not an input is a target.
+
+TransferMasking (egom2p_tpu/masking/unified.py:TransferMasking; reference:
+masking.py:567-746) fixes which modalities are inputs and which are
+targets, for transfer finetuning: every token of an input modality is
+visible to the encoder, every token of a target modality is a decoder
+target.
+
+Not ported yet: sequence modalities (span masking and the text tokenizer).
 """
 from __future__ import annotations
 
@@ -121,3 +128,52 @@ class UnifiedMasking:
         return {mod: self.image_mask(mod_dict[mod], info["max_tokens"], bi, bt)
                 for (mod, info), bi, bt in zip(self.modality_info.items(),
                                                input_budget, target_budget)}
+
+
+class TransferMasking:
+    """Fixed input / target modalities (--input_domains / --target_domains):
+    an input modality is all visible and no target, a target modality all
+    target (its decoder attention run in one block) and not visible.  A
+    modality in neither set raises, as in the JAX package; text modalities
+    are not ported."""
+
+    def __init__(self, modality_info: Dict, input_modalities: Sequence[str],
+                 target_modalities: Sequence[str]):
+        self.modality_info = modality_info
+        self.input_modalities = set(input_modalities)
+        self.target_modalities = set(target_modalities)
+
+    @staticmethod
+    def input_image(tensor, num_tokens: int) -> Dict:
+        return {"tensor": np.asarray(tensor),
+                "input_mask": np.zeros(num_tokens, dtype=bool),
+                "target_mask": np.ones(num_tokens, dtype=bool),
+                "decoder_attention_mask": np.zeros(num_tokens, dtype=np.int32)}
+
+    @staticmethod
+    def target_image(tensor, num_tokens: int) -> Dict:
+        attn = np.zeros(num_tokens, dtype=np.int32)
+        attn[0] = num_tokens
+        return {"tensor": np.asarray(tensor),
+                "input_mask": np.ones(num_tokens, dtype=bool),
+                "target_mask": np.zeros(num_tokens, dtype=bool),
+                "decoder_attention_mask": attn}
+
+    def __call__(self, mod_dict: Dict) -> Dict:
+        """(reference: masking.py:729-746)"""
+        out = {}
+        for mod, info in self.modality_info.items():
+            is_input = mod in self.input_modalities
+            if not (is_input or mod in self.target_modalities):
+                raise ValueError(f"modality {mod} not in input or target set")
+            if info["type"] in IMG_TYPES:
+                fn = self.input_image if is_input else self.target_image
+                out[mod] = fn(mod_dict[mod], info["max_tokens"])
+            elif info["type"] == "seq":
+                raise NotImplementedError(f"{mod}: text modalities are not ported")
+            else:
+                raise ValueError(f"TransferMasking does not support type {info['type']!r} "
+                                 f"({mod}), as the reference (masking.py:739-744)")
+        if "mask_valid" in mod_dict:
+            out["mask_valid"] = mod_dict["mask_valid"]
+        return out

@@ -33,7 +33,7 @@ import dataclasses
 import functools
 import math
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -279,14 +279,18 @@ class EgoM2P(nn.Module):
         return tokens_k, emb_k, mask_k[:, None, :], ids_k, sa_mask, mod_k
 
     # ------------------------------------------------------------- backbones
-    def _keep_masks(self, blk, branches: int, B: int, generator, device):
+    def _keep_masks(self, blk, branches: int, B: int, generator, device,
+                    rows: Optional[Tuple[int, int]] = None):
         """A block's stochastic-depth masks (branches, B) in training, drawn
         on the CPU from `generator` (the default generator when None), or
-        None (eval, or a rate of 0)."""
+        None (eval, or a rate of 0).  With `rows` = (first, total) the batch
+        is rows [first, first + B) of a batch of `total` rows: the masks
+        are drawn for all of them and this batch's rows taken."""
         if not self.training or blk.drop_path == 0.0:
             return None
-        keep = torch.full((branches, B), 1.0 - blk.drop_path)
-        return torch.bernoulli(keep, generator=generator).to(device)
+        first, total = rows if rows is not None else (0, B)
+        keep = torch.full((branches, total), 1.0 - blk.drop_path)
+        return torch.bernoulli(keep, generator=generator)[:, first:first + B].to(device)
 
     def _run_block(self, blk, *args):
         """A block, under activation checkpointing where the config asks for
@@ -302,16 +306,18 @@ class EgoM2P(nn.Module):
         # the block draws no random numbers (its masks come in `args`)
         return checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
-    def forward_encoder(self, x, encoder_mask, generator: Optional[torch.Generator] = None):
+    def forward_encoder(self, x, encoder_mask, generator: Optional[torch.Generator] = None,
+                        rows: Optional[Tuple[int, int]] = None):
         for blk in self.encoder:
-            keep = self._keep_masks(blk, 2, x.shape[0], generator, x.device)
+            keep = self._keep_masks(blk, 2, x.shape[0], generator, x.device, rows)
             x = self._run_block(blk, x, encoder_mask, keep)
         return self.encoder_norm(x)
 
     def forward_decoder(self, y, context, encoder_mask, sa_mask=None,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        rows: Optional[Tuple[int, int]] = None):
         for blk in self.decoder:
-            keep = self._keep_masks(blk, 3, y.shape[0], generator, y.device)
+            keep = self._keep_masks(blk, 3, y.shape[0], generator, y.device, rows)
             y = self._run_block(blk, y, context, sa_mask, encoder_mask, keep)
         return self.decoder_norm(y)
 
@@ -358,15 +364,28 @@ class EgoM2P(nn.Module):
         return total, w.sum()
 
     def forward_loss(self, y, target_ids, decoder_mod_mask, loss_type: str,
-                     present_mods: List[str]):
+                     present_mods: List[str], count_reduce: Optional[Callable] = None):
         """'mod' / 'weighted_mod' / 'token' losses
-        (reference: egom2p_model.py:553-680)."""
+        (reference: egom2p_model.py:553-680).
+
+        `count_reduce` takes the (len(present_mods),) fp32 target counts and
+        returns them summed over the global batch (the process group's
+        all-reduce); each modality's loss is then this batch's CE total over
+        the global count, this rank's share of the global batch's loss, and
+        the shares sum to it over the ranks.  None: the batch is the global
+        batch."""
         info = self.mod_info
-        mod_loss: Dict[str, torch.Tensor] = {}
+        totals: Dict[str, torch.Tensor] = {}
         mod_count: Dict[str, torch.Tensor] = {}
         for mod in present_mods:
             w = decoder_mod_mask == info[mod]["id"]
-            total, count = self._chunked_masked_ce(y, mod, target_ids, w)
+            totals[mod], mod_count[mod] = self._chunked_masked_ce(y, mod, target_ids, w)
+        if count_reduce is not None:
+            reduced = count_reduce(torch.stack([mod_count[m].float() for m in present_mods]))
+            mod_count = dict(zip(present_mods, reduced.unbind(0)))
+        mod_loss: Dict[str, torch.Tensor] = {}
+        for mod in present_mods:
+            total, count = totals[mod], mod_count[mod]
             loss_m = torch.where(count > 0, total / count.clamp(min=1.0),
                                  torch.zeros_like(total))
             if loss_type == "weighted_mod":
@@ -374,7 +393,6 @@ class EgoM2P(nn.Module):
                 # (reference: egom2p_model.py:608)
                 loss_m = loss_m / math.log(info[mod]["vocab_size"]) * math.log(256.0)
             mod_loss[mod] = loss_m
-            mod_count[mod] = count
 
         if loss_type in ("mod", "modality", "weighted_mod"):
             loss = sum(mod_loss.values()) / len(mod_loss)
@@ -391,12 +409,18 @@ class EgoM2P(nn.Module):
     # --------------------------------------------------------------- forward
     def forward(self, mod_dict, num_encoder_tokens: int, num_decoder_tokens: int,
                 loss_type: str = "mod", shuffle: Optional[torch.Generator] = None,
-                compute_dtype=None):
+                compute_dtype=None, count_reduce: Optional[Callable] = None,
+                rows: Optional[Tuple[int, int]] = None):
         """Training forward (reference: egom2p_model.py:683-734): returns
         (loss, {mod: loss}).  The decoder's modality order is a permutation
         drawn from the CPU generator `shuffle`, or sorted order; in training
         mode the stochastic-depth masks are drawn from it after the
-        permutation."""
+        permutation.
+
+        Data parallelism: `mod_dict` is rows [first, first + B) of a global
+        batch of `total` rows, `rows` = (first, total), whose random draws
+        every rank makes alike and takes its rows of; `count_reduce` sums
+        the target counts over the global batch (forward_loss)."""
         compute_dtype = compute_dtype or self.compute_dtype
         enc_embeds = self.embed_encoder(mod_dict, compute_dtype)
         encoder_tokens, encoder_emb, encoder_mask, _ = self.forward_mask_encoder(
@@ -407,12 +431,12 @@ class EgoM2P(nn.Module):
         decoder_tokens, decoder_emb, _, target_ids, sa_mask, dec_mod_mask = \
             self.forward_mask_decoder(dec_embeds, num_decoder_tokens, perm)
 
-        x = self.forward_encoder(encoder_tokens + encoder_emb, encoder_mask, shuffle)
+        x = self.forward_encoder(encoder_tokens + encoder_emb, encoder_mask, shuffle, rows)
         context = self.decoder_proj_context(x) + encoder_emb
         y = self.forward_decoder(decoder_tokens + decoder_emb, context, encoder_mask, sa_mask,
-                                 shuffle)
+                                 shuffle, rows)
         return self.forward_loss(y, target_ids, dec_mod_mask, loss_type,
-                                 [e["mod"] for e in dec_embeds])
+                                 [e["mod"] for e in dec_embeds], count_reduce)
 
     # ------------------------------------------------------ generation hooks
     def forward_enc_context(self, mod_dict, num_encoder_tokens: int,

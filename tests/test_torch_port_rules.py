@@ -18,8 +18,10 @@ import egom2p_torch.ops.flash_ce as fce  # noqa: E402
 from egom2p_torch.tools import sass_diff  # noqa: E402
 from egom2p_torch.ops.flash64 import _kernel_operand  # noqa: E402
 
-PORT_FILES = sorted(p for p in (REPO / "egom2p_torch").rglob("*")
-                    if p.suffix in (".py", ".cu", ".cuh") and "build" not in p.parts)
+PORT_FILES = sorted([p for p in (REPO / "egom2p_torch").rglob("*")
+                     if p.suffix in (".py", ".cu", ".cuh") and "build" not in p.parts]
+                    # the data-parallel tests' rank processes run the port alone
+                    + [REPO / "tests" / "torch_dist_ranks.py"])
 
 
 @pytest.mark.parametrize("pattern,what", [
@@ -271,7 +273,8 @@ def test_eval_path_imports_no_jax():
     """The slices' modules (eval entry points, checkpoints, Cosmos decode,
     mp4 in and out; the cam / gaze VQ-VAE, VQ lookup, cam / gaze host
     modules and metrics; the shard reader, loader, configs and train and
-    eval steps; the VQ-VAE trainer, its eval and the two shard tools) and
+    eval steps; the VQ-VAE trainer, its eval and the two shard tools; the
+    process group helpers and the data-parallel tests' rank module) and
     chip_smoke.py load without JAX or the JAX package."""
     import subprocess
     code = ("import sys\n"
@@ -286,6 +289,9 @@ def test_eval_path_imports_no_jax():
             "import egom2p_torch.core.config, egom2p_torch.train.egom2p_train\n"
             "import egom2p_torch.cli.run_training_vqvae, egom2p_torch.cli.tokenize_videos\n"
             "import egom2p_torch.train.vqvae_train, egom2p_torch.train.vqvae_eval\n"
+            "import egom2p_torch.core.distributed\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_dist_ranks\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
             " 'egom2p_tpu')]\n"
             "assert not bad, bad\n")
@@ -356,3 +362,27 @@ def test_chip_smoke_vqvae_flops_count_the_forward_products(domain, channels):
     # training = forward + backward = 3 x the forward, per sample
     assert 3 * counter.get_total_flops() == batch * chip_smoke.seq_vqvae_train_flops(
         dim=64, depth=2, channels=channels, latent=8, codes=16)
+
+
+def test_world_size_two_with_an_unreachable_rendezvous_raises(tmp_path):
+    """WORLD_SIZE=2 whose rendezvous no process serves (rank 1, a local
+    port nobody listens on): init_distributed_mode raises within its
+    timeout; the process never goes on to train alone."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("from egom2p_torch.core import distributed\n"
+            "try:\n"
+            "    distributed.init_distributed_mode('cpu', timeout_s=3)\n"
+            "except Exception as e:\n"
+            "    print('raised', type(e).__name__)\n"
+            "else:\n"
+            "    print('formed', distributed.world_size())\n")
+    env = {"PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "RANK": "1", "WORLD_SIZE": "2",
+           "LOCAL_RANK": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=60)
+    assert proc.stdout.startswith("raised"), proc.stdout + proc.stderr

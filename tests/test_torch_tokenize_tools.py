@@ -91,6 +91,9 @@ def test_vqvae_cli_trains_resumes_evaluates_and_tokenizes(domain, tmp_path, caps
                       "--warmup_epochs", "1", "--model_ema", "true", "--model_ema_decay", "0.9",
                       "--num_eval_metrics_samples", "16")
     res = run_training_vqvae.main(argv)
+    printed = capsys.readouterr().out  # the periodic save on its thread, the final one blocking
+    assert f"saved (async) {out}/checkpoint-0.pth" in printed and \
+        f"saved {out}/checkpoint-final.pth" in printed
     metrics = res["metrics"]
     assert len(metrics) == 6 and all(np.isfinite(v) for m in metrics for v in m.values())
     assert sorted(os.listdir(out)) == ["checkpoint-0.pth", "checkpoint-final.pth", "log.txt"]
