@@ -130,6 +130,11 @@
    finite losses, each modality's first loss within CHAIN_LOSS_RTOL of the
    plain versions' forward on the same step: the cam / gaze targets come
    from briefly trained tokenizers, so ln V is not the loss to expect).
+   Between them, the cam trainer on two gloo ranks sharing the card (this
+   script spawns them), B = 64 a rank, one step on 128 samples, against
+   one process at B = 128: the losses within FSDP_CE_RTOL, the codebook
+   after the step (EMA statistics summed over the ranks), and the ranks'
+   weights and codebook bitwise equal.
 5e. The trainer across processes, EgoM2P-base at full width on synthetic
    data.  First one rank over NCCL, launched as users launch it (torchrun
    --standalone --nproc_per_node 1 with this script as the worker, which
@@ -151,6 +156,26 @@
    one process's eval of the same rows.  Its step times are a correctness
    run's (two ranks on one card, gradients reduced through the host), not
    a scaling number.
+5f. The trainer with --fsdp true (core/fsdp.py), EgoM2P-base at full width
+   on synthetic data.  One rank over NCCL under torchrun, as phase 5e's
+   (no profile): the first step's loss and grad_norm bitwise equal to
+   phase 5's single process (a shard of one is the whole tensor), 36 /
+   36 / 36 / 2 launches a step, the async checkpoint-0.pth bitwise the
+   gathered state; the step ms beside phase 5's, the bytes held between
+   steps and a step's peak.  Then two gloo ranks sharing the card, B = 4
+   a rank, clipping off: data parallelism for FSDP_STEPS steps, then FSDP
+   for FSDP_STEPS, checkpoint-0.pth (async) and FSDP_STEPS more; the
+   gathered parameters equal on both ranks after every step, FSDP's after
+   its first epoch against data parallelism's after the same batches
+   (bitwise expected; the largest difference printed), an FSDP rank's
+   parameters + Adam moments at most FSDP_PERSISTENT_SHARE of a
+   data-parallel rank's and its last step's peak lower (a steady step: the
+   first runs before Adam's moments exist); the first FSDP step's CE per
+   target token within FSDP_CE_RTOL and its gradients within
+   STEP_GRAD_REL_L2 of one process on the global batch; checkpoint-0.pth
+   loaded in one process without FSDP bitwise equal to the ranks'
+   gathered parameters, and stepped on the ranks' next global batch: CE
+   per target token within FSDP_CE_RTOL of the ranks' next step.
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -192,6 +217,12 @@
    work: the larger of its bytes at 3.35 TB/s and its operations at the
    dense bf16 peak), the card's name and power limit, and last the device
    JSON line.
+
+`python3 chip_smoke.py --cards N` runs the trainer data-parallel over N
+cards; `--cards N --fsdp` runs it with and without --fsdp true over N
+cards (EgoM2P-base at B = 8 a card, EgoM2P-large at B = 8 with remat):
+tokens/s per card, bytes per rank between steps and at a step's peak, the
+collectives' share of a profiled run's kernel time.
 
 Any failed check raises (nonzero exit, no device line).  Without a CUDA
 device it exits with code 2 before doing anything.
@@ -2568,6 +2599,8 @@ def tokenizer_pipeline_phase(dev):
                        rtv.load_seq_data(args, data_path)[:args.batch_size])
             del res
             torch.cuda.empty_cache()
+            if domain == "cam":
+                vqvae_ranks_check(dev, tmp, configs[domain], data)
         mods.update(video_batches(dev, tmp, tokenize_videos, keys))
         shards = os.path.join(tmp, "shards")
         proc = subprocess.run([sys.executable, os.path.join(REPO_DIR, "prepare_aligned_shards.py"),
@@ -2651,10 +2684,12 @@ def _dp_argv(cfg, out_dir, batch, epoch_size, epochs, *extra):
             *(["--scaled_modalities"] if cfg["scaled"] else []), *extra]
 
 
-def _capture_optimizers(keep_grads: bool):
+def _capture_optimizers(keep_grads: bool, to_host: bool = False):
     """The trainer's Optimizers, in the order it makes them; with
     `keep_grads` each keeps the gradients of its first step as it applied
-    them (summed over the ranks, before clipping) in `.first_grads`."""
+    them (summed over the ranks, before clipping) in `.first_grads`, the
+    full tensors on a sharded model (gathered: every rank keeps them), in
+    host memory with `to_host` (out of the card's memory figures)."""
     import egom2p_torch.core.optim as optim
     made, init, step = [], optim.Optimizer.__init__, optim.Optimizer.step
 
@@ -2665,11 +2700,19 @@ def _capture_optimizers(keep_grads: bool):
 
     def step_(self):
         if keep_grads and self.first_grads is None:
-            self.first_grads = [p.grad.detach().clone() for p in self.params]
+            self.first_grads = [_full(self, p, p.grad).to("cpu" if to_host else p.device)
+                                for p in self.params]
         return step(self)
 
     optim.Optimizer.__init__, optim.Optimizer.step = init_, step_
     return made
+
+
+def _full(optimizer, p, t):
+    """`t` (a parameter, its gradient or a moment of it) as the full tensor:
+    gathered where `p` is the piece of a sharded parameter (a collective)."""
+    sharded = optimizer.fsdp.sharded(p) if optimizer.fsdp is not None else None
+    return (optimizer.fsdp.gather(t, sharded) if sharded is not None else t).detach().clone()
 
 
 def _host_copy(obj):
@@ -2718,18 +2761,25 @@ def dp_nccl_worker(cfg, out_json):
     from egom2p_torch.cli import run_training
     from egom2p_torch.core.checkpoint import load_pth
 
+    from egom2p_torch.core import fsdp
+
     run_dir = os.path.join(os.path.dirname(out_json), "nccl-run")
     made, per_step, snap = _capture_optimizers(keep_grads=False), [], {}
+    dev = torch.device(cfg["device"])
 
     def on_epoch(epoch, model, stats):
         if epoch == 0:  # after its (async) save returned: no step in between
-            snap["model"] = _host_copy(model.state_dict())
+            snap["model"] = _host_copy(fsdp.full_state_dict(model))
             snap["optimizer"] = _host_copy(made[-1].state_dict())
+
+    def memory():  # after every step: what stays between steps, the step's peak
+        per_step[-1].update(_memory(dev))
 
     args = run_training.get_args(_dp_argv(
         cfg, run_dir, B, B * DP_EPOCH_STEPS, 2, "--accum_steps", "1", "--eval_freq", "0",
-        "--profile", "--async_save", "true", "--save_ckpt_freq", "1"))
-    run_training.main(args, on_step=_counting_on_step(per_step), on_epoch=on_epoch)
+        *(["--profile"] if cfg.get("profile", True) else []), "--async_save", "true",
+        "--save_ckpt_freq", "1", *(["--fsdp", "true"] if cfg.get("fsdp") else [])))
+    run_training.main(args, on_step=_counting_on_step(per_step, memory), on_epoch=on_epoch)
     ckpt = load_pth(os.path.join(run_dir, "checkpoint-0.pth"))
     with open(out_json, "w") as f:
         json.dump({"steps": per_step, "ckpt_step": ckpt["step"],
@@ -2983,14 +3033,15 @@ def data_parallel_phase(dev, first, default_ms, cfg=None):
     return totals
 
 
-def _run_ranks(cfg, tmp, world, script):
-    """The `world` rank processes of dp_rank_worker: spawned here with RANK,
-    WORLD_SIZE and LOCAL_RANK 0 (gloo, one card), or by torchrun, one per
-    card (NCCL).  Returns their rank{r}.json contents."""
+def _run_ranks(cfg, tmp, world, script, kind="ranks"):
+    """The `world` rank processes of dp_rank_worker (`kind` "ranks"), of
+    fsdp_rank_worker ("fsdp") or of vqvae_rank_worker ("vqvae"): spawned
+    here with RANK, WORLD_SIZE and LOCAL_RANK 0 (gloo, one card), or by
+    torchrun, one per card (NCCL).  Returns their rank{r}.json contents."""
     cfg_path = os.path.join(tmp, "ranks.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    worker = [script, "--dp-worker", "ranks", cfg_path, tmp]
+    worker = [script, "--dp-worker", kind, cfg_path, tmp]
     if cfg["backend"] == "gloo":
         # half the host's threads each, as torchrun would limit them
         env = {**os.environ, "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
@@ -3068,11 +3119,489 @@ def _check_ranks(res, world, kernels, label, timing_note):
         raise AssertionError("the ranks' val pass disagrees with one process's eval")
 
 
-def cards_check(world: int) -> int:
+# ---------------------------------------------------------------- phase 5f
+# the FSDP ranks: FSDP_STEPS steps a run (the last step's peak is a steady
+# step's: the first runs before Adam's moments exist); the first step's CE
+# per target token against one process on the global batch (two fp32 sums
+# of bf16 work in another order: 6e-8 in phase 5e)
+FSDP_STEPS = 2
+FSDP_CE_RTOL = 1e-6
+FSDP_PERSISTENT_SHARE = 0.55   # an FSDP rank's parameters + moments over a DP rank's
+# the two VQ-VAE ranks' step against one process's, both exact fp32: the same
+# sums in another order.  The gradients' norm within VQ_GRAD_NORM_RTOL.  AdamW's
+# first step moves each weight by lr * g / (|g| + eps): an element whose Adam
+# RMS is at least ADAM_NOISE of its tensor's largest (its gradient is far from
+# zero in both runs) moves the same, to VQ_WEIGHT_RTOL of the tensor's largest
+# plus VQ_ADAM_SHARE of the LR; an element under it may step another way (a
+# gradient within rounding of zero), by at most 2 lr.
+VQ_GRAD_NORM_RTOL = 1e-5
+VQ_WEIGHT_RTOL, VQ_ADAM_SHARE, ADAM_NOISE = 1e-5, 0.01, 1e-4
+CARD_STEPS = 7                 # --cards N --fsdp: steps an epoch
+
+
+def _memory(dev):
+    """{"allocated": bytes now, "peak": the most since the last call} on a
+    CUDA device (zeros on the CPU); restarts the peak."""
+    if dev.type != "cuda":
+        return {"allocated": 0, "peak": 0}
+    torch.cuda.synchronize(dev)
+    out = {"allocated": torch.cuda.memory_allocated(dev),
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    return out
+
+
+@contextlib.contextmanager
+def _no_saves(skip: bool):
+    """Within the block (when `skip`), the trainer's checkpoint saves return
+    without gathering or writing anything, on every rank alike."""
+    from egom2p_torch.core import checkpoint
+    real = checkpoint.save_checkpoint
+    if skip:
+        checkpoint.save_checkpoint = lambda output_dir, tag, *a, **kw: \
+            checkpoint.checkpoint_path(output_dir, tag)
+    try:
+        yield
+    finally:
+        checkpoint.save_checkpoint = real
+
+
+def _persistent_bytes(optimizer):
+    """This rank's parameters and Adam moments, in bytes (its pieces on a
+    sharded model)."""
+    params = sum(p.numel() * p.element_size() for p in optimizer.params)
+    moments = sum(t.numel() * t.element_size() for st in optimizer.adamw.state.values()
+                  for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
+    return params + moments
+
+
+def fsdp_rank_worker(cfg, out_dir):
+    """One of phase 5f's ranks (or of --cards N --fsdp's): rank RANK of
+    WORLD_SIZE.  For each of cfg["modes"] ("dp", "fsdp") the trainer's
+    main() with clipping off, cfg.get("steps", FSDP_STEPS) steps an epoch
+    for cfg.get("epochs", 1) epochs (with cfg["reference"] FSDP trains a
+    second epoch after an async checkpoint-0.pth; cfg["no_save"] writes no
+    checkpoint): each step's launches, metrics, memory between steps and
+    peak (on a CUDA device), the full
+    parameters after every step against rank 0's (cfg["check_sync"]) and,
+    with cfg["compare"], FSDP's full parameters after its first epoch
+    against data parallelism's bitwise.  With cfg["reference"] rank 0 then
+    leaves the group and holds the ranks' steps to one process's
+    (_fsdp_reference).  Writes rank{RANK}.json to `out_dir`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.core import distributed
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if cfg["backend"] == "gloo":
+        dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    else:
+        distributed.init_distributed_mode(cfg["device"])
+    dev = (torch.device("cuda", distributed.local_rank()) if cfg["device"] == "cuda"
+           else torch.device("cpu"))
+    # what the checks keep lives in host memory: a step's memory figures
+    # are the trainer's alone
+    made = _capture_optimizers(keep_grads=bool(cfg.get("reference")), to_host=True)
+    runs, kept, b = {}, {}, cfg["batch"]
+    for mode in cfg["modes"]:
+        per_step, synced, snap = [], [], {}
+
+        def full_params():
+            return torch.cat([_full(made[-1], p, p).reshape(-1) for p in made[-1].params])
+
+        def after():
+            per_step[-1].update(_memory(dev))
+            if cfg.get("check_sync"):
+                flat = full_params()
+                ref = flat.clone()
+                dist.broadcast(ref, 0)
+                synced.append(bool(torch.equal(ref, flat)))
+                del flat, ref
+                _memory(dev)  # the check's copies count in no step's peak
+
+        def on_epoch(epoch, model, stats, mode=mode):
+            if epoch or not (cfg.get("compare") or cfg.get("reference")):
+                return
+            flat = full_params().cpu()
+            if mode == "dp":
+                kept["dp_params"] = flat
+            elif "dp_params" in kept:
+                other = kept.pop("dp_params")
+                snap["equal_dp"] = bool(torch.equal(flat, other))
+                snap["max_diff_dp"] = float((flat - other).abs().max())
+            if mode == "fsdp" and rank == 0 and cfg.get("reference"):
+                kept["fsdp_params"] = flat
+
+        sharded = mode == "fsdp"
+        run_dir = os.path.join(out_dir, f"rank{rank}-{mode}")
+        epochs = 2 if sharded and cfg.get("reference") else cfg.get("epochs", 1)
+        args = run_training.get_args(_dp_argv(
+            cfg, run_dir, b, b * world * cfg.get("steps", FSDP_STEPS), epochs,
+            "--accum_steps", "1", "--eval_freq", "0", "--clip_grad", "0", "--async_save",
+            "true", "--save_ckpt_freq", "1", *(["--fsdp", "true"] if sharded else []),
+            *(["--use_act_checkpoint", "true"] if cfg.get("remat") else []),
+            *(["--profile"] if cfg.get("profile") else [])))
+        _memory(dev)  # the peak counts from here
+        with _no_saves(cfg.get("no_save")):
+            out = run_training.main(args, on_step=_counting_on_step(per_step, after),
+                                    on_epoch=on_epoch)
+        opt = made[-1]
+        runs[mode] = {"steps": per_step, "synced": synced, "persistent": _persistent_bytes(opt),
+                      "grad_bytes": sum(p.grad.numel() * p.grad.element_size()
+                                        for p in opt.params if p.grad is not None),
+                      "backend": dist.get_backend(), "world": dist.get_world_size(), **snap}
+        if cfg.get("profile"):
+            names, share, kernel_ms = _trace_stats(os.path.join(run_dir, "profile",
+                                                                f"trace-rank{rank}.json"))
+            runs[mode].update(collective_share=share, kernel_ms=kernel_ms)
+        if sharded and cfg.get("reference") and rank == 0:
+            kept["first_grads"] = opt.first_grads
+            kept["ckpt"] = os.path.join(run_dir, "checkpoint-0.pth")
+        opt.first_grads = None
+        del out, opt
+        made.clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    result = {"runs": runs}
+    if rank == 0 and cfg.get("reference"):
+        result["reference"] = _fsdp_reference(cfg, kept, runs, world, dev)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _fsdp_reference(cfg, kept, runs, world, dev):
+    """One process (no group, no FSDP): the first step on the global batch of
+    the ranks' first loader batches (CE per target token and gradients
+    against the FSDP ranks'), then checkpoint-0.pth of the FSDP ranks
+    loaded (every tensor against their gathered parameters, bitwise) and
+    stepped on the global batch of their next loader batches, against
+    their next step."""
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.core import distributed
+    from egom2p_torch.core.checkpoint import auto_load_model
+    from egom2p_torch.core.optim import Optimizer
+    from egom2p_torch.data.loader import batch_to_device
+    from egom2p_torch.models.egom2p import create_model
+    from egom2p_torch.train.egom2p_train import make_train_step
+
+    n, b = cfg["tokens"], cfg["batch"]
+    args = run_training.get_args(_dp_argv(cfg, "unused", b, b, 1))
+    real_rank = distributed.rank
+    batches = []
+    try:
+        iters = []
+        for r in range(world):  # rank r's loader: its seed, its batches
+            distributed.rank = lambda r=r: r
+            iters.append(iter(run_training.setup_data(args)[0]))
+        distributed.rank = real_rank
+        for k in range(FSDP_STEPS + 1):
+            parts = [next(it) for it in iters]
+            batches.append({m: {key: np.concatenate([part[m][key] for part in parts]) for key in d}
+                            for m, d in parts[0].items()})
+        for it in iters:
+            it.close()
+    finally:
+        distributed.rank = real_rank
+    lr = 1e-4 * b * world / 256.0
+
+    def model_at(ckpt=None):
+        info = run_training.modality_info(args) if cfg["scaled"] else None
+        model = create_model(cfg["model"], sorted(run_training.MODS4),
+                             sorted(run_training.MODS4), device=dev, modality_info=info)
+        model.init_random_(torch.Generator(device=dev).manual_seed(0))
+        opt = Optimizer(model, [lr], clip_grad=None)
+        shuffle = torch.Generator().manual_seed(1)  # the trainer's, seed + 1
+        if ckpt:
+            shuffle.set_state(auto_load_model(os.path.dirname(ckpt), model, opt)[0]
+                              ["shuffle_rng"])
+        return model, opt, shuffle
+
+    out = {}
+    steps = runs["fsdp"]["steps"]
+    for label, batch, ckpt, got in (("first", batches[0], None, steps[0]["metrics"]),
+                                    ("resumed", batches[FSDP_STEPS], kept["ckpt"],
+                                     steps[FSDP_STEPS]["metrics"])):
+        model, opt, shuffle = model_at(ckpt)
+        if ckpt:
+            flat = torch.cat([p.detach().reshape(-1) for p in opt.params]).cpu()
+            out["ckpt_params_equal"] = bool(torch.equal(flat, kept.pop("fsdp_params")))
+            del flat
+        grads = {}
+        real_step = opt.step
+
+        def step_(grads=grads, opt=opt, real_step=real_step):
+            grads["g"] = [p.grad.detach().clone() for p in opt.params]
+            return real_step()
+
+        opt.step = step_
+        metrics = make_train_step(model, opt, n, n, "mod")(batch_to_device(batch, dev), shuffle)
+        ref = {k: float(v) for k, v in metrics.items()}
+        counts = _target_counts(batch)
+        out[label] = {"rows": int(batch["tok_rgb"]["tensor"].shape[0]),
+                      "per_token": _per_token(got, counts), "ref_per_token": _per_token(ref, counts),
+                      "loss": got["loss"], "ref_loss": ref["loss"], "grad_norm": got["grad_norm"],
+                      "ref_grad_norm": ref["grad_norm"]}
+        if label == "first":
+            num = math.sqrt(sum(((a.float().to(dev) - g.float()) ** 2).sum().item()
+                                for a, g in zip(kept["first_grads"], grads["g"])))
+            den = math.sqrt(sum((g.float() ** 2).sum().item() for g in grads["g"]))
+            out[label]["grad_rel_l2"] = num / den
+        del model, opt, grads, metrics
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _gib(nbytes) -> str:
+    return f"{nbytes / 2 ** 30:.2f} GiB"
+
+
+def fsdp_phase(dev, first, default_ms, cfg=None):
+    """Phase 5f (docstring): the trainer with --fsdp true.  `first` is phase
+    5's first-step metrics and `default_ms` its median step ms.  Returns
+    the one-rank run's launch totals and its launches per step."""
+    cfg = dict(DP_CONFIG if cfg is None else cfg)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    script = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump({**cfg, "fsdp": True, "profile": False}, f)
+        # 1. one rank over NCCL with --fsdp true, launched as users launch it
+        out_json = os.path.join(tmp, "nccl.json")
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "1", script, "--dp-worker", "nccl",
+                               cfg_path, out_json], cwd=REPO_DIR, capture_output=True,
+                              text=True, timeout=DP_TIMEOUT_S)
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:])
+            raise AssertionError(f"the one-rank FSDP torchrun run exited {proc.returncode}")
+        with open(out_json) as f:
+            nccl = json.load(f)
+        steps = nccl["steps"]
+        if nccl["world"] != 1 or len(steps) != 2 * DP_EPOCH_STEPS:
+            raise AssertionError(f"one-rank FSDP run: world {nccl['world']}, {len(steps)} steps")
+        if cfg["kernels"] and any(s["launches"] != DEFAULT_STEP for s in steps):
+            raise AssertionError(f"one-rank FSDP run launched {[s['launches'] for s in steps]}")
+        got = steps[0]["metrics"]
+        same = got["loss"] == first["loss"] and got["grad_norm"] == first["grad_norm"]
+        print(f"FSDP, one rank over NCCL (torchrun, --fsdp true): first step loss {got['loss']!r} "
+              f"grad_norm {got['grad_norm']!r}; phase 5's single process {first['loss']!r} "
+              f"{first['grad_norm']!r}: {'bitwise equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("the one-rank FSDP step differs from the single-process step")
+        if not nccl["ckpt_equal"] or nccl["ckpt_step"] != DP_EPOCH_STEPS:
+            raise AssertionError("FSDP checkpoint-0.pth (async) is not the state at its step")
+        step_ms = float(np.median([s["seconds"] * 1e3 for s in steps[1:]]))
+        print(f"FSDP one rank: step ms " + " ".join(f"{s['seconds'] * 1e3:.1f}" for s in steps)
+              + f"; median after the first {step_ms:.1f} ms vs phase 5's {default_ms:.1f} ms "
+              f"({step_ms / default_ms - 1:+.1%}); between steps "
+              f"{_gib(steps[-1]['allocated'])} allocated, a step's peak "
+              f"{_gib(steps[-1]['peak'])}; checkpoint-0.pth (async) bitwise the gathered state "
+              f"at step {nccl['ckpt_step']}")
+        totals = {k: sum(s["launches"][k] for s in steps) for k in steps[0]["launches"]}
+
+        # 2. two ranks sharing the card over gloo: data parallelism, then FSDP
+        res = _run_ranks({**cfg, "batch": DP_B, "backend": "gloo", "modes": ["dp", "fsdp"],
+                          "check_sync": True, "compare": True, "reference": True},
+                         tmp, 2, script, "fsdp")
+    _check_fsdp_ranks(res, 2, cfg["kernels"], "two ranks on one card")
+    print(f"FSDP phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, steps[0]["launches"]
+
+
+def _check_fsdp_ranks(res, world, kernels, label, reference=True):
+    """Every run of fsdp_rank_worker's ranks: FSDP_STEPS (or more) steps
+    each with 36 / 36 / 36 / 2 launches, the same metrics on every rank,
+    the gathered parameters equal on every rank after every step; the
+    memory claims; with `reference`, the agreement with one process."""
+    runs = {mode: [r["runs"][mode] for r in res] for mode in res[0]["runs"]}
+    for mode, by_rank in runs.items():
+        for r, run in enumerate(by_rank):
+            if run["world"] != world or len(run["steps"]) < FSDP_STEPS \
+                    or not all(run["synced"]):
+                raise AssertionError(f"{label} {mode} rank {r}: world {run['world']}, "
+                                     f"{len(run['steps'])} steps, equal to rank 0's "
+                                     f"{run['synced']}")
+            if kernels and any(s["launches"] != DEFAULT_STEP for s in run["steps"]):
+                raise AssertionError(f"{label} {mode} rank {r} launched "
+                                     f"{[s['launches'] for s in run['steps']]}")
+            if [s["metrics"] for s in run["steps"]] != \
+                    [s["metrics"] for s in by_rank[0]["steps"]]:
+                raise AssertionError(f"{label} {mode}: rank {r}'s metrics differ from rank 0's")
+        print(f"{label} ({by_rank[0]['backend']}), {mode}: step ms by rank " + " / ".join(
+            " ".join(f"{s['seconds'] * 1e3:.1f}" for s in run["steps"]) for run in by_rank)
+            + "; per rank: parameters + moments " + " / ".join(_gib(run["persistent"])
+                                                                for run in by_rank)
+            + ", gradients " + " / ".join(_gib(run["grad_bytes"]) for run in by_rank)
+            + ", allocated between steps " + " / ".join(_gib(run["steps"][-1]["allocated"])
+                                                        for run in by_rank)
+            + ", step peaks " + " / ".join(" ".join(_gib(s["peak"]) for s in run["steps"])
+                                            for run in by_rank[:1]) + " (rank 0)"
+            + "".join(f", collectives {run['collective_share']:.2%} of {run['kernel_ms']:.1f} "
+                      "ms of kernel time" for run in by_rank[:1] if "collective_share" in run))
+    if "dp" in runs:
+        dp, fs = runs["dp"][0], runs["fsdp"][0]
+        share = fs["persistent"] / dp["persistent"]
+        # the steady steps that both modes ran: from the second (the first
+        # makes Adam's moments) to the shorter run's last
+        n = min(len(fs["steps"]), len(dp["steps"]))
+        peaks = [max(s["peak"] for s in run["steps"][1:n]) for run in (fs, dp)]
+        print(f"{label}: an FSDP rank's parameters + moments are {share:.1%} of a data-parallel "
+              f"rank's (limit {FSDP_PERSISTENT_SHARE:.0%}); the largest peak of step"
+              f"{'s 2-' + str(n) if n > 2 else ' 2'} "
+              f"{_gib(peaks[0])} against {_gib(peaks[1])}")
+        measured = peaks[1] > 0  # zeros on the CPU: not measured
+        if share > FSDP_PERSISTENT_SHARE or (measured and peaks[0] >= peaks[1]):
+            raise AssertionError(f"{label}: FSDP does not hold less than data parallelism")
+        if "equal_dp" in fs:
+            print(f"{label}: FSDP's gathered parameters after {FSDP_STEPS} steps with clipping "
+                  f"off {'bitwise equal to' if fs['equal_dp'] else 'DIFFER from'} data "
+                  f"parallelism's on the same batches (largest difference "
+                  f"{fs['max_diff_dp']:.3e})")
+    if not reference:
+        return
+    ref = res[0]["reference"]
+    first, resumed = ref["first"], ref["resumed"]
+    errs = {k: abs(v["per_token"] - v["ref_per_token"]) / abs(v["ref_per_token"])
+            for k, v in ref.items() if isinstance(v, dict)}
+    print(f"{label}, FSDP: first step CE per target token {first['per_token']:.8f} vs "
+          f"{first['ref_per_token']:.8f} for one process on the {first['rows']}-row global batch "
+          f"(rel {errs['first']:.2e}; loss {first['loss']:.6f} vs {first['ref_loss']:.6f}, "
+          f"grad_norm {first['grad_norm']:.6f} vs {first['ref_grad_norm']:.6f}), gradient rel "
+          f"L2 {first['grad_rel_l2']:.2e}; checkpoint-0.pth of the FSDP ranks in one process "
+          f"without FSDP: every tensor {'bitwise equal to' if ref['ckpt_params_equal'] else 'DIFFERENT from'} "
+          f"their gathered parameters; the ranks' next step's CE per target token "
+          f"{resumed['per_token']:.8f} vs {resumed['ref_per_token']:.8f} for one process "
+          f"resumed from it (rel {errs['resumed']:.2e}), grad_norm {resumed['grad_norm']:.6f} "
+          f"vs {resumed['ref_grad_norm']:.6f}")
+    if not ref["ckpt_params_equal"] or max(errs.values()) > FSDP_CE_RTOL \
+            or first["grad_rel_l2"] > STEP_GRAD_REL_L2:
+        raise AssertionError(f"{label}: the FSDP ranks disagree with one process")
+
+
+def vqvae_rank_worker(cfg, out_dir):
+    """One of phase 5d's two VQ-VAE ranks: rank RANK of WORLD_SIZE over gloo
+    on the shared card, run_training_vqvae.main at cfg["batch"] rows a
+    rank; writes its step metrics and whether its weights and codebook
+    equal rank 0's bitwise to rank{RANK}.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from egom2p_torch.cli import run_training_vqvae as rtv
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    steps = []
+    res = rtv.main(cfg["argv"] + ["--batch_size", str(cfg["batch"])],
+                   on_step=lambda s, m, sec: steps.append({"metrics": m, "seconds": sec}))
+    flat = torch.cat([t.float().reshape(-1) for t in res["tokenizer"].net.state_dict().values()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    synced = bool(torch.equal(ref, flat))
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"steps": steps, "synced": synced}, f)
+
+
+def vqvae_ranks_check(dev, tmp, config, data, *extra):
+    """The cam VQ-VAE trainer on two gloo ranks sharing the card, VQ_B / 2
+    rows a rank, one step on VQ_B samples, against one process at VQ_B:
+    the loss within FSDP_CE_RTOL, the codebook and the weights after the
+    step, and the ranks' weights and codebook bitwise equal."""
+    from egom2p_torch.cli import run_training_vqvae as rtv
+    from egom2p_torch.core.checkpoint import load_pth
+
+    t0 = time.perf_counter()
+    data_path = os.path.join(tmp, "cam_ranks.npy")
+    np.save(data_path, data[:VQ_B])
+    argv = ["--config", config, "--data_path", data_path, "--device", dev.type, "--epochs", "1",
+            "--eval_freq", "0", "--async_save", "false", "--seed", "0", "--print_freq", "1",
+            *extra]
+    ranks_dir, one_dir = os.path.join(tmp, "vq_ranks"), os.path.join(tmp, "vq_one")
+    res = _run_ranks({"argv": argv + ["--output_dir", ranks_dir], "batch": VQ_B // 2,
+                      "backend": "gloo"}, tmp, 2, os.path.abspath(__file__), "vqvae")
+    one = []
+    rtv.main(argv + ["--output_dir", one_dir, "--batch_size", str(VQ_B)],
+             on_step=lambda s, m, sec: one.append(m))
+    ranks_ckpt = load_pth(os.path.join(ranks_dir, "checkpoint-final.pth"))
+    one_ckpt = load_pth(os.path.join(one_dir, "checkpoint-final.pth"))
+    a, b = ranks_ckpt["model"], one_ckpt["model"]
+    cb = {k: float((a[k].float() - b[k].float()).abs().max()) for k in a if "_codebook" in k}
+    weights = _vq_weights_check(a, b, ranks_ckpt["optimizer"], one_ckpt["optimizer"])
+    got, want = res[0]["steps"][0]["metrics"], one[0]
+    errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+            for k in ("loss", "reconst_loss", "code_loss", "grad_norm")}
+    print(f"cam VQ-VAE on two gloo ranks of {VQ_B // 2} rows against one process at {VQ_B}: "
+          f"one step, loss {got['loss']:.8f} vs {want['loss']:.8f} (rel "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f"), codebook after the step: largest difference " + ", ".join(
+              f"{k.rsplit('.', 1)[1]} {v:.2e}" for k, v in cb.items())
+          + f"; weights: {weights['worst']:.2e} of each tensor's max at worst, outside Adam's "
+          f"noise {weights['excess']:.2e} LR past {VQ_WEIGHT_RTOL} of it (limit "
+          f"{VQ_ADAM_SHARE}), {weights['noisy']} of {weights['n']} elements within it, "
+          f"{weights['noisy_steps']:.3f} LR off at worst (limit 2); usage "
+          f"{got['codebook_usage']:.4f} vs {want['codebook_usage']:.4f}; ranks' weights and "
+          f"codebook bitwise equal {[r['synced'] for r in res]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    loss_errs = [errs[k] for k in ("loss", "reconst_loss", "code_loss")]
+    if max(loss_errs) > FSDP_CE_RTOL or errs["grad_norm"] > VQ_GRAD_NORM_RTOL \
+            or weights["excess"] > VQ_ADAM_SHARE or weights["noisy_steps"] > 2.0 \
+            or not all(r["synced"] for r in res) \
+            or cb["quantize._codebook.embed"] > 1e-4 or cb["quantize._codebook.cluster_size"] > 1e-3 \
+            or res[0]["steps"][0]["metrics"] != res[1]["steps"][0]["metrics"]:
+        raise AssertionError("the two VQ-VAE ranks disagree with one process")
+
+
+def _vq_weights_check(a, b, opt_a, opt_b):
+    """The weights after the VQ-VAE's first step, `a` (the ranks') against
+    `b` (one process's), with their optimizers' state dicts (every
+    parameter in AdamW's state, in the model's parameter order): the
+    largest difference over each tensor's max (`worst`); outside Adam's
+    noise (VQ_WEIGHT_RTOL's comment) the largest excess past VQ_WEIGHT_RTOL
+    of the tensor's max in units of the step's LR (`excess`); the elements
+    within it (`noisy` of `n`) and their largest difference in LRs."""
+    lr = float(opt_b["adamw"]["param_groups"][0]["lr"])
+    order = [i for g in opt_b["adamw"]["param_groups"] for i in g["params"]]
+    names = [k for k in b if "_codebook" not in k]
+    if len(names) != len(order):
+        raise AssertionError(f"{len(names)} weights, {len(order)} in AdamW's state")
+    out = {"worst": 0.0, "excess": 0.0, "noisy": 0, "n": 0, "noisy_steps": 0.0}
+    for name, i in zip(names, order):
+        x, y = a[name].double(), b[name].double()
+        scale = float(y.abs().max().clamp(min=1e-30))
+        diff = (x - y).abs()
+        rms = [o["adamw"]["state"][i]["exp_avg_sq"].double().sqrt() for o in (opt_a, opt_b)]
+        noisy = (rms[0] < ADAM_NOISE * rms[0].max()) | (rms[1] < ADAM_NOISE * rms[1].max())
+        excess = (diff - VQ_WEIGHT_RTOL * scale).clamp(min=0) / lr
+        out["worst"] = max(out["worst"], float(diff.max()) / scale)
+        out["excess"] = max(out["excess"], float(excess[~noisy].max()) if (~noisy).any() else 0.0)
+        out["noisy_steps"] = max(out["noisy_steps"],
+                                 float(diff[noisy].max()) / lr if noisy.any() else 0.0)
+        out["noisy"] += int(noisy.sum())
+        out["n"] += diff.numel()
+    return out
+
+
+def cards_check(world: int, fsdp: bool = False) -> int:
     """`python3 chip_smoke.py --cards N`: the trainer data-parallel over N
     cards of one host with NCCL, launched by torchrun, EgoM2P-base at B = 8
     per card, checked as phase 5e checks its two ranks (_check_ranks); the
-    per-step times beside one process's step at B = 8 on one card."""
+    per-step times beside one process's step at B = 8 on one card.
+    `--cards N --fsdp`: the trainer with and without --fsdp true over the N
+    cards, EgoM2P-base at B = 8 per card and EgoM2P-large at B = 8 with
+    remat, each step's tokens/s per card, the bytes each rank holds between
+    steps and at a step's peak, and the collectives' share of a profiled
+    run's kernel time (fsdp_cards)."""
     if torch.cuda.device_count() < world:
         print(f"chip_smoke --cards {world}: {torch.cuda.device_count()} CUDA devices",
               file=sys.stderr)
@@ -3082,6 +3611,8 @@ def cards_check(world: int) -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     _build.load()  # once, before the ranks load it
     t0 = time.perf_counter()
+    if fsdp:
+        return fsdp_cards(world)
     cfg = {**DP_CONFIG, "batch": B, "backend": "nccl", "reference_remat": True}
     with tempfile.TemporaryDirectory() as tmp:
         res = _run_ranks(cfg, tmp, world, os.path.abspath(__file__))
@@ -3091,16 +3622,40 @@ def cards_check(world: int) -> int:
     return 0
 
 
+def fsdp_cards(world: int) -> int:
+    """--cards N --fsdp (cards_check)."""
+    t0 = time.perf_counter()
+    for model, remat in ((BASE_MODEL, False), (LARGE_MODEL, True)):
+        # an epoch of CARD_STEPS profiled, then CARD_STEPS timed; no checkpoint
+        cfg = {**DP_CONFIG, "model": model, "batch": B, "backend": "nccl", "remat": remat,
+               "modes": ["dp", "fsdp"], "check_sync": True, "profile": True,
+               "kernels": model == BASE_MODEL, "steps": CARD_STEPS, "epochs": 2,
+               "no_save": True}
+        with tempfile.TemporaryDirectory() as tmp:
+            res = _run_ranks(cfg, tmp, world, os.path.abspath(__file__), "fsdp")
+        label = f"{world} cards, {model} B = {B}{' remat' if remat else ''}"
+        for mode in ("dp", "fsdp"):
+            ms = [float(np.median([s["seconds"] for s in r["runs"][mode]["steps"][CARD_STEPS:]]))
+                  * 1e3 for r in res]
+            print(f"{label}, {mode}: step ms median by rank " + " / ".join(f"{m:.1f}" for m in ms)
+                  + f"; {B * 4096 / max(ms) * 1e3:.0f} tokens/s per card")
+        _check_fsdp_ranks(res, world, cfg["kernels"], label, reference=False)
+    print(f"FSDP check on {world} cards: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def dp_worker(argv) -> int:
-    """The phase 5e worker processes: `--dp-worker nccl CONFIG OUT_JSON`
-    under torchrun, `--dp-worker ranks CONFIG OUT_DIR` with RANK and
-    WORLD_SIZE set (dp_rank_worker)."""
+    """The phase 5d-5f worker processes: `--dp-worker nccl CONFIG OUT_JSON`
+    under torchrun, `--dp-worker ranks|fsdp|vqvae CONFIG OUT_DIR` with RANK
+    and WORLD_SIZE set (dp_rank_worker, fsdp_rank_worker,
+    vqvae_rank_worker)."""
     kind, cfg_path, out = argv
     with open(cfg_path) as f:
         cfg = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets for every phase
     torch.backends.cudnn.allow_tf32 = False
-    (dp_nccl_worker if kind == "nccl" else dp_rank_worker)(cfg, out)
+    {"nccl": dp_nccl_worker, "ranks": dp_rank_worker, "fsdp": fsdp_rank_worker,
+     "vqvae": vqvae_rank_worker}[kind](cfg, out)
     return 0
 
 
@@ -3218,6 +3773,7 @@ def main() -> int:
     remat_launches, large_remat_launches = phase(remat_phase, dev)
     pipeline_launches = phase(tokenizer_pipeline_phase, dev)
     dp_launches = phase(data_parallel_phase, dev, first_metrics, default_ms)
+    fsdp_launches, fsdp_step_launches = phase(fsdp_phase, dev, first_metrics, default_ms)
     fused_rows = phase(fused_bwd_phase, dev)
     phase(ragged_bwd_phase, dev)
     ce_bwd_rows = phase(ce_bwd_phase, dev)
@@ -3257,7 +3813,9 @@ def main() -> int:
     paths = {part: {"shard_launches": shard_launches[part],
                     "remat_launches": remat_launches[part],
                     "pipeline_launches": pipeline_launches[part],
-                    "dp_launches": dp_launches[part]}
+                    "dp_launches": dp_launches[part],
+                    "fsdp_launches": fsdp_launches[part],
+                    "fsdp_launches_per_step": fsdp_step_launches[part]}
              for part in ("fwd", "dq", "dkv", "ce_fwd")}
     for name, src, line, part, keys, products, tensors, lib, more in (
             ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",), 2, (2, 2), step_lib["fwd"],
@@ -3315,5 +3873,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--cards"]:
-        sys.exit(cards_check(int(sys.argv[2])))
+        sys.exit(cards_check(int(sys.argv[2]), "--fsdp" in sys.argv[3:]))
     sys.exit(main())

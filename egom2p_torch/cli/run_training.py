@@ -39,6 +39,22 @@ each step computes the JAX step's loss and gradients on it.  Validation
 reads every shard at batch_size x processes rows a batch, each process
 evaluating its rows.  Rank 0 alone prints, writes log.txt and writes the
 checkpoints, whose keys are the model's own (no `module.` prefix).
+--fsdp true shards the parameters and Adam's moments over the processes
+(core/fsdp.py: each block's weights gathered around its forward and its
+backward, gradients reduce-scattered); the step, the validation, the
+profile and the checkpoint files are those of data parallelism (every
+rank takes part in a save's gathers, rank 0 writes), and one process is a
+shard of one.
+
+S3: data paths may be s3:// shards (streamed through boto3's client for
+--s3_data_endpoint, data/s3_utils.py); --s3_save_dir s3://bucket/prefix
+uploads every checkpoint after it lands (--s3_endpoint) and, on a resume
+with no local checkpoint, rank 0 first downloads the newest one there
+while the other ranks wait (core/s3_sync.py); the run waits for its
+uploads before it exits.  Both need boto3 and raise, naming it, without
+it.  A data config's dataset of `type: huggingface` reads a local
+directory written by `datasets`' save_to_disk (data/hf_datasets.py; each
+rank its share, the loader's masking and mixture as for shards).
 
 By default a run resumes from the latest checkpoint in its --output_dir
 (model, optimizer, step and the LR schedule's position; --no_auto_resume
@@ -60,9 +76,8 @@ Smoke run without data (the config's settings as arguments):
         --model egom2p_base_12e_12d_swiglu_nobias --batch_size 8 \
         --lr_schedule constant --epochs 1 --epoch_size 48
 
-Not ported yet (each raises where it is asked for): FSDP (--fsdp true),
-tensor parallelism (--tensor_parallel > 1), S3 checkpoint sync
-(--s3_save_dir) and S3 or Hugging Face datasets, and text modalities
+Not ported (each raises where it is asked for): tensor parallelism
+(--tensor_parallel > 1, TPU-only machinery) and text modalities
 (--text_tokenizer_path).
 """
 from __future__ import annotations
@@ -157,10 +172,15 @@ def get_args(argv=None):
     p.add_argument("--wandb_entity", default=None)
     p.add_argument("--wandb_run_name", default="auto")
     p.add_argument("--fsdp", type=str2bool, default=False,
-                   help="not ported: raises when true")
+                   help="shard the parameters and Adam's moments over the processes "
+                        "(core/fsdp.py)")
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help="not ported: raises above 1")
-    p.add_argument("--s3_save_dir", default=None, help="not ported: raises when set")
+    p.add_argument("--s3_save_dir", default=None,
+                   help="s3://bucket/prefix to mirror checkpoints into (needs boto3)")
+    p.add_argument("--s3_endpoint", default=None)
+    p.add_argument("--s3_data_endpoint", default=None,
+                   help="the endpoint of s3:// data shards")
     return parse_args_with_config(p, argv)
 
 
@@ -209,7 +229,8 @@ def expand_modality_shards(path: str, mod_info: Dict, fallback_name: str,
     return per_mod
 
 
-def _shard_factory(per_mod: Dict, n_repeats: int, buffer: int, seed: int):
+def _shard_factory(per_mod: Dict, n_repeats: int, buffer: int, seed: int,
+                   s3_endpoint: Optional[str] = None):
     """The raw-sample stream of one dataset's shards: repeated, shuffled
     through a buffer; a forked worker passes its own seed and reads its
     share of the shards (run_training_egom2p.py:265-280)."""
@@ -222,7 +243,21 @@ def _shard_factory(per_mod: Dict, n_repeats: int, buffer: int, seed: int):
         pm = per_mod
         if num_workers > 1 and min(len(v) for v in per_mod.values()) >= num_workers:
             pm = {k: shard_split(v, worker_id, num_workers) for k, v in per_mod.items()}
-        return shuffled(repeated(lambda: multi_tarfile_samples(pm), n_repeats), buffer, r)
+        return shuffled(repeated(lambda: multi_tarfile_samples(pm, s3_endpoint=s3_endpoint),
+                                 n_repeats), buffer, r)
+
+    return factory
+
+
+def _hf_factory(dcfg: Dict, default_seed: int):
+    """The raw-sample stream of a `huggingface` dataset
+    (run_training_egom2p.py:246-256): a worker passes its own seed."""
+    from egom2p_torch.data.hf_datasets import huggingface_samples
+
+    def factory(seed=None):
+        return huggingface_samples(dcfg["data_path"], split=dcfg.get("split", "train"),
+                                   shuffle_buffer=dcfg.get("shuffle_buffer_load", 1000),
+                                   seed=default_seed if seed is None else seed)
 
     return factory
 
@@ -270,18 +305,19 @@ def setup_data(args):
     train = load_data_config(args.data_config)["train"]
     streams, all_domains = [], set()
     for name, dcfg in train["datasets"].items():
-        if dcfg.get("type") == "huggingface":
-            raise NotImplementedError(f"dataset {name}: Hugging Face datasets are not ported "
-                                      "(they download)")
         mod_info, sampling_weights = setup_sampling_mod_info(dcfg, MODALITY_INFO)
         all_domains |= set(mod_info)
         masking = UnifiedMasking(mod_info,
                                  dcfg.get("num_input_tokens") or args.num_input_tokens,
                                  dcfg.get("num_target_tokens") or args.num_target_tokens,
                                  sampling_weights=sampling_weights, seed=args.seed)
+        if dcfg.get("type") == "huggingface":
+            streams.append(DatasetStream(_hf_factory(dcfg, args.seed), masking, name=name))
+            continue
         per_mod = expand_modality_shards(dcfg["data_path"], mod_info, name)
         factory = _shard_factory(per_mod, dcfg.get("wds_n_repeats", 1),
-                                 dcfg.get("wds_shuffle_buffer_tar", 1000), args.seed)
+                                 dcfg.get("wds_shuffle_buffer_tar", 1000), args.seed,
+                                 args.s3_data_endpoint)
         streams.append(DatasetStream(factory, masking, name=name))
     info_all = {m: MODALITY_INFO[m] for m in sorted(all_domains)}
     loader = MixtureLoader(streams, info_all, batch, seed=seed,
@@ -342,7 +378,8 @@ def setup_val_data(args):
         base.update({k: v for k, v in dcfg.items() if v is not None})
         mod_info, sampling_weights = setup_sampling_mod_info(base, MODALITY_INFO)
         per_mod = expand_modality_shards(base["data_path"], mod_info, name, split=False)
-        samples = lambda per_mod=per_mod: multi_tarfile_samples(per_mod)  # noqa: E731
+        samples = lambda per_mod=per_mod: multi_tarfile_samples(  # noqa: E731
+            per_mod, s3_endpoint=args.s3_data_endpoint)
         val_factories[name] = make_factory(name, samples, mod_info, sampling_weights, False)
         fixed_factories[name] = make_factory(name, samples, mod_info, sampling_weights, True)
     return val_factories, fixed_factories
@@ -431,12 +468,8 @@ def _raise_open_files_limit() -> None:
 
 
 def _not_ported(args) -> None:
-    if args.fsdp:
-        raise NotImplementedError("--fsdp: sharded training is not ported (data parallelism is)")
     if args.tensor_parallel > 1:
         raise NotImplementedError("--tensor_parallel: tensor parallelism is not ported")
-    if args.s3_save_dir:
-        raise NotImplementedError("--s3_save_dir: S3 checkpoint sync is not ported")
 
 
 def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]] = None,
@@ -472,7 +505,7 @@ def main(args, on_step: Optional[Callable[[int, Dict[str, float], float], None]]
 
 
 def _train(args, device, loader_it, domains, on_step, on_epoch):
-    from egom2p_torch.core import distributed
+    from egom2p_torch.core import distributed, fsdp, s3_sync
     from egom2p_torch.core.checkpoint import (auto_load_model, save_checkpoint, wait_for_saves,
                                               warm_start)
     from egom2p_torch.core.logging import JsonlLogger, MetricLogger, WandbLogger
@@ -501,6 +534,13 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
     print(f"model {args.model}: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
     if args.finetune:
         warm_start(model, args.finetune)
+    # every process starts from rank 0's weights (a resume below loads the
+    # same file on every rank)
+    distributed.broadcast_module_(model)
+    if args.fsdp:
+        sharded = fsdp.shard_model(model)
+        print(f"fsdp: {len(sharded.params)} tensors sharded over {sharded.world} process(es), "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters on this one")
     optimizer = Optimizer(model, sched, weight_decay=args.weight_decay,
                           betas=tuple(args.opt_betas), clip_grad=args.clip_grad)
     if args.frozen_model_epochs > 0:
@@ -513,6 +553,14 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
     wandb = WandbLogger(args) if args.log_wandb and distributed.is_main_process() else None
 
     step, start_epoch = 0, 0
+    if args.auto_resume and args.s3_save_dir:
+        # a machine with no local checkpoint resumes from the bucket's newest
+        # (run_training_egom2p.py:511-521)
+        if distributed.is_main_process():
+            fetched = s3_sync.maybe_download_for_resume(args.output_dir, args.s3_save_dir,
+                                                        endpoint_url=args.s3_endpoint)
+            if fetched:
+                print(f"downloaded {fetched} from {args.s3_save_dir}")
     if args.auto_resume:
         distributed.barrier()  # no process reads a checkpoint another is writing
         ckpt, path = auto_load_model(args.output_dir, model, optimizer)
@@ -521,8 +569,6 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
             start_epoch = step // niter_per_ep
             shuffle.set_state(ckpt["shuffle_rng"])
             print(f"resumed from {path} at step {step}, epoch {start_epoch}")
-    # every process starts from rank 0's weights
-    distributed.broadcast_module_(model)
     step_fn = make_train_step(model, optimizer, args.num_input_tokens,
                               args.num_target_tokens, args.loss_type, args.accum_steps)
     # the checkpoint's args as the reference pickles them: a Namespace
@@ -578,14 +624,18 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
                      **{k: v.global_avg for k, v in logger.meters.items()}})
         if (epoch + 1) % args.save_ckpt_freq == 0 or epoch == args.epochs - 1:
             final = epoch == args.epochs - 1
-            if distributed.is_main_process():
-                # periodic saves overlap the next steps; the final one blocks
-                blocking = final or not args.async_save
-                path = save_checkpoint(args.output_dir, "final" if final else epoch,
-                                       model, optimizer, step=step, epoch=epoch,
-                                       args=ckpt_args, shuffle_rng=shuffle.get_state(),
-                                       blocking=blocking)
-                print(f"saved{'' if blocking else ' (async)'} {path}")
+            # periodic saves overlap the next steps; the final one blocks.
+            # Every rank takes part (a sharded model's gathers), rank 0 writes
+            blocking = final or not args.async_save
+            path = save_checkpoint(args.output_dir, "final" if final else epoch,
+                                   model, optimizer, step=step, epoch=epoch,
+                                   args=ckpt_args, shuffle_rng=shuffle.get_state(),
+                                   blocking=blocking, write=distributed.is_main_process())
+            print(f"saved{'' if blocking else ' (async)'} {path}")
+            if args.s3_save_dir and distributed.is_main_process():
+                # after the write lands (run_training_egom2p.py:610-617)
+                s3_sync.upload_after_save(path, args.s3_save_dir, blocking,
+                                          endpoint_url=args.s3_endpoint)
         stats = {}
         if args.eval_freq and (epoch + 1) % args.eval_freq == 0 and val_factories:
             if eval_steps is None:
@@ -609,6 +659,8 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
         if on_epoch is not None:
             on_epoch(epoch, model, stats)
     wait_for_saves()  # an in-flight periodic save, before the run ends
+    if args.s3_save_dir:
+        s3_sync.wait_for_uploads()
     distributed.barrier()  # and before any process goes on to read it
     if wandb is not None:
         wandb.finish()

@@ -1,5 +1,5 @@
 """Cam / gaze VQ-VAE tokenizer training, tokenize and reconstruct: the
-PyTorch port's entry point, on one device.
+PyTorch port's entry point, on one device or data-parallel under torchrun.
 
 Port of run_training_vqvae.py's cam / gaze branches (reference:
 run_training_vqvae.py), with its flags and defaults; a --config file's keys
@@ -40,6 +40,19 @@ script does (`tokenize_file` is the step for one file, for a caller that
 loads the tokenizer once for many files).  Note: the aligner (prepare_aligned_shards.py) keys a file by its name up to the first
 `.`, so a user renames <stem>-tok.npz to <stem>.npz to align it with the
 video tokens of clip <stem>.
+
+Under torchrun (core/distributed.py: NCCL on cuda:LOCAL_RANK, gloo with
+--device cpu) training is the JAX trainer's step on a global batch of
+--batch_size x processes rows (run_training_vqvae.py:595-627,
+train/vqvae_train.py): every process draws the same permutation and takes
+rows [r b, (r + 1) b) of each global batch, the steps per epoch and the LR
+(blr x global batch / 256) follow the global batch, the kmeans init and
+any resumed state are broadcast from rank 0, and rank 0 alone prints,
+evaluates (train/vqvae_eval.py), writes log.txt and writes the checkpoints
+(async saves kept).  torchrun: python -m torch.distributed.run
+--standalone --nproc_per_node 2 -m egom2p_torch.cli.run_training_vqvae
+... .  --eval_only and --tokenize run in one process (rank 0 under
+torchrun; the others return at once): one process's numbers and files.
 
 Everything runs on the first CUDA device (--device cuda, the default) and
 raises when there is none; --device cpu asks for the CPU.  Checkpoints are
@@ -322,6 +335,7 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
     from a device synchronization to its metrics on the host.  Returns {"tokenizer",
     "optimizer", "ema", "step_seconds", "metrics"}."""
     from egom2p_torch.cli.eval_common import resolve_device
+    from egom2p_torch.core import distributed
     from egom2p_torch.core.checkpoint import save_checkpoint, wait_for_saves
     from egom2p_torch.core.logging import JsonlLogger, MetricLogger
     from egom2p_torch.core.optim import Optimizer, freeze_masked, freeze_modules_mask
@@ -333,14 +347,21 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
     if not args.data_path:
         raise ValueError("--data_path is required for training")
     device = resolve_device(args.device)
+    distributed.init_distributed_mode(device.type)
+    if device.type == "cuda":
+        device = torch.device("cuda", distributed.local_rank())
+    world, rank = distributed.world_size(), distributed.rank()
     data = load_seq_data(args, args.data_path)
     n_samples = len(data)
     print(f"train samples: {data.shape}")
     tok = build_tokenizer(args, device, torch.Generator(device).manual_seed(args.seed))
     net = tok.net
     batch_size = args.batch_size
-    niter_per_ep = max(n_samples // batch_size, 1)
-    sched = cosine_scheduler(args.blr * batch_size / 256.0, args.min_lr, args.epochs,
+    global_batch = batch_size * world
+    niter_per_ep = max(n_samples // global_batch, 1)
+    print(f"device {device}, {world} process(es), global batch {global_batch}, "
+          f"{niter_per_ep} steps per epoch")
+    sched = cosine_scheduler(args.blr * global_batch / 256.0, args.min_lr, args.epochs,
                              niter_per_ep, warmup_epochs=args.warmup_epochs,
                              start_warmup_value=args.warmup_lr)
     optimizer = Optimizer(net, sched, weight_decay=args.weight_decay,
@@ -358,8 +379,10 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
         net.quantize.set_state(kmeans_init_state(
             net.quantize.cfg, lat, generator=torch.Generator(device).manual_seed(args.seed + 1)))
         print("kmeans codebook init from the first batch")
-    ema = init_ema(net) if args.model_ema else None
     step, ckpt = _resume(args, net, optimizer)
+    # every process starts from rank 0's weights and codebook
+    distributed.broadcast_module_(net)
+    ema = init_ema(net) if args.model_ema else None
     if ckpt is not None and ema is not None:
         # a checkpoint without an EMA seeds it from the loaded weights
         # (run_training_vqvae.py:573-580)
@@ -380,7 +403,9 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
         order = rng.permutation(n_samples)
         for it, _ in logger.log_every(range(niter_per_ep), header=f"Epoch [{epoch}]",
                                       total=niter_per_ep):
-            batch = torch.from_numpy(data[order[it * batch_size:(it + 1) * batch_size]])
+            # this process's rows of the global batch
+            lo = it * global_batch + rank * batch_size
+            batch = torch.from_numpy(data[order[lo:lo + batch_size]])
             batch = batch.to(device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -410,9 +435,11 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
             blocking = final or not args.async_save
             path = save_checkpoint(args.output_dir, "final" if final else epoch, net,
                                    optimizer, step=step, epoch=epoch, args=args,
-                                   blocking=blocking, **extra)
+                                   blocking=blocking, write=distributed.is_main_process(),
+                                   **extra)
             print(f"saved{'' if blocking else ' (async)'} {path}")
     wait_for_saves()
+    distributed.barrier()  # the files are on disk before any process reads them
     return {"tokenizer": tok, "optimizer": optimizer, "ema": ema,
             "step_seconds": step_seconds, "metrics": history}
 
@@ -449,13 +476,18 @@ def run_eval_only(args) -> Dict[str, float]:
 def main(argv=None, **kwargs):
     """Parse `argv` and run --eval_only, --tokenize or training (`kwargs`
     go to run_train)."""
+    from egom2p_torch.core import distributed
+
     args = get_args(argv)
     check_ported(args)
-    if args.eval_only:
-        return run_eval_only(args)
-    if args.tokenize:
-        return run_tokenize(args)
-    return run_train(args, **kwargs)
+    if args.eval_only or args.tokenize:
+        if int(os.environ.get("RANK", "0")) != 0:
+            return None  # one process's numbers and files: rank 0's
+        return run_eval_only(args) if args.eval_only else run_tokenize(args)
+    from egom2p_torch.cli.eval_common import resolve_device
+    distributed.init_distributed_mode(resolve_device(args.device).type)
+    with distributed.main_prints_only():
+        return run_train(args, **kwargs)
 
 
 if __name__ == "__main__":

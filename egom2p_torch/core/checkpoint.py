@@ -11,6 +11,12 @@ reference pickles it, so the JAX package's readers rebuild the same model
 from it.  The port's module names are the reference's torch keys: loading
 EgoM2P weights is a key-checked copy.
 
+On a model that core/fsdp.py sharded, a save gathers the full weights and
+Adam moments on every rank (a collective: every rank calls save_checkpoint,
+and only the one given write=True writes), and a load keeps each rank's
+pieces of the full tensors, so one file serves FSDP at any world size,
+data parallelism and one process.
+
 Files are read with torch.load(weights_only=True) and argparse.Namespace
 allowed as the one class beyond tensors and plain containers: a file that
 pickles anything else raises instead of running its code.
@@ -27,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from egom2p_torch.core import fsdp
 from egom2p_torch.tokenizers.cosmos.network import CausalDiscreteVideoTokenizer, DV4x8x8_CONFIG
 from egom2p_torch.tokenizers.cosmos.video_api import CausalVideoTokenizer
 from egom2p_torch.tokenizers.seq_vqvae import SeqTokenizer, seq_vqvae_from_config
@@ -72,6 +79,11 @@ _SAVE_THREAD: Optional[threading.Thread] = None
 _SAVE_ERROR: list = []
 
 
+def save_in_flight() -> Optional[threading.Thread]:
+    """The thread writing the save in flight (blocking=False), or None."""
+    return _SAVE_THREAD
+
+
 def wait_for_saves() -> None:
     """Block until the save in flight (blocking=False) is on disk; raises
     what its write raised."""
@@ -84,23 +96,28 @@ def wait_for_saves() -> None:
 
 
 def save_checkpoint(output_dir: str, tag, model: nn.Module, optimizer=None, step: int = 0,
-                    epoch: int = -1, args=None, blocking: bool = True, **extra) -> str:
+                    epoch: int = -1, args=None, blocking: bool = True, write: bool = True,
+                    **extra) -> str:
     """Write checkpoint-{tag}.pth (to a temporary name, then renamed into
     place: an interrupted save leaves the previous file whole).  `args` is
     stored as an argparse.Namespace.  The model's and the optimizer's
     state is copied to host memory before it returns; with blocking=False
     the file is written on a background thread (the next steps cannot
     change what it holds): wait_for_saves() before relying on the file
-    (egom2p_tpu/core/checkpoint.py:36-61)."""
+    (egom2p_tpu/core/checkpoint.py:36-61).  With write=False nothing is
+    written: the call only takes part in a sharded model's gathers (the
+    module docstring).  Returns the file's path."""
     global _SAVE_THREAD
     if isinstance(args, dict):
         args = argparse.Namespace(**args)
-    state = {"model": model.state_dict(), "step": int(step), "epoch": int(epoch), "args": args,
-             **extra}
+    state = {"model": fsdp.full_state_dict(model), "step": int(step), "epoch": int(epoch),
+             "args": args, **extra}
     if optimizer is not None:
         state["optimizer"] = optimizer.state_dict()
-    state = _to_host(state, {})
     path = checkpoint_path(output_dir, tag)
+    if not write:
+        return path
+    state = _to_host(state, {})
     wait_for_saves()
     if blocking:
         _write(state, path)
@@ -135,12 +152,13 @@ def auto_load_model(output_dir: str, model: nn.Module,
                     optimizer=None) -> Tuple[Optional[Dict], Optional[str]]:
     """Resume from the latest checkpoint under `output_dir` (reference:
     checkpoint.py:123-157): the model's weights (strict) and, when given,
-    the optimizer's state.  Returns (checkpoint, path) or (None, None)."""
+    the optimizer's state (each rank's pieces on a sharded model).  Returns
+    (checkpoint, path) or (None, None)."""
     path = latest_checkpoint(output_dir)
     if path is None:
         return None, None
     ckpt = load_pth(path)
-    model.load_state_dict(ckpt["model"])
+    fsdp.load_full_state_dict(model, ckpt["model"])
     if optimizer is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
     return ckpt, path
@@ -186,13 +204,14 @@ def warm_start(model: nn.Module, path: str) -> Tuple[int, int]:
     """Non-strict warm start: copy the tensors of a checkpoint whose key and
     shape match the model's; the rest keep their init (reference:
     run_training_egom2p.py:477-489; the reference's pos_emb buffers are not
-    in the port's state dict).  Returns (copied, total)."""
+    in the port's state dict; a sharded model keeps its pieces).  Returns
+    (copied, total)."""
     ckpt = load_pth(path)
     sd = ckpt.get("model", ckpt)
-    own = model.state_dict()
+    own, shapes = model.state_dict(), fsdp.full_shapes(model)
     take = {k: sd[k].to(v.dtype) for k, v in own.items()
-            if k in sd and tuple(sd[k].shape) == tuple(v.shape)}
-    model.load_state_dict(take, strict=False)
+            if k in sd and tuple(sd[k].shape) == shapes[k]}
+    fsdp.load_full_state_dict(model, take, strict=False)
     print(f"warm start: copied {len(take)}/{len(own)} tensors from {path}")
     return len(take), len(own)
 

@@ -113,6 +113,43 @@ def all_reduce_metrics(metrics: Dict[str, float]) -> Dict[str, float]:
     return dict(zip(keys, (t / world_size()).tolist()))
 
 
+# elements per gradient all-reduce (64 MiB of fp32)
+BUCKET_ELEMENTS = 1 << 24
+
+
+def all_reduce_grads_(params: List[torch.nn.Parameter]) -> None:
+    """Every parameter's gradient summed over the ranks, in flat buckets of
+    at most BUCKET_ELEMENTS; a None gradient enters as zeros and leaves as
+    the sum.  Every rank enters the same collectives in the same order."""
+    bucket: List[torch.nn.Parameter] = []
+
+    def flush():
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in bucket])
+        all_reduce_sum_(flat)
+        for p, g in zip(bucket, flat.split([p.numel() for p in bucket])):
+            p.grad = g.view_as(p)
+        bucket.clear()
+
+    size = 0
+    for p in params:
+        if bucket and (size + p.numel() > BUCKET_ELEMENTS or p.dtype != bucket[0].dtype):
+            flush()
+            size = 0
+        bucket.append(p)
+        size += p.numel()
+    if bucket:
+        flush()
+
+
+def global_metrics(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ranks' shares of each metric (0-d device tensors) summed: the
+    global batch's, the same on every rank."""
+    keys = list(values)
+    total = all_reduce_sum_(torch.stack([values[k].float() for k in keys]))
+    return dict(zip(keys, total.unbind(0)))
+
+
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     """Every rank's `t` stacked along dim 0 in rank order (each rank's
     tensor has the same shape): the process-ordered global array, on
@@ -123,6 +160,42 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     parts: List[torch.Tensor] = [torch.empty_like(local) for _ in range(world_size())]
     dist.all_gather(parts, local)
     return torch.cat(parts, dim=0).to(t.device)
+
+
+def all_gather_flat(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's 1-D `t` (the same length on every rank) concatenated in
+    rank order, on `t`'s device (gathered where the group's collectives
+    run); one all_gather_into_tensor."""
+    if not initialized():
+        return t
+    local = t.to(collective_device()).contiguous()
+    out = torch.empty(world_size() * local.numel(), dtype=local.dtype, device=local.device)
+    dist.all_gather_into_tensor(out, local)
+    return out.to(t.device)
+
+
+def reduce_scatter_flat(t: torch.Tensor) -> torch.Tensor:
+    """Segment `rank` of the 1-D `t` (world x n elements, the same on every
+    rank) summed over the ranks: n elements on `t`'s device; one
+    reduce_scatter_tensor with SUM."""
+    if not initialized():
+        return t
+    local = t.to(collective_device()).contiguous()
+    out = torch.empty(local.numel() // world_size(), dtype=local.dtype, device=local.device)
+    dist.reduce_scatter_tensor(out, local, op=dist.ReduceOp.SUM)
+    return out.to(t.device)
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank `src`'s picklable `obj` on every rank; `obj` itself without a
+    group."""
+    if not initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src,
+                               device=collective_device() if dist.get_backend() == "nccl"
+                               else None)
+    return box[0]
 
 
 def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:

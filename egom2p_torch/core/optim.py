@@ -14,6 +14,16 @@ mask_token and the token embeddings are decayed, as in the reference).
 `freeze_until` holds the shared trunk still for the first steps of a run
 (egom2p_tpu/core/optim.py:freeze_until, `--frozen_model_epochs`).
 
+On a model that core/fsdp.py sharded, the optimizer is built on the
+pieces: Adam's moments follow the parameters' sharding (state_shardings(
+fsdp=True) in the JAX package), AdamW and the freezes run on the pieces,
+and the global gradient norm is the square root of the squared norms of
+the pieces summed over the ranks plus those of the replicated parameters,
+each of these counted once (their gradients are the same on every rank).
+`state_dict` / `load_state_dict` exchange the full moments, as a
+checkpoint holds them: `state_dict` gathers them (a collective: every rank
+calls it).
+
 The VQ-VAE trainer's optimizer is another chain (run_training_vqvae.py:
 633-641): clip_by_global_norm then optax.adamw with no mask, so every
 parameter decays (`Optimizer(..., decay_all=True)`), and with --freeze_enc
@@ -29,6 +39,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from egom2p_torch.core import distributed, fsdp
 
 
 def no_decay(name: str, p: torch.Tensor) -> bool:
@@ -57,6 +69,7 @@ class Optimizer:
             if p.requires_grad:
                 (skip if no_decay(name, p) and not decay_all else decay).append(p)
         self.params = decay + skip
+        self.fsdp = fsdp.state_of(model)
         self.frozen, self.frozen_steps = [], 0  # freeze_until
         self.masked = []                        # freeze_masked
         self.lr_schedule = np.asarray(lr_schedule, dtype=np.float64)
@@ -82,7 +95,10 @@ class Optimizer:
             frozen = frozen + self.masked  # gradients kept: clipped and in Adam's moments
             held = [p.detach().clone() for p in frozen]
         clip = self.clip_grad if self.clip_grad else float("inf")
-        gnorm = torch.nn.utils.clip_grad_norm_(self.params, clip)
+        if self.fsdp is not None and self.fsdp.world > 1:
+            gnorm = self._clip_sharded_(clip)
+        else:
+            gnorm = torch.nn.utils.clip_grad_norm_(self.params, clip)
         for group in self.adamw.param_groups:
             group["lr"] = self.lr
         self.adamw.step()
@@ -92,12 +108,55 @@ class Optimizer:
                 p.copy_(h)
         return gnorm
 
+    def _clip_sharded_(self, clip: float) -> torch.Tensor:
+        """clip_grad_norm_ over the ranks' pieces and the replicated
+        gradients (the module docstring)."""
+        pieces, replicated = [], []
+        for p in self.params:
+            if p.grad is not None:
+                (pieces if self.fsdp.sharded(p) is not None else replicated).append(p.grad)
+
+        def squares(grads):
+            if not grads:
+                return torch.zeros((), device=self.params[0].device)
+            return torch.stack(torch._foreach_norm(grads)).square().sum()
+
+        total = (distributed.all_reduce_sum_(squares(pieces)) + squares(replicated)).sqrt()
+        coef = torch.clamp(clip / (total + 1e-6), max=1.0)
+        torch._foreach_mul_(pieces + replicated, coef)
+        return total
+
+    def _moments(self, state):
+        """(AdamW state index, sharded parameter) of every piece that has
+        Adam state, in the state dict's order."""
+        order = [p for g in self.adamw.param_groups for p in g["params"]]
+        return [(i, self.fsdp.sharded(p)) for i, p in enumerate(order)
+                if self.fsdp.sharded(p) is not None and i in state]
+
     def state_dict(self):
-        return {"adamw": self.adamw.state_dict(), "step_count": self.step_count}
+        """Adam's state with full moments (gathered on a sharded model: a
+        collective), the schedule's position."""
+        sd = self.adamw.state_dict()
+        if self.fsdp is not None:
+            state = dict(sd["state"])
+            for i, s in self._moments(state):
+                state[i] = {k: self.fsdp.gather(v, s) if k in ("exp_avg", "exp_avg_sq") else v
+                            for k, v in state[i].items()}
+            sd = {**sd, "state": state}
+        return {"adamw": sd, "step_count": self.step_count}
 
     def load_state_dict(self, state) -> None:
-        """Adam's moments and step, and the schedule's position."""
-        self.adamw.load_state_dict(state["adamw"])
+        """Adam's full moments and step (a sharded model keeps its pieces),
+        and the schedule's position."""
+        sd = state["adamw"]
+        if self.fsdp is not None:
+            moments = dict(sd["state"])
+            for i, s in self._moments(moments):
+                moments[i] = {k: self.fsdp.piece(v, s).clone()
+                              if k in ("exp_avg", "exp_avg_sq") else v
+                              for k, v in moments[i].items()}
+            sd = {**sd, "state": moments}
+        self.adamw.load_state_dict(sd)
         self.step_count = int(state["step_count"])
 
 

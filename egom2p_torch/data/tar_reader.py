@@ -8,8 +8,9 @@ key-alignment check, npz / npy members decoded to numpy, a streaming
 shuffle with a buffer, a split of the shards across processes or workers,
 and each sample repeated n times.
 
-Local paths only: an s3:// shard raises (the S3 streaming of
-egom2p_tpu/data/s3_utils.py is not ported).
+An s3:// shard streams through data/s3_utils.py (tarfile's streaming
+mode over the object's body; a boto3 client made on first use in each
+process, for the endpoint the caller names, or an injected one).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import random
 import re
 import tarfile
 import zipfile
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -55,12 +56,17 @@ def _decode_member(name: str, data: bytes):
     return data
 
 
-def iter_tar_samples(path: str) -> Iterator[Dict]:
-    """Yield {__key__, <ext>: decoded} grouped by key prefix within one tar."""
-    if path.startswith("s3://"):
-        raise NotImplementedError(f"{path}: reading shards from S3 is not ported "
-                                  "(egom2p_tpu/data/s3_utils.py); copy them to a local path")
-    with tarfile.open(path, "r") as tar:
+def iter_tar_samples(path: str, s3_client=None,
+                     s3_endpoint: Optional[str] = None) -> Iterator[Dict]:
+    """Yield {__key__, <ext>: decoded} grouped by key prefix within one tar;
+    an s3:// path streams through `s3_client` (or this process's client
+    for `s3_endpoint`: data/s3_utils.py)."""
+    from egom2p_torch.data.s3_utils import is_s3_path, open_stream
+    if is_s3_path(path):
+        ctx = tarfile.open(fileobj=open_stream(path, s3_client, s3_endpoint), mode="r|*")
+    else:
+        ctx = tarfile.open(path, "r")
+    with ctx as tar:
         current_key, sample = None, {}
         for member in tar:
             if not member.isfile():
@@ -81,16 +87,20 @@ def iter_tar_samples(path: str) -> Iterator[Dict]:
 
 
 def multi_tarfile_samples(paths_per_modality: Dict[str, Sequence[str]],
-                          handler: str = "warn") -> Iterator[Dict]:
+                          handler: str = "warn", s3_client=None,
+                          s3_endpoint: Optional[str] = None) -> Iterator[Dict]:
     """Zip-iterate aligned per-modality shards; on a shard whose keys or
     sample counts diverge, or that cannot be read, print and skip the rest of
-    it (handler="warn") or raise (reference: unified_datasets.py:240-320)."""
+    it (handler="warn") or raise (reference: unified_datasets.py:240-320).
+    s3:// shards go through `s3_client` or `s3_endpoint`'s client
+    (iter_tar_samples); a missing boto3 raises either way."""
     mods = list(paths_per_modality)
     n_shards = len(paths_per_modality[mods[0]])
     if not all(len(paths_per_modality[m]) == n_shards for m in mods):
         raise ValueError("modalities must have the same number of shards")
     for shard_idx in range(n_shards):
-        iters = {m: iter_tar_samples(paths_per_modality[m][shard_idx]) for m in mods}
+        iters = {m: iter_tar_samples(paths_per_modality[m][shard_idx], s3_client, s3_endpoint)
+                 for m in mods}
         try:
             for rows in itertools.zip_longest(*iters.values()):
                 if any(r is None for r in rows):

@@ -21,14 +21,24 @@ caller passes the draws themselves (`replace_idx`, `lbg_noise`, `perm`), so
 that a test can feed in the numbers JAX drew from its key.  The main
 model's cam and gaze tokenizers use the cosine-sim form (the reference's
 norm_codes=True, egom2p/vq/vqvae.py:171-185); the euclidean form is here
-too.  Everything computes in fp32.  The codebook sync across devices (the
-JAX package's psum) is not ported: one process trains.
+too.  Everything computes in fp32.
+
+Across processes (the JAX package's psum over the data axis, reference
+sync_codebook=True, quantize_lucid.py:91-135) `vq_forward` takes the
+process group's reductions: `stats_reduce` sums the batch's code counts
+and embedding sums over the ranks before the EMA update, and
+`pool_gather` gathers the ranks' latents in rank order, so that
+batch_random expiry draws its replacements from the global batch (with a
+generator seeded alike on every rank); linde_buzo_gray needs only the
+summed counts.  Every rank then computes the same new codebook, and the
+commitment loss is this rank's share of the global batch's mean (the ranks
+hold equal batches).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -142,11 +152,17 @@ def vq_lookup(cfg: VQConfig, state: VQState,
 @torch.no_grad()
 def _updated_state(cfg: VQConfig, state: VQState, flat: torch.Tensor, ind: torch.Tensor,
                    generator: Optional[torch.Generator], replace_idx: Optional[torch.Tensor],
-                   lbg_noise: Optional[torch.Tensor]) -> VQState:
+                   lbg_noise: Optional[torch.Tensor], stats_reduce: Optional[Callable] = None,
+                   pool_gather: Optional[Callable] = None) -> VQState:
     """The codebook after one batch: `flat` (N, D) the batch's latents (l2-
-    normalised for the cosine codebook), `ind` (N,) their codes."""
+    normalised for the cosine codebook), `ind` (N,) their codes; the
+    statistics summed and the replacement pool gathered over the ranks
+    where the reductions are given."""
     k, decay = cfg.codebook_size, cfg.decay
     onehot_sum, embed_sum = _segment_stats(flat, ind, k)
+    if stats_reduce is not None:
+        stats = stats_reduce(torch.cat([onehot_sum[:, None], embed_sum], dim=1))
+        onehot_sum, embed_sum = stats[:, 0], stats[:, 1:]
     cluster_size = state.cluster_size * decay + onehot_sum * (1 - decay)
     embed_avg = None
     if cfg.use_cosine_sim:
@@ -172,11 +188,12 @@ def _updated_state(cfg: VQConfig, state: VQState, flat: torch.Tensor, ind: torch
     if cfg.threshold_ema_dead_code > 0 and draws:
         expired = cluster_size < cfg.threshold_ema_dead_code
         if cfg.code_replacement_policy == "batch_random":
-            # each code's replacement: a random latent of the batch
+            # each code's replacement: a random latent of the global batch
+            pool = flat if pool_gather is None else pool_gather(flat)
             if replace_idx is None:
-                replace_idx = torch.randint(0, flat.shape[0], (k,), generator=generator,
+                replace_idx = torch.randint(0, pool.shape[0], (k,), generator=generator,
                                             device=generator.device)
-            repl = flat[torch.as_tensor(replace_idx, device=flat.device).long()]
+            repl = pool[torch.as_tensor(replace_idx, device=flat.device).long()]
         elif cfg.code_replacement_policy == "linde_buzo_gray":
             # Linde-Buzo-Gray splitting: dead code i takes the i-th most used
             # code plus tiny noise (quantize_lucid.py:239-243)
@@ -198,7 +215,9 @@ def _updated_state(cfg: VQConfig, state: VQState, flat: torch.Tensor, ind: torch
 def vq_forward(cfg: VQConfig, state: VQState, x: torch.Tensor, *,
                generator: Optional[torch.Generator] = None,
                replace_idx: Optional[torch.Tensor] = None,
-               lbg_noise: Optional[torch.Tensor] = None):
+               lbg_noise: Optional[torch.Tensor] = None,
+               stats_reduce: Optional[Callable] = None,
+               pool_gather: Optional[Callable] = None, world: int = 1):
     """Quantize latents x (..., D) in training
     (egom2p_tpu/ops/vq.py:vq_forward with training=True; inference is
     vq_lookup).
@@ -212,15 +231,24 @@ def vq_forward(cfg: VQConfig, state: VQState, x: torch.Tensor, *,
     writes.  Dead codes expire when threshold_ema_dead_code > 0 and one of
     `generator`, `replace_idx` ((K,) indices into the batch's flattened
     latents, batch_random) or `lbg_noise` ((K, D) standard normal,
-    linde_buzo_gray) is given."""
+    linde_buzo_gray) is given.
+
+    Across `world` processes holding equal batches: `stats_reduce` sums a
+    tensor over them (in place, as core/distributed.py:all_reduce_sum_)
+    and `pool_gather` stacks their (N, D) rows in rank order
+    (all_gather_rows); commit_loss is then this rank's share, the mean
+    over the global batch divided among the ranks, and `replace_idx`
+    indexes the gathered rows (the module docstring)."""
     with torch.no_grad():
         quant, ind = vq_lookup(cfg, state, x)
     commit_loss = (quant - x.float()).square().mean() * cfg.commitment_weight
+    if world > 1:
+        commit_loss = commit_loss / world
     flat = x.detach().reshape(-1, cfg.dim).float()
     if cfg.use_cosine_sim:
         flat = l2norm(flat)
     new_state = _updated_state(cfg, state, flat, ind.reshape(-1), generator, replace_idx,
-                               lbg_noise)
+                               lbg_noise, stats_reduce, pool_gather)
     quant = quant.to(x.dtype)
     return x + (quant - x).detach(), commit_loss, ind, new_state
 

@@ -189,8 +189,9 @@ class SeqAutoencoder(nn.Module):
         (egom2p_tpu/train/vqvae_train.py:77-89): the decoder sees the codes
         of the codebook as it was before this batch; the codebook buffers
         then take the batch's update.  `draws` go to
-        vq_forward (`generator`, or `replace_idx` / `lbg_noise`): without
-        them no code expires."""
+        vq_forward (`generator`, or `replace_idx` / `lbg_noise`: without
+        them no code expires; and a process group's `stats_reduce`,
+        `pool_gather` and `world`)."""
         lat = self.encode_latents(x)
         quant, commit, tokens, new_state = vq_forward(self.quantize.cfg, self.quantize.state,
                                                       lat, **draws)

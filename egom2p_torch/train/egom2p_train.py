@@ -31,21 +31,26 @@ in rank order:
 - the metrics are the global batch's, the same on every rank.
 DistributedDataParallel would mean the per-rank losses instead, which is
 another loss wherever the ranks hold different numbers of a modality's
-targets.  FSDP and tensor parallelism are not ported.
+targets.
+
+On a model that core/fsdp.py sharded (--fsdp) the step is the same
+computation: the root unit is gathered for the step's micro-batches (each
+block gathers its own weights around its forward and its backward), and
+after the last backward the sharded parameters' gradients are
+reduce-scattered with SUM into each rank's pieces and the replicated
+ones all-reduced, before the optimizer's clipping and AdamW on the pieces.
+The eval step gathers the root unit around its forward.  Tensor
+parallelism is not ported (TPU-only machinery).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 
-from egom2p_torch.core import distributed
+from egom2p_torch.core import distributed, fsdp
 from egom2p_torch.core.optim import Optimizer
 from egom2p_torch.models.egom2p import EgoM2P
-
-# elements per gradient all-reduce (64 MiB of fp32)
-BUCKET_ELEMENTS = 1 << 24
-
 
 def _rows(batch) -> int:
     return next(iter(next(iter(batch.values())).values())).shape[0]
@@ -67,38 +72,6 @@ def gather_batch(batch):
     return out
 
 
-def all_reduce_grads_(params: List[torch.nn.Parameter]) -> None:
-    """Every parameter's gradient summed over the ranks, in flat buckets of
-    at most BUCKET_ELEMENTS; a None gradient enters as zeros and leaves as
-    the sum.  Every rank enters the same collectives in the same order."""
-    bucket: List[torch.nn.Parameter] = []
-
-    def flush():
-        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                          for p in bucket])
-        distributed.all_reduce_sum_(flat)
-        for p, g in zip(bucket, flat.split([p.numel() for p in bucket])):
-            p.grad = g.view_as(p)
-        bucket.clear()
-
-    size = 0
-    for p in params:
-        if bucket and (size + p.numel() > BUCKET_ELEMENTS or p.dtype != bucket[0].dtype):
-            flush()
-            size = 0
-        bucket.append(p)
-        size += p.numel()
-    if bucket:
-        flush()
-
-
-def _global_metrics(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The ranks' shares of each metric summed: the global batch's."""
-    keys = list(values)
-    total = distributed.all_reduce_sum_(torch.stack([values[k].float() for k in keys]))
-    return dict(zip(keys, total.unbind(0)))
-
-
 def make_train_step(model: EgoM2P, optimizer: Optimizer, num_input_tokens: int,
                     num_target_tokens: int, loss_type: str = "mod", accum_steps: int = 1):
     """Returns train_step(batch, shuffle=None) -> metrics.
@@ -112,6 +85,7 @@ def make_train_step(model: EgoM2P, optimizer: Optimizer, num_input_tokens: int,
     parallel = distributed.initialized()
     world, rank = distributed.world_size(), distributed.rank()
     count_reduce = distributed.all_reduce_sum_ if parallel else None
+    sharded = fsdp.state_of(model)
 
     def train_step(batch: Dict[str, Dict[str, torch.Tensor]],
                    shuffle: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -126,20 +100,28 @@ def make_train_step(model: EgoM2P, optimizer: Optimizer, num_input_tokens: int,
             batch = gather_batch(batch)
         draws = (rank * micro, world * micro) if parallel else None
         loss_sum, mod_sums = 0.0, {}
+        if sharded is not None:
+            sharded.unshard_root()
         for i in range(accum_steps):
             lo = (i * world + rank) * micro if gathered else i * micro
             md = _take(batch, lo, lo + micro)
             loss, mod_loss = model(md, num_input_tokens, num_target_tokens, loss_type,
                                    shuffle=shuffle, count_reduce=count_reduce, rows=draws)
             (loss / accum_steps).backward()
+            if sharded is not None:
+                sharded.after_backward()
             loss_sum = loss_sum + loss.detach()
             for m, v in mod_loss.items():
                 mod_sums[m] = mod_sums.get(m, 0.0) + v.detach()
         metrics = {"loss": loss_sum / accum_steps,
                    **{f"loss_{m}": v / accum_steps for m, v in mod_sums.items()}}
+        if sharded is not None:
+            sharded.reshard_root()
+            sharded.reduce_grads_([p for p in optimizer.params if sharded.sharded(p) is None])
+        elif parallel:
+            distributed.all_reduce_grads_(optimizer.params)
         if parallel:
-            all_reduce_grads_(optimizer.params)
-            metrics = _global_metrics(metrics)
+            metrics = distributed.global_metrics(metrics)
         grad_norm = optimizer.step()
         return {"loss": metrics.pop("loss"), "grad_norm": grad_norm, **metrics}
 
@@ -153,13 +135,20 @@ def make_eval_step(model: EgoM2P, num_input_tokens: int, num_target_tokens: int,
     group is formed (`batch` is then this rank's rows of it); the model is
     left in eval mode (train_step sets training mode again)."""
     parallel = distributed.initialized()
+    sharded = fsdp.state_of(model)
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
         model.eval()
-        loss, mod_loss = model(batch, num_input_tokens, num_target_tokens, loss_type,
-                               count_reduce=distributed.all_reduce_sum_ if parallel else None)
+        if sharded is not None:
+            sharded.unshard_root()
+        try:
+            loss, mod_loss = model(batch, num_input_tokens, num_target_tokens, loss_type,
+                                   count_reduce=distributed.all_reduce_sum_ if parallel else None)
+        finally:
+            if sharded is not None:
+                sharded.reshard_root()
         metrics = {"loss": loss, **{f"loss_{m}": v for m, v in mod_loss.items()}}
-        return _global_metrics(metrics) if parallel else metrics
+        return distributed.global_metrics(metrics) if parallel else metrics
 
     return eval_step

@@ -14,9 +14,12 @@ Port of egom2p_tpu/train/vqvae_eval.py (reference: run_training_vqvae.py:
   * `run_eval_suite`: both on the live weights, then the metric suite again
     on the EMA weights (`ema_` keys) when the trainer keeps an EMA.
 
-One process evaluates: the JAX package's mean over processes
-(all_reduce_metrics) is the identity here.  Not ported yet: the video and
-feature domains (MS-SSIM, FID, LPIPS, Inception score).
+Under a process group (the data-parallel trainer) rank 0 evaluates the
+whole eval set alone and every rank returns its results (one broadcast):
+the same metrics as one process, on weights every rank holds alike.  The
+metrics are not sums a reduction could split (PSNR, rotation errors,
+codebook usage over windows).  Not ported yet: the video and feature
+domains (MS-SSIM, FID, LPIPS, Inception score).
 """
 from __future__ import annotations
 
@@ -131,7 +134,19 @@ def run_eval_suite(tok: SeqTokenizer, data, domain: str, codebook_size: int, los
     """The `eval_during_training` analog (egom2p_tpu/train/vqvae_eval.py:
     run_eval_suite; reference :1296-1419): the loss and the metric suite on
     the live weights, then the metric suite on the EMA weights (with the
-    live codebook) as `ema_` keys when `ema` is given."""
+    live codebook) as `ema_` keys when `ema` is given.  Under a process
+    group rank 0 computes them and every rank returns them (the module
+    docstring)."""
+    from egom2p_torch.core import distributed
+    results = None
+    if distributed.is_main_process():
+        results = _eval_suite(tok, data, domain, codebook_size, loss_fn, codebook_weight,
+                              batch_size, limit, ema)
+    return distributed.broadcast_object(results)
+
+
+def _eval_suite(tok, data, domain, codebook_size, loss_fn, codebook_weight, batch_size,
+                limit, ema) -> Dict[str, float]:
     n_channels = tok.net.encoder.in_channels
     out = dict(evaluate_loss(tok, data, loss_fn, codebook_weight, batch_size, n_channels, limit))
     out.update(eval_metrics(tok, data, domain, codebook_size, batch_size, limit))

@@ -2,7 +2,7 @@
 
 Port of egom2p_tpu/train/vqvae_train.py (reference:
 run_training_vqvae.py:1011-1074, 1076-1419) for the lucid quantizer, on one
-device:
+device or data-parallel over a process group:
 
   * fp32 throughout (the released tokenizer configs train in fp32,
     cfgs/vqvae/{cam,gaze}.yaml `dtype: fp32`);
@@ -16,6 +16,17 @@ device:
     --freeze_enc), and the EMA of the weights (reference ModelEma) follows
     every `ema_update_freq` optimizer steps.
 
+Across processes (core/distributed.py) the step is the JAX trainer's one
+jit over the global batch, the ranks' equal batches stacked in rank order
+(run_training_vqvae.py:595-627): the reconstruction and commitment losses
+are each rank's share of the means over the global batch (gaze's masked
+mean divides by the mask count summed over the ranks), the gradients are
+summed over the ranks before the clipping, the codebook's statistics are
+summed and its expiry draws from the gathered global batch (ops/vq.py),
+and the metrics are the global batch's.  Every rank applies the same
+update, and the weights, the codebook and the weights' EMA stay equal on
+every rank.
+
 Not ported yet: the gradient-trained quantizers (taming, memcodes:
 make_grad_vqvae_train_step) and the perceptual loss of the video domains.
 """
@@ -26,19 +37,27 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from egom2p_torch.core import distributed
 from egom2p_torch.core.optim import Optimizer
 
 
 def reconst_loss(pred: torch.Tensor, target: torch.Tensor, loss_fn: str,
-                 n_channels: int) -> torch.Tensor:
-    """(reference: run_training_vqvae.py:1011-1074)."""
+                 n_channels: int, world: int = 1,
+                 count_reduce: Optional[Callable] = None) -> torch.Tensor:
+    """(reference: run_training_vqvae.py:1011-1074).  With `world` ranks
+    of equal batches: this rank's share of the global batch's loss
+    (`count_reduce` sums mse_mask's mask count over them)."""
     if loss_fn == "mse":
-        return (pred - target).square().mean()
+        loss = (pred - target).square().mean()
+        return loss / world if world > 1 else loss
     if loss_fn == "mse_mask":
         # gaze: the target's last channel is the validity mask
         data, mask = target[..., :n_channels], target[..., n_channels:]
         se = (pred - data).square() * mask
-        return se.sum() / torch.clamp(mask.sum() * n_channels, min=1.0)
+        count = mask.sum() * n_channels
+        if count_reduce is not None:
+            count = count_reduce(count.detach().clone())
+        return se.sum() / torch.clamp(count, min=1.0)
     raise ValueError(f"unknown loss_fn {loss_fn}")
 
 
@@ -75,22 +94,37 @@ def make_vqvae_train_step(net: nn.Module, optimizer: Optimizer, loss_fn: str = "
     expired codes (vq_forward's `generator`, or `replace_idx` /
     `lbg_noise`).  Returns the JAX step's metrics (loss, reconst_loss,
     code_loss, codebook_usage: the share of codes this batch used) and the
-    global gradient norm before clipping (grad_norm), as 0-d tensors."""
+    global gradient norm before clipping (grad_norm), as 0-d tensors; under
+    a process group `batch` is this rank's rows and the metrics are the
+    global batch's (the module docstring)."""
+
     n_channels = net.encoder.in_channels
     codebook_size = net.quantize.cfg.codebook_size
+    parallel = distributed.initialized()
+    world = distributed.world_size()
+    group = (dict(stats_reduce=distributed.all_reduce_sum_,
+                  pool_gather=distributed.all_gather_rows, world=world) if parallel else {})
 
     def step(batch: torch.Tensor, **draws) -> Dict[str, torch.Tensor]:
         net.train()
-        pred, commit, tokens = net.autoencode_train(batch, **draws)
-        rec = reconst_loss(pred, batch, loss_fn, n_channels)
+        pred, commit, tokens = net.autoencode_train(batch, **draws, **group)
+        rec = reconst_loss(pred, batch, loss_fn, n_channels, world,
+                           distributed.all_reduce_sum_ if parallel else None)
         loss = rec + codebook_weight * commit
         optimizer.zero_grad()
         loss.backward()
+        if parallel:
+            distributed.all_reduce_grads_(optimizer.params)
         count = optimizer.step_count
         grad_norm = optimizer.step()
         ema_update(ema, net, count, ema_decay, ema_update_freq)
-        used = torch.bincount(tokens.reshape(-1), minlength=codebook_size) > 0
-        return {"loss": loss.detach(), "reconst_loss": rec.detach(), "code_loss": commit.detach(),
-                "codebook_usage": used.float().mean(), "grad_norm": grad_norm.detach()}
+        metrics = {"loss": loss.detach(), "reconst_loss": rec.detach(),
+                   "code_loss": commit.detach()}
+        counts = torch.bincount(tokens.reshape(-1), minlength=codebook_size)
+        if parallel:
+            metrics = distributed.global_metrics(metrics)
+            counts = distributed.all_reduce_sum_(counts.float())
+        return {**metrics, "codebook_usage": (counts > 0).float().mean(),
+                "grad_norm": grad_norm.detach()}
 
     return step

@@ -171,8 +171,11 @@ def test_bad_shards_are_skipped_as_in_jax(tmp_path, capsys):
             list(reader.multi_tarfile_samples(paths, handler="raise"))
 
 
-def test_s3_shards_raise():
-    with pytest.raises(NotImplementedError, match="S3"):
+def test_s3_shards_raise(monkeypatch):
+    """An s3:// shard with no client given and no boto3 raises, naming
+    boto3 (tests/test_torch_s3_hf.py reads one through a client)."""
+    monkeypatch.setitem(sys.modules, "boto3", None)
+    with pytest.raises(RuntimeError, match="boto3"):
         list(port_tar.multi_tarfile_samples({"tok_rgb": ["s3://bucket/shard-000.tar"]}))
 
 

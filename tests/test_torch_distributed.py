@@ -12,7 +12,7 @@ peer never enters fails the test instead of hanging it.
 
 Then, with no process group: the per-rank shard lists and loader seeds
 against the JAX trainer's, TransferMasking against JAX's, the async save,
---profile, wandb, the flags that are not ported, and one run of the
+--profile, wandb, the flag that is not ported, and one run of the
 trainer under torchrun with 2 CPU processes, resumed by a second.
 """
 import copy
@@ -427,8 +427,7 @@ def test_wandb_logger_is_a_no_op_without_wandb(monkeypatch, capsys):
     assert "wandb disabled" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--fsdp", "true"], ["--tensor_parallel", "2"],
-                                  ["--s3_save_dir", "s3://bucket/run"]])
+@pytest.mark.parametrize("flag", [["--tensor_parallel", "2"]])
 def test_flags_not_ported_raise(tmp_path, flag):
     args = run_training.get_args(["--synthetic_data", "--scaled_modalities", "--device", "cpu",
                                   "--output_dir", str(tmp_path), *flag])

@@ -402,9 +402,3 @@ def test_trainer_refuses_what_is_not_ported(trees, tmp_path):
     args, _ = shard_args(tmp_path, pattern, "--text_tokenizer_path", "tok.json")
     with pytest.raises(NotImplementedError, match="text"):
         run_training.setup_data(args)
-    args, _ = shard_args(tmp_path, pattern)
-    cfg = json.loads((tmp_path / "data.json").read_text())
-    cfg["train"]["datasets"]["set"]["type"] = "huggingface"
-    (tmp_path / "data.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="Hugging Face"):
-        run_training.setup_data(args)
