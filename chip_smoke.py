@@ -56,6 +56,25 @@
    profiled rgb2cam run: device time by kernel class, idle share); and the flash64
    kernel at rgb2cam's B = 1 encoder shape (5376^2, 5140 live keys) beside
    its plain version, its bound and scaled_dot_product_attention.
+3d. Caption phase, at full width: EgoM2P-base with tok_rgb, tok_depth,
+   tok_cam, tok_gaze and caption (30000 ids, 256 slots) in and out, random
+   weights from a seed, and a tokenizer.json the phase writes
+   (CAPTION_WORDS, 100 sentinels).  rgb2caption at B = 8 on the served rgb
+   tokens: an empty 256-slot caption (S = 255 output slots), CFG 2.0 on
+   tok_rgb, temperature 0.01, top-p 0.8, through
+   build_chained_generation_schedules(..., ["autoregressive"], ...) and
+   GenerationSampler.generate: ms per generated token, tokens/s, 12 + 12 a
+   token flash64 launches (the encoder once on the stacked 2B rows, then
+   each token's re-forward's cross-attentions; the causal self-attention is
+   dense), ids in [0, 30000), and a profiled stretch of re-forwards (device
+   time by kernel class, idle share); the forward kernel at the
+   autoregressive cross-attention's shape (16, 255, 5376: cond rows 5121
+   live keys, uncond rows 1) against its plain version, beside its bound
+   over the live keys and scaled_dot_product_attention; one re-forward's
+   CFG logits in fp32 with the kernels against the plain versions.  Then
+   caption2rgb at B = 8: ROAR in 3 steps over 5120 rgb tokens on a seeded
+   caption with CFG 2.0 on the caption (the stacked 2B-row step): clips/s
+   and 36 flash64 launches a step (12 encoder, 12 + 12 decoder).
 4. Training kernel phase at the pretraining step's shapes (B=8, 12 heads,
    N = M = 2048, q/k/v as views of fused projections): the flash64_train
    forward, dq and dk/dv kernels against their plain versions with key
@@ -176,6 +195,21 @@
    loaded in one process without FSDP bitwise equal to the ranks'
    gathered parameters, and stepped on the ranks' next global batch: CE
    per target token within FSDP_CE_RTOL of the ranks' next step.
+5g. Training with captions, at full width: aligned tar shards as in 5b
+   plus `.txt` captions of CAPTION_WORDS (2 train shards of 16, a held-out
+   shard of 8), a data config with the five modalities in and out, an
+   alphas config with the caption's keep schemes, --text_tokenizer_path
+   naming the phase's tokenizer.json, main_mod4's settings (B = 8, 2048 +
+   2048 tokens) and 2 workers: CAPTION_TRAIN_STEPS steps and an eval pass,
+   24 / 24 / 24 flash64_train launches a step (encoder and cross-attention;
+   the decoder's self-attention takes the dense cumsum mask) and 3 flash-CE
+   forward launches (the two 64k heads and the caption's 30000), finite
+   losses, each modality's first loss within 0.5 of ln V, every parameter
+   moved (the caption's embeddings too), step ms, tokens/s and peak memory,
+   a profiled step (device time by kernel class, idle share) and one
+   batch's step with the kernels against the plain versions; then
+   the causal registry model for CAUSAL_STEPS steps (finite, the same
+   launches).
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -1118,10 +1152,12 @@ def _step_live_rows(R, dev, gen):
 
 
 # flash-CE forward cases (R, V, D, live rows): the base step's head with all
-# rows and with half the rows live, a vocab its tiles do not divide, the
+# rows and with half the rows live, vocabs its tiles do not divide (the
+# caption head's 30000 among them), the
 # wider registry dims, and the split instance at the trainer's B = 1 (R =
 # 2048) and the dim-1024 check step's R = 512
 CE_FWD_CASES = ((16384, 64000, 768, "all"), (1000, 64007, 768, "all"),
+                (16384, 30000, 768, "all"),
                 (16384, 64000, 1024, "all"), (16384, 64000, 2048, "all"),
                 (16384, 64000, 768, "step"), (2048, 64000, 768, "all"),
                 (512, 64000, 768, "all"), (2048, 64000, 1024, "all"),
@@ -1884,14 +1920,17 @@ VAL_PASS = dict(NO_LAUNCHES, fwd=36 * SHARD_EVAL_ITERS, ce_fwd=2 * SHARD_EVAL_IT
 FIXED_PASS = dict(NO_LAUNCHES, ce_fwd=2 * SHARD_EVAL_ITERS)
 
 
-def write_shards(root, name, n_shards, per_shard, seed):
+def write_shards(root, name, n_shards, per_shard, seed, captions=False):
     """Aligned shards root/<rgb|depth|cam|gaze>/<name>/shard-NNNNNN.tar of
     seeded tokens at the released shapes, as prepare_aligned_shards.py
-    writes them; returns (the data_path pattern, the set of the samples'
-    tok_rgb bytes)."""
+    writes them, and with `captions` root/caption/<name>/... of `.txt`
+    captions of CAPTION_WORDS (drawn from a generator of their own);
+    returns (the data_path pattern, the set of the samples' tok_rgb
+    bytes)."""
     import io
     import tarfile
     rng = np.random.default_rng(seed)
+    words = np.random.default_rng(seed + 1000)
     prints = set()
     for shard in range(n_shards):
         samples = [{m: rng.integers(0, vocab, shape).astype(np.int32)
@@ -1908,8 +1947,18 @@ def write_shards(root, name, n_shards, per_shard, seed):
                     info.size = buf.tell()
                     buf.seek(0)
                     tar.addfile(info, buf)
-    return (f"{root}/[rgb,depth,cam,gaze]/{name}/shard-{{000000..{n_shards - 1:06d}}}.tar",
-            prints)
+        if captions:
+            d = os.path.join(root, "caption", name)
+            os.makedirs(d, exist_ok=True)
+            with tarfile.open(os.path.join(d, f"shard-{shard:06d}.tar"), "w") as tar:
+                for j in range(per_shard):
+                    text = " ".join(CAPTION_WORDS[i] for i in words.integers(
+                        0, len(CAPTION_WORDS), words.integers(8, 60))).encode()
+                    info = tarfile.TarInfo(f"{name}_{shard:06d}_{j:04d}.txt")
+                    info.size = len(text)
+                    tar.addfile(info, io.BytesIO(text))
+    subs = "rgb,depth,cam,gaze" + (",caption" if captions else "")
+    return (f"{root}/[{subs}]/{name}/shard-{{000000..{n_shards - 1:06d}}}.tar", prints)
 
 
 def shard_configs(tmp, train_pattern, val_pattern):
@@ -3659,6 +3708,407 @@ def dp_worker(argv) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ captions
+# Phases 3d and 5g (docstring): the caption modality (30000 WordPiece ids, 256
+# slots) in and out of EgoM2P-base, with a tokenizer.json the phase writes
+# from these words (the reference's 30000-token file is not in the repo)
+CAPTION_WORDS = """
+a an the this that these those some many few one two three four five several other
+man woman person people child hand hands left right arm finger fingers head face eye eyes
+i you he she we they it my his her their our its me him them us
+is are was were be been being has have had do does did can will would should could may
+walk walks walking walked go goes going went come comes coming came turn turns turning
+open opens opening opened close closes closing closed pick picks picking picked
+put puts putting take takes taking took hold holds holding held place places placing
+cut cuts cutting pour pours pouring poured wash washes washing washed wipe wipes wiping
+stir stirs stirring mix mixes mixing cook cooks cooking cooked eat eats eating drink
+drinks drinking look looks looking looked see sees seeing saw watch watches watching
+read reads reading write writes writing type types typing press presses pressing push
+pushes pushing pull pulls pulling move moves moving moved sit sits sitting stand stands
+standing run runs running climb climbs climbing jump jumps ride rides riding drive
+drives driving carry carries carrying throw throws throwing catch catches catching
+kitchen table chair door window floor wall room house street road car bike bus train
+cup mug glass bottle plate bowl pan pot knife fork spoon board sink tap water coffee tea
+milk bread egg eggs rice pasta salt oil sugar onion tomato apple banana vegetable fruit
+phone laptop screen keyboard mouse book paper pen box bag drawer shelf cabinet fridge
+oven stove microwave towel soap sponge trash bin lid handle button switch light lamp
+shoe shoes shirt jacket hat glove gloves ball dog cat tree grass park garden field sky
+on in into onto at to from with without over under above below near next behind front
+up down off out around through across along between inside outside top bottom side
+and or but then while after before when where because so if not very slowly quickly
+red blue green yellow white black small large big little long short new old full empty
+"""
+CAPTION_WORDS = CAPTION_WORDS.split()
+CAPTION_MODS = ("caption", "tok_cam", "tok_depth", "tok_gaze", "tok_rgb")
+CAUSAL_MODEL = "egom2p_base_12e_12d_swiglu_nobias_causal"
+CAPTION_SLOTS = 256            # the empty caption target: S = 255 output slots
+CAPTION_VOCAB = 30000
+AR_PROFILE_TOKENS = (20, 30)   # the re-forwards a profiler traces: a stretch of steady steps
+# flash64 launches: rgb2caption 12 encoder layers on the stacked 2B rows,
+# then 12 cross-attentions a token (the causal self-attention is dense);
+# caption2rgb's stacked step 12 encoder + 12 self + 12 cross
+AR_ENCODER, AR_PER_TOKEN, CAPTION2RGB_STEP = 12, 12, 36
+# the autoregressive cross-attention: stacked cond / uncond rows, S query
+# rows against the bucketed encoder length behind 5120 rgb tokens and the
+# caption's one visible slot (cond rows 5121 live keys, uncond rows 1)
+AR_CROSS = (2 * B, CAPTION_SLOTS - 1, 5376, 5121, 1)
+# one re-forward's CFG-mixed logits (30000 per row) with the kernels against
+# the plain versions, fp32 compute: bf16 q/k/v in every attention through
+# 12 + 12 blocks, as CONTEXT_ATOL
+AR_LOGITS_ATOL = 2e-2
+CAPTION_STEP = dict(DEFAULT_STEP, fwd=24, dq=24, dkv=24, ce_fwd=3)  # self-attention dense
+CAPTION_TRAIN_STEPS, CAUSAL_STEPS = 6, 2  # 48 samples: cam or gaze without a target in all of them ~3e-4
+CAPTION_ALPHAS = {"sampling_weights": [1.0, 1.0, 1.0, 1.0],
+                  "alphas_mixture": {m: dict(_ALPHAS4, **({"keep": ["random", "all", "binary",
+                                                                    "random"]}
+                                                          if m == "caption" else {}))
+                                     for m in CAPTION_MODS}}
+
+
+def caption_model(dev):
+    from egom2p_torch.models.egom2p import create_model
+    model = create_model(BASE_MODEL, CAPTION_MODS, CAPTION_MODS, device=dev).eval()
+    return model.init_random_(torch.Generator(device=dev).manual_seed(0))
+
+
+def _caption_sample(tokens, n_slots=CAPTION_SLOTS):
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+    from egom2p_torch.generate.sampler import (init_empty_target_modality,
+                                               init_full_input_modality)
+    sample = {"tok_rgb": {"tensor": tokens.reshape(tokens.shape[0], -1)}}
+    init_full_input_modality(sample, MODALITY_INFO, "tok_rgb")
+    init_empty_target_modality(sample, MODALITY_INFO, "caption", tokens.shape[0], n_slots)
+    return sample
+
+
+def ar_attention_bound_ms(b: int, heads: int, n: int, live_keys, hd: int = 64):
+    """Bound of the forward kernel over the keys this call's rows keep
+    (`live_keys` per batch row): two products per live score; q and o of
+    every row and k, v of the live keys moved once."""
+    keys = float(sum(live_keys))
+    return bound_ms(2 * 2.0 * heads * n * keys * hd, 2.0 * heads * hd * (2 * b * n + 2 * keys))
+
+
+def ar_cross_check(dev):
+    """The forward kernel at the autoregressive cross-attention's shape
+    against its plain version, beside its bound over the live keys and
+    scaled_dot_product_attention on the same inputs and mask."""
+    from egom2p_torch.ops.flash64 import flash64_attention, flash64_attention_reference
+
+    b, n, m, live_c, live_u = AR_CROSS
+    rng = np.random.default_rng(14)
+    q, k, v = _fused_views(rng, n, m, dev, b=b)
+    live = torch.tensor([live_c] * (b // 2) + [live_u] * (b // 2), device=dev)
+    blocked = torch.arange(m, device=dev)[None] >= live[:, None]
+    out = flash64_attention(q, k, v, blocked)
+    torch.cuda.synchronize()
+    ref = flash64_attention_reference(q, k, v, blocked)
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    ms = _cuda_time_ms(lambda: flash64_attention(q, k, v, blocked), 20)
+    plain_ms = _cuda_time_ms(lambda: flash64_attention_reference(q, k, v, blocked), 3, 1)
+    lib_ms, _, _ = _sdpa_ms(*(_split_heads(t, HEADS) for t in (q, k, v)), blocked)
+    bound, bound_by = ar_attention_bound_ms(b, HEADS, n, live.tolist())
+    print(f"flash64 autoregressive cross-attention ({b}, {n}, {m}), {live_c} / {live_u} live "
+          f"keys (cond / uncond rows): max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  scaled_dot_product_attention {lib_ms:.4f} ms  bound "
+          f"{bound:.4f} ms ({bound_by}, {bound / ms:.0%})")
+    return {"shape": [b, n, m], "live_keys": [live_c, live_u], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def ar_logits_check(model, sampler, tokens, caption, n_gen):
+    """One re-forward of the CFG step (the stacked cond / uncond rows) over
+    a generated caption (`n_gen` slots written), in fp32, with the kernels
+    against the plain versions: the CFG-mixed logits of the row that chose
+    the last slot, for every batch row."""
+    import egom2p_torch.ops.flash64 as f64
+    from egom2p_torch.generate.sampler import _bucket
+    from egom2p_torch.ops.attention import inference_attention
+
+    md = _caption_sample(tokens.cpu())
+    md["tok_rgb"]["tensor"] = md["tok_rgb"]["tensor"].numpy()
+    stacked = sampler._stack_dicts(md, sampler._make_uncond(md, ["tok_rgb"]))
+    dev_md = sampler._to_device(stacked)
+    n_enc = _bucket(sampler._num_enc_tokens(stacked))
+    b = tokens.shape[0]
+    out_ids = torch.as_tensor(np.concatenate([caption[:, 1:CAPTION_SLOTS]] * 2),
+                              device=tokens.device).long()
+    row = max(n_gen - 2, 0)
+    _, emb, _ = model.decoder_embeddings["caption"].forward_embed(dev_md["caption"],
+                                                                  torch.bfloat16)
+    y_emb = emb[:, 1:CAPTION_SLOTS]
+    kernel = f64.flash64_attention
+
+    def logits():
+        with torch.inference_mode(), inference_attention():
+            ctx, mask = model.forward_enc_context(dev_md, n_enc, torch.float32)
+            y = model.forward_dec_autoregressive_hidden("caption", out_ids, y_emb, ctx, mask,
+                                                        torch.float32)
+            last = model.forward_mod_logits("caption", y[:, row])
+            return last[b:] + (last[:b] - last[b:]) * 2.0
+
+    with_kernel = logits()
+    f64.flash64_attention = f64.flash64_attention_reference
+    try:
+        plain = logits()
+    finally:
+        f64.flash64_attention = kernel
+    err = (with_kernel - plain).abs().max().item()
+    same = (with_kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"rgb2caption re-forward at slot {row + 1}, fp32, kernels vs plain versions: CFG "
+          f"logits max_abs_err {err:.3e} (|logits| max {plain.abs().max().item():.3f}), argmax "
+          f"equal in {same:.0%} of the rows")
+    if not torch.isfinite(with_kernel).all() or err > AR_LOGITS_ATOL:
+        raise AssertionError(f"rgb2caption logits disagree with the plain versions: {err}")
+    return err
+
+
+def caption_serve_phase(dev, served, tmp):
+    """Phase 3d (docstring): rgb2caption and caption2rgb at full width.
+    Returns {"rgb2caption": launches, "caption2rgb": launches, "ar_cross": row}."""
+    from egom2p_torch.cli.eval_common import roar_schedule
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+    from egom2p_torch.generate.sampler import GenerationSampler, init_full_input_modality
+    from egom2p_torch.generate.schedules import build_chained_generation_schedules
+    from egom2p_torch.ops.flash64 import flash64_attention
+    from egom2p_torch.utils.text_tokenizer import load_text_tokenizer, write_wordpiece_json
+
+    t_phase = time.perf_counter()
+    tok = load_text_tokenizer(write_wordpiece_json(os.path.join(tmp, "tokenizer.json"),
+                                                   CAPTION_WORDS))
+    model = caption_model(dev)
+    sampler = GenerationSampler(model)
+    print(f"caption model: EgoM2P-base with {', '.join(CAPTION_MODS)} in and out, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params; tokenizer.json "
+          f"of {tok.get_vocab_size()} ids")
+    rgb = served["rgb"]
+    schedule = build_chained_generation_schedules(
+        ["tok_rgb"], ["caption"], [CAPTION_SLOTS], ["autoregressive"], [0], ["linear"],
+        [0.01], ["constant"], [2.0], ["constant"])
+    finite = []
+    hooks = [m.register_forward_hook(lambda _m, _i, out: finite.append(torch.isfinite(out).all()))
+             for m in (model.encoder_norm, model.decoder_norm)]
+
+    def rgb2caption(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler.generate(_caption_sample(rgb), schedule, top_p=0.8, seed=seed)
+        torch.cuda.synchronize()
+        return out["caption"], time.perf_counter() - t0
+
+    runs = []  # the phases before warmed the kernels and the allocator up
+    for rep in range(2):
+        finite.clear()
+        flash64_attention.launches = 0
+        cap, seconds = rgb2caption(rep)
+        launches = flash64_attention.launches
+        filled = ~cap["input_mask"]
+        n_gen = int(filled[0].sum()) - 1  # slot 0 held the given [S_1]
+        steps = n_gen - 1                 # the first output slot is given
+        ids = cap["tensor"][filled]
+        print(f"rgb2caption B={B} run {rep}: {seconds * 1e3:.1f} ms, {n_gen} slots "
+              f"({steps} decoder re-forwards), {seconds * 1e3 / steps:.2f} ms per generated "
+              f"token, {B * steps / seconds:.0f} tokens/s, flash64 launches {launches}; "
+              f"caption 0's first ids {cap['tensor'][0, 1:9].tolist()}")
+        if launches != AR_ENCODER + AR_PER_TOKEN * steps:
+            raise AssertionError(f"rgb2caption: {launches} flash64 launches for {steps} tokens, "
+                                 f"expected {AR_ENCODER} + {AR_PER_TOKEN} a token")
+        if (filled.sum(1) != filled[0].sum()).any() or ids.min() < 0 or \
+                ids.max() >= CAPTION_VOCAB or not all(bool(f) for f in finite):
+            raise AssertionError("rgb2caption: ragged rows, ids outside [0, 30000) or "
+                                 "non-finite hidden states")
+        runs.append((seconds, steps, launches))
+    for h in hooks:
+        h.remove()
+    ms_tok = float(np.median([s / n for s, n, _ in runs])) * 1e3
+
+    # a profiled stretch of steady re-forwards (the profiler's own overhead
+    # stretches them; the idle share is against the unprofiled ms a token);
+    # the run ends with the stretch
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    real = model.forward_dec_autoregressive_hidden
+    calls, wall = {"n": 0}, {}
+
+    class Traced(Exception):
+        pass
+
+    def traced(*a, **kw):
+        first, last = AR_PROFILE_TOKENS
+        if calls["n"] in (first, last):
+            torch.cuda.synchronize()
+            wall[calls["n"]] = time.perf_counter()
+            (prof.start if calls["n"] == first else prof.stop)()
+            if calls["n"] == last:
+                raise Traced
+        calls["n"] += 1
+        return real(*a, **kw)
+
+    model.forward_dec_autoregressive_hidden = traced
+    try:
+        rgb2caption(7)
+    except Traced:
+        pass
+    finally:
+        model.forward_dec_autoregressive_hidden = real
+    n_traced = AR_PROFILE_TOKENS[1] - AR_PROFILE_TOKENS[0]
+    if len(wall) == 2:
+        _device_breakdown(prof, f"{n_traced} caption tokens",
+                          (wall[AR_PROFILE_TOKENS[1]] - wall[AR_PROFILE_TOKENS[0]]) * 1e3,
+                          n_traced * ms_tok)
+    else:
+        print(f"rgb2caption profile: the run stopped after {calls['n']} re-forwards, before "
+              "the traced stretch; idle share not measured")
+    ar_row = ar_cross_check(dev)
+    ar_row["logits_err"] = ar_logits_check(model, sampler, rgb, cap["tensor"],
+                                           int((~cap["input_mask"][0]).sum()) - 1)
+
+    # caption2rgb: ROAR over 5120 rgb tokens on a seeded caption, CFG 2.0 on
+    # the caption (the stacked 2B-row step)
+    rng = np.random.default_rng(3)
+    eos = tok.token_to_id("[EOS]")
+    caption = np.zeros((B, 2 * (CAPTION_SLOTS + 1)), np.int32)
+    for i in range(B):
+        ids = tok.encode(" ".join(CAPTION_WORDS[j] for j in rng.integers(
+            0, len(CAPTION_WORDS), 24)).capitalize() + ".").ids[:60]
+        caption[i, :len(ids)], caption[i, len(ids)] = ids, eos
+    cond = {"caption": {"tensor": caption}}
+    init_full_input_modality(cond, MODALITY_INFO, "caption", eos_id=eos)
+    schedule = roar_schedule("caption", "tok_rgb")
+
+    def caption2rgb(seed):
+        from egom2p_torch.generate.sampler import init_empty_target_modality
+        md = {"caption": {k: v.copy() for k, v in cond["caption"].items()}}
+        init_empty_target_modality(md, MODALITY_INFO, "tok_rgb", B,
+                                   MODALITY_INFO["tok_rgb"]["max_tokens"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler.generate(md, schedule, top_p=0.8, seed=seed)
+        torch.cuda.synchronize()
+        return out["tok_rgb"], time.perf_counter() - t0
+
+    caption2rgb(100)
+    times = []
+    for rep in range(3):
+        flash64_attention.launches = 0
+        out, seconds = caption2rgb(rep)
+        c2r = flash64_attention.launches
+        times.append(seconds)
+        if c2r != CAPTION2RGB_STEP * len(schedule) or not out["target_mask"].all() or \
+                np.asarray(out["tensor"]).min() < 0 or np.asarray(out["tensor"]).max() >= 64000:
+            raise AssertionError(f"caption2rgb: {c2r} flash64 launches (expected "
+                                 f"{CAPTION2RGB_STEP} a step), or rgb tokens missing or "
+                                 "outside [0, 64000)")
+    c2r_ms = float(np.median(times)) * 1e3
+    print(f"caption2rgb B={B} (ROAR {len(schedule)} steps, CFG 2.0 on the caption, stacked "
+          f"2B rows): generate " + " ".join(f"{t * 1e3:.1f}" for t in times) + f" ms, median "
+          f"{c2r_ms:.1f} ms, {B / c2r_ms * 1e3:.2f} clips/s, flash64 launches "
+          f"{c2r // len(schedule)} a step")
+    del model, sampler
+    torch.cuda.empty_cache()
+    print(f"caption serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"rgb2caption": runs[-1][2], "caption2rgb": c2r, "ar_cross": ar_row}
+
+
+def caption_train_phase(dev):
+    """Phase 5g (docstring): EgoM2P-base with captions on shards through the
+    trainer, then the causal registry model.  Returns the launch totals
+    {"caption": ..., "causal": ...}."""
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.data.loader import batch_to_device
+    from egom2p_torch.utils.text_tokenizer import write_wordpiece_json
+
+    t_phase = time.perf_counter()
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pattern, _ = write_shards(tmp, "captioned", 2, SHARD_SAMPLES, 20, captions=True)
+        val_pattern, _ = write_shards(tmp, "held_out", 1, B, 21, captions=True)
+        tok_path = write_wordpiece_json(os.path.join(tmp, "tokenizer.json"), CAPTION_WORDS)
+        alphas = os.path.join(tmp, "alphas.json")
+        with open(alphas, "w") as f:
+            json.dump(CAPTION_ALPHAS, f)
+        dataset = dict(DATA_MOD4["train"]["datasets"]["example"], data_path=pattern,
+                       alphas_config=alphas, wds_n_repeats=1,
+                       in_domains="-".join(CAPTION_MODS), out_domains="-".join(CAPTION_MODS))
+        data_config = os.path.join(tmp, "data_caption.json")
+        with open(data_config, "w") as f:
+            json.dump({"train": {"datasets": {"captioned": dataset}, "weights": [1.0]},
+                       "val": {"datasets": {"captioned": {"data_path": val_pattern}}}}, f)
+        for label, model_name, steps, eval_iters in (
+                ("EgoM2P-base with captions", BASE_MODEL, CAPTION_TRAIN_STEPS, 1),
+                ("EgoM2P-base causal with captions", CAUSAL_MODEL, CAUSAL_STEPS, 0)):
+            out_dir = os.path.join(tmp, model_name)
+            argv = [*MAIN_MOD4_ARGS, "--model", model_name, "--data_config", data_config,
+                    "--text_tokenizer_path", tok_path, "--num_workers", str(SHARD_WORKERS),
+                    "--lr_schedule", "constant", "--epochs", "1",
+                    "--epoch_size", str(B * steps), "--eval_iters", str(eval_iters),
+                    "--eval_freq", "1" if eval_iters else "0", "--seed", "0",
+                    "--output_dir", out_dir, "--print_freq", "1", "--save_ckpt_freq", "2"]
+            args = run_training.get_args(argv)
+            per_step = []
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()
+            last = _counts()
+
+            def on_step(step, metrics, seconds):
+                now = _counts()
+                per_step.append(({k: now[k] - last[k] for k in now}, metrics, seconds))
+                last.update(now)
+
+            out = run_training.main(args, on_step=on_step)
+            peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            totals[model_name] = _counts()
+            if len(per_step) != steps:
+                raise AssertionError(f"{label}: {len(per_step)} steps ran")
+            for step, (launches, metrics, _) in enumerate(per_step):
+                if launches != CAPTION_STEP:
+                    raise AssertionError(f"{label} step {step} launched {launches}, expected "
+                                         f"{CAPTION_STEP}")
+                if not all(math.isfinite(v) for v in metrics.values()):
+                    raise AssertionError(f"{label} step {step}: non-finite metrics {metrics}")
+            vocab = {m: v for m, (_, _, v) in SHARD_MODS.items()}
+            # the causal run is for correctness only: its 2 steps may hold
+            # no target of some modality
+            for mod, v in (dict(vocab, caption=CAPTION_VOCAB).items()
+                           if model_name == BASE_MODEL else ()):
+                losses = [m[f"loss_{mod}"] for _, m, _ in per_step if m[f"loss_{mod}"] != 0.0]
+                if not losses or abs(losses[0] - math.log(v)) > 0.5:
+                    raise AssertionError(f"{label} {mod}: first losses {losses[:1]}, ln {v} = "
+                                         f"{math.log(v):.3f}")
+            step_ms = float(np.median([s for _, _, s in per_step[1:]])) * 1e3
+            print(f"{label} (B={B}, {SHARD_WORKERS} workers, 2048 + 2048 tokens): train steps "
+                  "ms " + " ".join(f"{s * 1e3:.1f}" for _, _, s in per_step) + f"; median "
+                  f"{step_ms:.1f} ms, {B * 4096 / step_ms * 1e3:.0f} tokens/s, peak memory "
+                  f"{peak_gib:.2f} GiB; first losses " + ", ".join(
+                      f"{k[5:]} {v:.3f}" for k, v in per_step[0][1].items()
+                      if k.startswith("loss_")) + f"; launches per step {CAPTION_STEP}")
+            model, optimizer = out.pop("model"), out.pop("optimizer")
+            del out
+            if model_name == BASE_MODEL:
+                init = caption_model(dev)
+                init.init_random_(torch.Generator(device=dev).manual_seed(args.seed))
+                moved = {k: not torch.equal(a, b) for (k, a), b in
+                         zip(model.named_parameters(), init.parameters())}
+                del init
+                if not all(moved.values()):
+                    raise AssertionError(f"{label}: did not move: "
+                                         f"{[k for k, v in moved.items() if not v][:8]}")
+                print(f"{label}: all {len(moved)} parameter tensors moved, the caption's "
+                      "token and modality embeddings among them")
+                loader, _ = run_training.setup_data(args)
+                it = iter(loader)
+                data = batch_to_device(next(it), dev)
+                it.close()
+                profile_step(model, optimizer, data, step_ms)
+                step_check(model, data, CAPTION_STEP, _plain_versions("default"))
+                del data
+            del model, optimizer
+            torch.cuda.empty_cache()
+    print(f"caption training phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def _demangled(names):
     """{mangled: demangled} by the toolkit's cu++filt (the mangled name where
     it is missing)."""
@@ -3764,12 +4214,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ckpt_dir:
         evaluated = phase(eval_phase, dev, served, ckpt_dir)
         seq_evaluated = phase(seq_eval_phase, dev, served, ckpt_dir, evaluated["ckpt"])
+        captioned = phase(caption_serve_phase, dev, served, ckpt_dir)
     served.clear()  # the training phases need the card's memory
     torch.cuda.empty_cache()
     train_rows = phase(train_kernel_phase, dev)
     ce_rows = phase(ce_phase, dev)
     train_launches, default_ms, first_metrics = phase(train_slice_phase, dev)
     shard_launches = phase(shard_train_phase, dev, default_ms)
+    caption_launches = phase(caption_train_phase, dev)
     remat_launches, large_remat_launches = phase(remat_phase, dev)
     pipeline_launches = phase(tokenizer_pipeline_phase, dev)
     dp_launches = phase(data_parallel_phase, dev, first_metrics, default_ms)
@@ -3801,7 +4253,9 @@ def main() -> int:
         rows[0]["ms"], rows[0]["plain_ms"], serve_bound, rows[0]["library_ms"],
         exp2_bound_ms=serve_exp2,
         eval_launches={**evaluated["launches"], **seq_evaluated["launches"]},
-        rgb2cam_b1=seq_evaluated["b1"])
+        rgb2cam_b1=seq_evaluated["b1"],
+        caption_launches={k: captioned[k] for k in ("rgb2caption", "caption2rgb")},
+        ar_cross=captioned["ar_cross"])
     add("flash64_fwd_safemax", "flash64_fwd.cu", "flash64.py:119", safemax_launches, max_err,
         rows[1]["ms"], rows[1]["plain_ms"], serve_bound, rows[1]["library_ms"],
         exp2_bound_ms=serve_exp2)
@@ -3815,7 +4269,9 @@ def main() -> int:
                     "pipeline_launches": pipeline_launches[part],
                     "dp_launches": dp_launches[part],
                     "fsdp_launches": fsdp_launches[part],
-                    "fsdp_launches_per_step": fsdp_step_launches[part]}
+                    "fsdp_launches_per_step": fsdp_step_launches[part],
+                    "caption_train_launches": caption_launches[BASE_MODEL][part],
+                    "causal_train_launches": caption_launches[CAUSAL_MODEL][part]}
              for part in ("fwd", "dq", "dkv", "ce_fwd")}
     for name, src, line, part, keys, products, tensors, lib, more in (
             ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",), 2, (2, 2), step_lib["fwd"],
@@ -3835,10 +4291,16 @@ def main() -> int:
     # ce_rows[0]: R = 16384, D = 768, every row live; no single PyTorch call
     # computes logsumexp and gold without the logits: matmul_ms is cuBLAS's
     # y @ W^T alone, which writes them
+    caption_ce = next(r for r in ce_rows if r["V"] == CAPTION_VOCAB)
+    caption_bound = ce_fwd_bound_ms(caption_ce["R"], 768, CAPTION_VOCAB)
     add("flash_ce_fwd", "flash_ce_fwd.cu", "flash_ce.py:76", train_launches["ce_fwd"],
         max(r["err"] for r in ce_rows), ce_rows[0]["ms"], ce_rows[0]["plain_ms"],
         ce_fwd_bound_ms(ce_rows[0]["R"], 768, ce_rows[0]["V"]), None,
-        matmul_ms=ce_rows[0]["matmul_ms"], **paths["ce_fwd"])
+        matmul_ms=ce_rows[0]["matmul_ms"], **paths["ce_fwd"],
+        caption_head={"R": caption_ce["R"], "V": CAPTION_VOCAB, "D": 768,
+                      "max_abs_err": caption_ce["err"], "ms": caption_ce["ms"],
+                      "plain_ms": caption_ce["plain_ms"], "bound_ms": caption_bound[0],
+                      "bound_by": caption_bound[1], "matmul_ms": caption_ce["matmul_ms"]})
     # no single PyTorch call computes the CE backward: plain_ms is the chunked route
     add("flash_ce_bwd", "flash_ce_bwd.cu", "flash_ce.py:167", fused_launches["ce_bwd"],
         max(r["err"] for r in ce_bwd_rows), ce_bwd_rows[0]["ms"], ce_bwd_rows[0]["plain_ms"],

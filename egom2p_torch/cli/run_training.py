@@ -76,9 +76,13 @@ Smoke run without data (the config's settings as arguments):
         --model egom2p_base_12e_12d_swiglu_nobias --batch_size 8 \
         --lr_schedule constant --epochs 1 --epoch_size 48
 
-Not ported (each raises where it is asked for): tensor parallelism
-(--tensor_parallel > 1, TPU-only machinery) and text modalities
-(--text_tokenizer_path).
+Text modalities (a caption in a data config's in_domains / out_domains,
+read from the shards' `.txt` members): --text_tokenizer_path names a
+WordPiece tokenizer.json (utils/text_tokenizer.py), which the train, val
+and fixed-eval maskings span-mask the captions with.
+
+Not ported (it raises where it is asked for): tensor parallelism
+(--tensor_parallel > 1, TPU-only machinery).
 """
 from __future__ import annotations
 
@@ -142,7 +146,7 @@ def get_args(argv=None):
     p.add_argument("--frozen_model_epochs", type=int, default=0,
                    help="hold the shared trunk still for the first N epochs")
     p.add_argument("--text_tokenizer_path", default=None,
-                   help="text modalities are not ported: raises when set")
+                   help="a WordPiece tokenizer.json, for caption modalities")
     p.add_argument("--synthetic_data", action="store_true",
                    help="random token streams instead of tar shards")
     p.add_argument("--scaled_modalities", action="store_true",
@@ -262,9 +266,13 @@ def _hf_factory(dcfg: Dict, default_seed: int):
     return factory
 
 
-def _no_text(args) -> None:
-    if args.text_tokenizer_path:
-        raise NotImplementedError("text modalities (--text_tokenizer_path) are not ported")
+def _text_tokenizer(args):
+    """--text_tokenizer_path's WordPiece tokenizer (utils/text_tokenizer.py),
+    or None (run_training_egom2p.py:192-195, 309-312)."""
+    if not args.text_tokenizer_path:
+        return None
+    from egom2p_torch.utils.text_tokenizer import load_text_tokenizer
+    return load_text_tokenizer(args.text_tokenizer_path)
 
 
 def setup_data(args):
@@ -279,7 +287,7 @@ def setup_data(args):
     from egom2p_torch.data.masking import TransferMasking, UnifiedMasking
     from egom2p_torch.data.modality_info import MODALITY_INFO
 
-    _no_text(args)
+    text_tokenizer = _text_tokenizer(args)
     batch = args.batch_size * args.accum_steps
     seed = args.seed + distributed.rank() * 7919
     transfer = bool(args.input_domains) + bool(args.target_domains)
@@ -290,10 +298,11 @@ def setup_data(args):
         info, pool = _synthetic_pool(args, args.seed, 256)
         if transfer:
             masking = TransferMasking(info, args.input_domains.split("-"),
-                                      args.target_domains.split("-"))
+                                      args.target_domains.split("-"), text_tokenizer)
         else:
             masking = UnifiedMasking(info, args.num_input_tokens, args.num_target_tokens,
-                                     sampling_weights=[1.0] * 4, seed=args.seed)
+                                     sampling_weights=[1.0] * 4, seed=args.seed,
+                                     text_tokenizer=text_tokenizer)
         loader = MixtureLoader([DatasetStream(lambda: iter(pool), masking, name="synthetic")],
                                info, batch, seed=seed, num_workers=args.num_workers)
         return loader, sorted(MODS4)
@@ -310,7 +319,8 @@ def setup_data(args):
         masking = UnifiedMasking(mod_info,
                                  dcfg.get("num_input_tokens") or args.num_input_tokens,
                                  dcfg.get("num_target_tokens") or args.num_target_tokens,
-                                 sampling_weights=sampling_weights, seed=args.seed)
+                                 sampling_weights=sampling_weights, seed=args.seed,
+                                 text_tokenizer=text_tokenizer)
         if dcfg.get("type") == "huggingface":
             streams.append(DatasetStream(_hf_factory(dcfg, args.seed), masking, name=name))
             continue
@@ -342,16 +352,18 @@ def setup_val_data(args):
     from egom2p_torch.data.modality_info import MODALITY_INFO
     from egom2p_torch.data.tar_reader import multi_tarfile_samples
 
-    _no_text(args)
+    text_tokenizer = _text_tokenizer(args)
     batch = args.batch_size * distributed.world_size()
 
     def masking(mod_info, sampling_weights, fixed):
         if fixed:
             return UnifiedMasking(mod_info, (args.fixed_eval_input_tokens,) * 2,
                                   (args.fixed_eval_target_tokens,) * 2,
-                                  sampling_weights=sampling_weights, seed=args.seed + 77777)
+                                  sampling_weights=sampling_weights, seed=args.seed + 77777,
+                                  text_tokenizer=text_tokenizer)
         return UnifiedMasking(mod_info, args.num_input_tokens, args.num_target_tokens,
-                              sampling_weights=sampling_weights, seed=args.seed + 9999)
+                              sampling_weights=sampling_weights, seed=args.seed + 9999,
+                              text_tokenizer=text_tokenizer)
 
     def make_factory(name, samples, mod_info, sampling_weights, fixed):
         def factory():

@@ -7,6 +7,9 @@ direction), and check the result against the target module: every key must
 exist with the right shape, and none may be left over.
 
   flax Dense kernel (in, out)             -> torch Linear weight (out, in)
+  EgoM2P mod_emb_<m> / dec_mod_emb_<m>    -> <en|de>coder_embeddings.<m>.mod_emb
+  SequenceEmbEncoderEmbedding emb_proj,
+    emb_proj_0 / emb_proj_1 (bottleneck)  -> emb_proj, emb_proj.0 / emb_proj.1
   flax Conv kernel (kt, kh, kw, in, out)  -> torch Conv3d weight (out, in, kt, kh, kw)
   flax Conv kernel (k, in, out)           -> torch Conv1d weight (out, in, k)
   seq VQ-VAE quant_proj Dense (in, out)   -> 1x1 Conv1d weight (out, in, 1)
@@ -61,20 +64,28 @@ def _checked(sd: Dict[str, np.ndarray], module: nn.Module) -> Dict[str, torch.Te
 def egom2p_state_dict_from_jax(variables: Mapping, model) -> Dict[str, torch.Tensor]:
     """Flax EgoM2P variables -> state dict for `model` (egom2p_torch EgoM2P)."""
     in_domains, out_domains = set(model.in_domains), set(model.out_domains)
+    shared = model.config.share_modality_embeddings
     sd: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(_params(variables)).items():
         p0, leaf = path[0], path[-1]
-        if p0.startswith("mod_emb_"):  # shared encoder <-> decoder
+        if p0.startswith("mod_emb_"):  # encoder's, and the decoder's where shared
             mod = p0[len("mod_emb_"):]
             if mod in in_domains:
                 sd[f"encoder_embeddings.{mod}.mod_emb"] = arr
-            if mod in out_domains:
+            if mod in out_domains and (shared or mod not in in_domains):
                 sd[f"decoder_embeddings.{mod}.mod_emb"] = arr
+        elif p0.startswith("dec_mod_emb_"):
+            sd[f"decoder_embeddings.{p0[len('dec_mod_emb_'):]}.mod_emb"] = arr
         elif p0 in ("mask_token", "register_tokens"):
             sd[p0] = arr
         elif re.fullmatch(r"(en|de)coder_embeddings_.+", p0) and path[1:] == ("token_emb",):
             side, mod = p0.split("_embeddings_", 1)
             sd[f"{side}_embeddings.{mod}.token_emb.weight"] = arr
+        elif p0.startswith("encoder_embeddings_") and path[1].startswith("emb_proj"):
+            mod = p0[len("encoder_embeddings_"):]
+            base = f"encoder_embeddings.{mod}.{path[1].replace('emb_proj_', 'emb_proj.')}"
+            sd[f"{base}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                arr.T if leaf == "kernel" else arr)
         elif p0 in ("encoder_norm", "decoder_norm", "decoder_proj_context") or \
                 re.fullmatch(r"(encoder|decoder)_\d+", p0):
             block = re.fullmatch(r"(encoder|decoder)_(\d+)", p0)

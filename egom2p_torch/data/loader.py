@@ -36,15 +36,22 @@ BATCH_KEYS = ("tensor", "input_mask", "target_mask", "decoder_attention_mask")
 
 
 def make_empty_mod_entry(info: Dict) -> Dict[str, np.ndarray]:
-    """Fully masked placeholder for a token-grid modality a dataset lacks
-    (reference: unified_datasets.py:491-553): the shape and dtype
-    UnifiedMasking gives a real sample of it."""
-    if info["type"] not in IMG_TYPES or info.get("embed_spec", {}).get("kind") in (
-            "sequence_emb", "image_raw"):
-        raise NotImplementedError(f"placeholders for {info['type']} modalities "
-                                  f"({info.get('embed_spec', {}).get('kind')}) are not ported")
+    """Fully masked placeholder for a modality a dataset lacks (reference:
+    unified_datasets.py:491-553): the shape and dtype UnifiedMasking gives a
+    real sample of it, so that the batch stacks."""
+    spec = info.get("embed_spec", {})
     L = info["max_tokens"]
-    return {"tensor": np.zeros(L, dtype=np.int32),
+    if spec.get("kind") == "sequence_emb":  # float rows, token-level masks
+        tensor = np.zeros((L, spec["orig_emb_dim"]), dtype=np.float32)
+    elif spec.get("kind") == "image_raw":  # pixels; the masks are per patch
+        size = spec["image_size"]
+        tensor = np.zeros((size, size, spec["num_channels"]), dtype=np.float32)
+    elif info["type"] in IMG_TYPES:
+        tensor = np.zeros(L, dtype=np.int32)
+    else:  # seq / seq_token: the (max_tokens + 1) * 2 packed slots
+        L = (L + 1) * 2
+        tensor = np.zeros(L, dtype=np.int32)
+    return {"tensor": tensor,
             "input_mask": np.ones(L, dtype=bool),
             "target_mask": np.ones(L, dtype=bool),
             "decoder_attention_mask": np.zeros(L, dtype=np.int32)}

@@ -1,6 +1,7 @@
-"""Generation sampler: ROAR / MaskGIT over image-type targets, with CFG.
+"""Generation sampler: ROAR / MaskGIT over image-type targets and
+autoregressive decoding of sequence targets (captions), with CFG.
 
-Port of the image-target path of egom2p_tpu/generate/sampler.py (reference:
+Port of egom2p_tpu/generate/sampler.py (reference:
 egom2p/models/generate.py:323-1097).  The host chooses the positions of each
 step with numpy (`np.random.default_rng(seed + step)`, the same draw as the
 JAX sampler, so both packages pick the same `ids_keep`); the chain state
@@ -8,18 +9,28 @@ JAX sampler, so both packages pick the same `ids_keep`); the chain state
 steps, and each step is one fused device function: the encoder on the cond
 and uncond branches at their own bucketed lengths, the decoder over the k
 chosen positions, the CFG mix, the chunked 64k head, top-p sampling and the
-scatter update.
+scatter update.  Under CFG with sequence-type conditioning (a caption) the
+step stacks cond and uncond into one 2B-row batch on the host instead, as
+the JAX sampler does: emptying a caption rewrites its sentinels.
+
+A sequence target is decoded token by token (`_seq_step`): the encoder runs
+once over the (stacked) branches at the bucketed length, then every token
+re-runs the decoder over all S output slots at a fixed shape under a causal
+mask (no KV cache, as in the JAX package), the head is applied to the slot
+being sampled, CFG mixes the fp32 logits l_u + (l_c - l_u) * s, and the loop
+stops when every row holds the final sentinel.  The tokens are written back
+raw, or merged into the input's sentinel spans through a `text_tokenizer`.
 
 Randomness comes from an explicit `torch.Generator` seeded with `seed`.  Its
 draws differ from jax.random's: compare greedy tokens, candidate sets and
 probabilities across the packages, never sampled tokens.  Top-K is exact
 `torch.topk` over the 128-candidate set (the JAX side's EGOM2P_EXACT_TOPK=1).
 
-Not ported yet: sequence targets (the autoregressive path), CFG with
-sequence-type conditioning, multi-guided generation and SAM.
+Not ported yet: multi-guided generation and dense SAM instances.
 """
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, List, Optional
 
@@ -27,9 +38,11 @@ import numpy as np
 import torch
 
 from egom2p_torch.data.modality_info import MODALITY_INFO
+from egom2p_torch.data.span import get_sentinel_to_id_mapping, merge_span_masking
 from egom2p_torch.ops.attention import inference_attention
 
 IMG_TYPES = ("img", "cam", "gaze", "keypoints")
+SEQ_TYPES = ("seq", "seq_emb", "seq_token")
 
 # Candidate set cap for nucleus sampling (egom2p_tpu sampler's _TOPP_TRUNC).
 TOPP_TRUNC = 128
@@ -39,33 +52,97 @@ HEAD_CHUNK = 256
 
 
 # --------------------------------------------------------------- init helpers
+def empty_img_modality(d):
+    """Every position hidden from the encoder and still to predict
+    (reference: generate.py:30-37)."""
+    d["input_mask"][:] = True
+    d["target_mask"][:] = False
+    return d
+
+
+def empty_seq_modality(d, s1_id: int = 5):
+    """An empty sequence: the input is the one sentinel [S_1] (id `s1_id`)
+    in slot 0, and every other slot is a target, slot 1 starting with
+    [S_1] and the last slot holding [S_2] (reference: generate.py:39-63)."""
+    d["tensor"][:] = 0
+    d["tensor"][:, [0, 1]] = s1_id
+    d["tensor"][:, -1] = s1_id + 1
+    d["input_mask"][:] = True
+    d["input_mask"][:, 0] = False
+    d["target_mask"] = ~d["input_mask"]
+    d["decoder_attention_mask"][:] = 1
+    d["decoder_attention_mask"][:, 0] = 0
+    return d
+
+
+def empty_seq_emb_modality(d):
+    """Empty T5 / CLIP-embedding conditioning: zero embeddings with one live
+    slot, so the uncond branch still holds a conditioning token
+    (reference: generate.py:65-80)."""
+    d["tensor"][:] = 0
+    d["input_mask"][:] = True
+    d["input_mask"][:, 0] = False
+    d["target_mask"][:] = True
+    d["decoder_attention_mask"][:] = 0
+    return d
+
+
 def init_empty_target_modality(mod_dict, modality_info, domain, batch_size,
                                num_tokens):
-    """An image-type target with every position still to predict
-    (reference: generate.py:30-37, 83-115)."""
-    if modality_info[domain]["type"] not in IMG_TYPES:
-        raise NotImplementedError(
-            f"{domain}: sequence targets wait for the autoregressive port")
-    mod_dict[domain] = {
-        "tensor": np.zeros((batch_size, num_tokens), dtype=np.int32),
-        "input_mask": np.ones((batch_size, num_tokens), dtype=bool),
-        "target_mask": np.zeros((batch_size, num_tokens), dtype=bool),
-        "decoder_attention_mask": np.zeros((batch_size, num_tokens), dtype=np.int32),
-    }
+    """A target with every position still to predict: an image type, or a
+    sequence (at least 2 slots; a `seq_emb` one holds zero float
+    embeddings (B, N, orig_emb_dim)) (reference: generate.py:83-115)."""
+    mtype = modality_info[domain]["type"]
+    if mtype in IMG_TYPES:
+        shape, tensor = (batch_size, num_tokens), np.zeros((batch_size, num_tokens), np.int32)
+        empty = empty_img_modality
+    elif mtype in SEQ_TYPES:
+        shape = (batch_size, max(num_tokens, 2))
+        if mtype == "seq_emb":
+            tensor = np.zeros(shape + (modality_info[domain].get("orig_emb_dim", 4096),),
+                              dtype=np.float32)
+            empty = empty_seq_emb_modality
+        else:
+            tensor, empty = np.zeros(shape, dtype=np.int32), empty_seq_modality
+    else:
+        raise ValueError(f"{domain}: modality type {mtype!r}")
+    mod_dict[domain] = empty({"tensor": tensor,
+                              "input_mask": np.ones(shape, dtype=bool),
+                              "target_mask": np.zeros(shape, dtype=bool),
+                              "decoder_attention_mask": np.zeros(shape, dtype=np.int32)})
     return mod_dict
 
 
-def init_full_input_modality(mod_dict, modality_info, domain):
-    """An image-type conditioning modality, fully visible
+def init_full_input_modality(mod_dict, modality_info, domain, eos_id: int = 3):
+    """A conditioning modality, fully visible: an image type whole; a
+    sequence up to and with its first [EOS] (`eos_id`; a sequence with none
+    gets one in slot 0); T5 embeddings where `mask_valid` says
     (reference: generate.py:117-152)."""
-    if modality_info[domain]["type"] not in IMG_TYPES:
-        raise NotImplementedError(
-            f"{domain}: sequence conditioning waits for the autoregressive port")
     d = mod_dict[domain]
+    mtype = modality_info[domain]["type"]
+    if mtype == "seq_emb":
+        valid = np.asarray(d["mask_valid"], dtype=bool)
+        d["input_mask"] = ~valid
+        d["target_mask"] = np.ones_like(valid)
+        d["decoder_attention_mask"] = np.zeros(valid.shape, dtype=np.int32)
+        return mod_dict
     shape = tuple(d["tensor"].shape)
-    d["input_mask"] = np.zeros(shape, dtype=bool)
-    d["target_mask"] = np.ones(shape, dtype=bool)
+    d.setdefault("input_mask", np.zeros(shape, dtype=bool))
+    d.setdefault("target_mask", np.ones(shape, dtype=bool))
     d.setdefault("decoder_attention_mask", np.zeros(shape, dtype=np.int32))
+    if mtype in IMG_TYPES:
+        d["input_mask"] = np.zeros(shape, dtype=bool)
+        d["target_mask"] = np.ones(shape, dtype=bool)
+    elif mtype in ("seq", "seq_token"):
+        t = d["tensor"]
+        if (t == eos_id).any():
+            eos_idx = int(np.where(t == eos_id)[1][0])
+        else:
+            t[:, 0] = eos_id
+            eos_idx = 0
+        d["input_mask"][:, :eos_idx + 1] = False
+        d["input_mask"][:, eos_idx + 1:] = True
+        d["target_mask"][:] = True
     return mod_dict
 
 
@@ -124,6 +201,34 @@ def _sample_from_candidates(vals, idxs, generator, temperature: float,
     return torch.gather(idxs, -1, choice)[..., 0].to(torch.int32), sampled
 
 
+def _sample_all(logits: torch.Tensor, generator: torch.Generator, temperature: float):
+    """A categorical sample over the whole last axis (no truncation):
+    (samples int32, probability of each sample)."""
+    scaled = logits / temperature
+    choice = torch.argmax(scaled + _gumbel(scaled.shape, generator, scaled.device),
+                          dim=-1, keepdim=True)
+    sampled = torch.gather(torch.softmax(scaled, dim=-1), -1, choice)[..., 0]
+    return choice[..., 0].to(torch.int32), sampled
+
+
+def sample_tokens(logits: torch.Tensor, generator: torch.Generator, temperature: float,
+                  top_k: float, top_p: float):
+    """Top-k / top-p filtering and a categorical sample per row of fp32
+    logits (..., V) (reference: generate.py:332-382): greedy is the argmax;
+    a truncation samples among the top-K candidates, exact torch.topk (the
+    JAX side's EGOM2P_EXACT_TOPK=1); none samples the whole vocabulary.
+    Returns (samples int32, probability of each sample)."""
+    if abs(temperature) < 1e-10:
+        samples = logits.argmax(dim=-1).to(torch.int32)
+        return samples, torch.ones(samples.shape, device=logits.device)
+    V = logits.shape[-1]
+    k_user, K = _candidate_count(V, temperature, top_k, top_p)
+    if K < V or k_user or (top_p and top_p > 0.0):
+        vals, idxs = torch.topk(logits, K, dim=-1)
+        return _sample_from_candidates(vals, idxs, generator, temperature, k_user, top_p)
+    return _sample_all(logits, generator, temperature)
+
+
 def chunked_head_sample(model, target_mod: str, y: torch.Tensor, cond_weights,
                         generator: torch.Generator, temperature: float,
                         top_k: float, top_p: float, vocab_size: int):
@@ -177,11 +282,7 @@ def chunked_head_sample(model, target_mod: str, y: torch.Tensor, cond_weights,
         idx_parts.append(i)
     vals = torch.cat(vals_parts, dim=1)
     if untruncated and not greedy:
-        logits = vals / temperature
-        choice = torch.argmax(logits + _gumbel(logits.shape, generator, logits.device),
-                              dim=-1, keepdim=True)
-        sampled = torch.gather(torch.softmax(logits, dim=-1), -1, choice)[..., 0]
-        return choice[..., 0].to(torch.int32), sampled
+        return _sample_all(vals, generator, temperature)
     idxs = torch.cat(idx_parts, dim=1)
     return _sample_from_candidates(vals, idxs, generator, temperature, k_user, top_p)
 
@@ -238,6 +339,25 @@ class GenerationSampler:
                       for k, v in d.items()}
                 for mod, d in mod_dict.items()}
 
+    def _make_uncond(self, mod_dict, conditioning: List[str]):
+        """The CFG uncond branch on the host: every conditioning modality
+        emptied (reference: generate.py:792-800)."""
+        un = copy.deepcopy(mod_dict)
+        for mod in conditioning:
+            mtype = self.info[mod]["type"]
+            if mtype in ("seq", "seq_token"):
+                empty_seq_modality(un[mod])
+            elif mtype == "seq_emb":
+                empty_seq_emb_modality(un[mod])
+            else:
+                empty_img_modality(un[mod])
+        return un
+
+    @staticmethod
+    def _stack_dicts(a, b):
+        return {mod: {k: np.concatenate([a[mod][k], b[mod][k]], axis=0) for k in a[mod]}
+                for mod in a}
+
     # ------------------------------------------------------------- gen steps
     def _fused_img_step(self, dev, target_mod: str, num_enc_c: int,
                         num_enc_u: int, ids_keep: torch.Tensor, num_select: int,
@@ -280,14 +400,46 @@ class GenerationSampler:
         d["target_mask"][rows, sel_pos] = True
         return sel_pos
 
+    def _stacked_step(self, mod_dict, target_mod: str, ids_keep: np.ndarray, k: int,
+                      num_select: int, scheme: str, cfg_scale: float, temperature: float,
+                      top_k: float, top_p: float, conditioning: List[str],
+                      generator: torch.Generator) -> None:
+        """One ROAR / MaskGIT step under CFG with sequence-type
+        conditioning, on host copies: cond and the emptied uncond stacked
+        into one 2B-row batch through the encoder (at the stacked bucketed
+        length) and the decoder, the CFG mix, sampling, and the update of
+        `mod_dict[target_mod]` (egom2p_tpu/generate/sampler.py:_step_fn)."""
+        model, d = self.model, mod_dict[target_mod]
+        stacked = self._stack_dicts(mod_dict, self._make_uncond(mod_dict, conditioning))
+        dev = self._to_device(stacked)
+        ids = torch.from_numpy(np.concatenate([ids_keep, ids_keep])).to(self.device, torch.int64)
+        context, enc_mask = model.forward_enc_context(
+            dev, _bucket(self._num_enc_tokens(stacked)))
+        y = model.forward_dec_subset_hidden(dev, target_mod, context, enc_mask, ids)
+        samples, probs = chunked_head_sample(model, target_mod, y, (cfg_scale,), generator,
+                                             temperature, top_k, top_p,
+                                             self.info[target_mod]["vocab_size"])
+        samples, probs = samples.cpu().numpy(), probs.cpu().numpy()
+        if scheme == "maskgit" and num_select < k:
+            top_idx = np.argsort(-probs, axis=1)[:, :num_select]
+            sel_pos = np.take_along_axis(ids_keep, top_idx, axis=1)
+            samples = np.take_along_axis(samples, top_idx, axis=1)
+        else:
+            sel_pos = ids_keep
+        rows = np.arange(sel_pos.shape[0])[:, None]
+        d["tensor"][rows, sel_pos] = samples.astype(d["tensor"].dtype)
+        d["input_mask"][rows, sel_pos] = False
+        d["target_mask"][rows, sel_pos] = True
+
     def _img_step(self, mod_dict, dev, dirty: set, target_mod: str,
                   scheme: str, num_select: int, temperature: float,
                   top_k: float, top_p: float, conditioning: List[str],
                   cfg_scale: float, rng: np.random.Generator,
-                  generator: torch.Generator) -> None:
+                  generator: torch.Generator, to_host) -> None:
         """One ROAR or MaskGIT step.  The host masks in `mod_dict` mirror
         the device state exactly; target_mask False marks a position still
-        to predict (reference: generate.py:30-37)."""
+        to predict (reference: generate.py:30-37).  `to_host()` brings the
+        device chain state back into `mod_dict`, for the stacked step."""
         d = mod_dict[target_mod]
         open_mask = ~d["target_mask"]
         # row 0 sets the shared per-step k, like the reference's schedule
@@ -295,9 +447,6 @@ class GenerationSampler:
         if n_remaining == 0:
             return
         use_cfg = cfg_scale != 1.0 and len(conditioning) > 0
-        if use_cfg and any(self.info[m]["type"] not in IMG_TYPES for m in conditioning):
-            raise NotImplementedError(
-                "CFG with sequence-type conditioning waits for the autoregressive port")
         if scheme == "roar":
             k = min(num_select, n_remaining)
             ids_keep = self._select_positions(~open_mask, k, rng, random_order=True)
@@ -307,6 +456,12 @@ class GenerationSampler:
         else:
             raise ValueError(f"unknown scheme {scheme!r}")
 
+        if use_cfg and any(self.info[m]["type"] in SEQ_TYPES for m in conditioning):
+            to_host()
+            self._stacked_step(mod_dict, target_mod, ids_keep, k, num_select, scheme,
+                               cfg_scale, temperature, top_k, top_p, conditioning, generator)
+            dev[target_mod] = self._to_device({target_mod: d})[target_mod]
+            return
         num_enc_c = _bucket(self._num_enc_tokens(mod_dict))
         num_enc_u = _bucket(self._num_enc_tokens(mod_dict, exclude=tuple(conditioning)),
                             256) if use_cfg else 0
@@ -323,15 +478,99 @@ class GenerationSampler:
         d["input_mask"][rows, sel_np] = False
         d["target_mask"][rows, sel_np] = True
 
+    # ------------------------------------------------------- autoregressive
+    def _seq_step(self, mod_dict, target_mod: str, temperature: float, top_k: float,
+                  top_p: float, conditioning: List[str], cfg_scale: float,
+                  generator: torch.Generator, text_tokenizer=None) -> int:
+        """Autoregressive decoding of a sequence target on host copies
+        (reference: generate.py:852-1027), with span merging (reference:
+        generate.py:552-628) where `text_tokenizer` is given.  Returns the
+        number of output slots written (the first is given, so the decoder
+        ran one fewer times)."""
+        model, d = self.model, mod_dict[target_mod]
+        use_cfg = cfg_scale != 1.0 and len(conditioning) > 0
+        stacked = (self._stack_dicts(mod_dict, self._make_uncond(mod_dict, conditioning))
+                   if use_cfg else mod_dict)
+        dev = self._to_device(stacked)
+        context, enc_mask = model.forward_enc_context(dev, _bucket(self._num_enc_tokens(stacked)))
+
+        # the target slots in mask order (reference: generate.py:518-550)
+        tm = d["target_mask"]
+        B = tm.shape[0]
+        order = np.argsort(tm.astype(np.float64) + np.arange(tm.shape[1])[None] * 1e-6, axis=1)
+        S = min(int((~tm[0]).sum()), self.info[target_mod]["max_tokens"])
+        ids_keep = order[:, :S]
+        rows = np.arange(B)[:, None]
+        dec_ids = d["tensor"][rows, ids_keep]
+        reps = 2 if use_cfg else 1
+        idx = torch.from_numpy(np.concatenate([ids_keep] * reps)).to(self.device, torch.int64)
+        # the slots' positions in bf16 whatever the compute dtype, as the
+        # JAX sampler embeds them (its forward_embed's default dtype)
+        _, emb, _ = model.decoder_embeddings[target_mod].forward_embed(dev[target_mod],
+                                                                       torch.bfloat16)
+        y_emb = torch.gather(emb, 1, idx[..., None].expand(-1, -1, emb.shape[-1]))
+
+        eos_token = int(dec_ids[0][-1])  # the final sentinel (generate.py:875)
+        out = torch.zeros(reps * B, S, dtype=torch.int64, device=self.device)
+        out[:, 0] = torch.from_numpy(np.concatenate([dec_ids[:, 0]] * reps)).to(self.device)
+        head = model.decoder_embeddings[target_mod].head_weight(model.compute_dtype)
+        n_gen = 1
+        for i in range(1, S):
+            y = model.forward_dec_autoregressive_hidden(target_mod, out, y_emb, context, enc_mask)
+            last = model.forward_mod_logits(target_mod, y[:, i - 1], head)  # (B', V) fp32
+            if use_cfg:
+                lc, lu = last[:B], last[B:]
+                last = lu + (lc - lu) * cfg_scale
+            nxt, _ = sample_tokens(last, generator, temperature, top_k, top_p)
+            out[:, i] = nxt.long().repeat(reps)
+            n_gen = i + 1
+            if bool((out[:B, :n_gen] == eos_token).any(dim=-1).all()):
+                break
+        out = out[:B, :n_gen].cpu().numpy().astype(d["tensor"].dtype)
+
+        if text_tokenizer is None:  # raw tokens into the target slots
+            d["tensor"][rows, ids_keep[:, :n_gen]] = out
+            d["input_mask"][rows, ids_keep[:, :n_gen]] = False
+            d["target_mask"][rows, ids_keep[:, :n_gen]] = True
+            return n_gen
+        # the predicted spans merged into each row's input
+        # (reference: merge_sequences_batched, generate.py:583-628)
+        sentinel_ids = set(get_sentinel_to_id_mapping(text_tokenizer).values())
+        pad_id = text_tokenizer.token_to_id("[PAD]")
+        merged = []
+        for b in range(B):
+            inp = d["tensor"][b][~d["input_mask"][b]].tolist() or [min(sentinel_ids)]
+            merged.append(merge_span_masking(inp, out[b].tolist(), sentinel_ids))
+        max_len = max(len(r) for r in merged)
+        tensor = np.full((B, max_len), pad_id, dtype=np.int32)
+        input_mask = np.ones((B, max_len), dtype=bool)
+        for b, r in enumerate(merged):
+            tensor[b, :len(r)] = r
+            input_mask[b, :len(r)] = False
+        mod_dict[target_mod] = {"tensor": tensor, "input_mask": input_mask,
+                                "target_mask": np.ones((B, max_len), dtype=bool),
+                                "decoder_attention_mask": np.zeros((B, max_len), dtype=np.int32)}
+        return n_gen
+
     # ------------------------------------------------------------ public API
+    def generate_iter(self, mod_dict, schedule, top_k: float = 0.0, top_p: float = 0.0,
+                      text_tokenizer=None, seed: Optional[int] = None):
+        """`generate` one schedule step at a time, yielding the state after
+        each (step i seeded seed + i) (reference: generate.py:1100-1168)."""
+        for step, s in enumerate(schedule):
+            mod_dict = self.generate(mod_dict, [s], top_k=top_k, top_p=top_p,
+                                     text_tokenizer=text_tokenizer, seed=(seed or 0) + step)
+            yield mod_dict
+
     @torch.inference_mode()
     def generate(self, mod_dict, schedule, top_k: float = 0.0,
-                 top_p: float = 0.0, seed: Optional[int] = None):
-        """Run `schedule` (generate/schedules.py) over image-type targets
-        (reference: generate.py:1030-1097).  `mod_dict` holds numpy arrays;
-        a "tensor" may be a torch tensor already on the device (it stays
-        there).  Returns an updated copy with host numpy masks and the
-        generated tensors as numpy."""
+                 top_p: float = 0.0, seed: Optional[int] = None, text_tokenizer=None):
+        """Run `schedule` (generate/schedules.py) (reference:
+        generate.py:1030-1097).  `mod_dict` holds numpy arrays; a "tensor"
+        may be a torch tensor already on the device (it stays there until a
+        host-side step needs it).  Returns an updated copy with host numpy
+        masks and the generated tensors as numpy; a sequence target merged
+        through `text_tokenizer` takes its merged length."""
         mod_dict = {m: {k: (v if k == "tensor" and isinstance(v, torch.Tensor)
                             else _to_numpy(v))
                         for k, v in d.items()}
@@ -340,19 +579,39 @@ class GenerationSampler:
         generator.manual_seed(seed if seed is not None else 0)
         dev = None
         dirty: set = set()
+
+        def to_host():
+            """The device state's changed tensors, and every device tensor
+            the caller passed, as numpy in `mod_dict`."""
+            for mod in sorted(dirty):
+                mod_dict[mod]["tensor"] = dev[mod]["tensor"].cpu().numpy()
+            dirty.clear()
+            for d in mod_dict.values():
+                if isinstance(d["tensor"], torch.Tensor):
+                    d["tensor"] = d["tensor"].cpu().numpy()
+
         with inference_attention():
             for step, s in enumerate(schedule):
                 target_mod = s["target_domain"]
-                if self.info[target_mod]["type"] not in IMG_TYPES:
-                    raise NotImplementedError(
-                        f"{target_mod}: sequence targets wait for the autoregressive port")
                 rng = np.random.default_rng((seed + step) if seed is not None else step)
-                if dev is None:
-                    dev = self._to_device(mod_dict)
-                self._img_step(mod_dict, dev, dirty, target_mod, s["scheme"],
-                               s["num_tokens"], s["temperature"], top_k, top_p,
-                               s.get("cfg_cond_domains", []), s.get("cfg_scale", 1.0),
-                               rng, generator)
-        for mod in sorted(dirty):
-            mod_dict[mod]["tensor"] = dev[mod]["tensor"].cpu().numpy()
+                conditioning, cfg_scale = s.get("cfg_cond_domains", []), s.get("cfg_scale", 1.0)
+                mtype = self.info[target_mod]["type"]
+                if mtype in IMG_TYPES:
+                    if dev is None:
+                        dev = self._to_device(mod_dict)
+                    self._img_step(mod_dict, dev, dirty, target_mod, s["scheme"],
+                                   s["num_tokens"], s["temperature"], top_k, top_p,
+                                   conditioning, cfg_scale, rng, generator, to_host)
+                elif mtype in SEQ_TYPES:
+                    if dev is not None or any(isinstance(d["tensor"], torch.Tensor)
+                                              for d in mod_dict.values()):
+                        to_host()
+                    dev = None  # a merge may change the shapes: uploaded again at need
+                    self._seq_step(mod_dict, target_mod, s["temperature"], top_k, top_p,
+                                   conditioning, cfg_scale, generator, text_tokenizer)
+                else:
+                    raise ValueError(f"invalid schedule target {target_mod}")
+        if dev is not None:
+            for mod in sorted(dirty):
+                mod_dict[mod]["tensor"] = dev[mod]["tensor"].cpu().numpy()
         return mod_dict

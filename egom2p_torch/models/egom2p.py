@@ -23,9 +23,19 @@ autograd.Functions around calls the dispatcher does not see, so under
 either policy their forward runs again in the backward: a remat step
 launches the attention forward twice per call.
 
-Not ported yet: sequence-type decoder modalities and the causal decoder
-(`adapt_decoder_attention_mask`), the autoregressive logits and unshared
-modality embeddings (the released models use none of them).
+Sequence modalities (captions): a sequence target is next-token
+prediction (its decoder inputs are its own tokens shifted right, its
+targets the tokens shifted left), and the decoder's self-attention mask is
+then the dense (B, M, M) mask `adapt_decoder_attention_mask` rebuilds from
+the cumsum-compressed encoding, or the causal mask of the `_causal`
+registry model, each OR'd with the modality separation mask where
+`decoder_sep_mask` asks for it; only image-type targets with the
+separation mask and no causal mask take the segment mask (the attention
+kernels).  `forward_dec_autoregressive_hidden` / `_logits` re-run the
+decoder over a fixed-shape output prefix under a causal mask, for the
+sampler's autoregressive path.  `share_modality_embeddings=False` gives
+the decoder its own modality embeddings (`dec_mod_emb_*` in the JAX
+package).
 """
 from __future__ import annotations
 
@@ -70,7 +80,10 @@ class EgoM2PConfig:
     gated_mlp: bool = False
     qk_norm: bool = False
     act: str = "gelu"
+    decoder_causal_mask: bool = False
+    decoder_sep_mask: bool = True
     num_register_tokens: int = 0
+    share_modality_embeddings: bool = True
     drop_path_rate_encoder: float = 0.0
     drop_path_rate_decoder: float = 0.0
     use_act_checkpoint: bool = False
@@ -103,9 +116,9 @@ class EgoM2P(nn.Module):
             mod: make_decoder_embedding(info[mod]["embed_spec"], cfg.dim)
             for mod in sorted(self.out_domains)})
         # one modality embedding per modality, shared encoder <-> decoder
-        # (reference: egom2p_model.py:179-183)
+        # (reference: egom2p_model.py:179-183), unless the config unshares them
         for mod in self.decoder_embeddings:
-            if mod in self.encoder_embeddings:
+            if cfg.share_modality_embeddings and mod in self.encoder_embeddings:
                 self.decoder_embeddings[mod].mod_emb = self.encoder_embeddings[mod].mod_emb
 
         if cfg.remat_policy not in ("full", "dots"):
@@ -212,20 +225,24 @@ class EgoM2P(nn.Module):
     def embed_decoder(self, mod_dict, compute_dtype=None) -> List[Dict[str, Any]]:
         """Per-modality decoder inputs and targets, in sorted modality order:
         dicts with mod / x / emb / ids / mask / attn.  Image-type decoder
-        inputs are the mask token (reference: egom2p_model.py:285-342)."""
+        inputs are the mask token; a sequence predicts its next token: its
+        own tokens shifted right are the inputs, shifted left the targets,
+        and a slot is a target where it and its successor both are
+        (reference: egom2p_model.py:285-342)."""
         compute_dtype = compute_dtype or self.compute_dtype
         out = []
         for mod in sorted(self.out_domains):
             if mod not in mod_dict:
                 continue
-            if self.mod_info[mod]["type"] in SEQ_TYPES:
-                raise NotImplementedError(
-                    f"decoder modality {mod}: sequence-type targets are not ported yet")
             d = mod_dict[mod]
             x, emb, ids = self.decoder_embeddings[mod].forward_embed(d, compute_dtype)
-            out.append(dict(mod=mod, x=self.mask_token.to(x.dtype).expand(x.shape),
-                            emb=emb, ids=ids, mask=d["target_mask"].bool(),
-                            attn=d["decoder_attention_mask"].int()))
+            tm, attn = d["target_mask"].bool(), d["decoder_attention_mask"].int()
+            if self.mod_info[mod]["type"] in SEQ_TYPES:
+                out.append(dict(mod=mod, x=x[:, :-1], emb=emb[:, :-1], ids=ids[:, 1:],
+                                mask=tm[:, 1:] | tm[:, :-1], attn=attn[:, :-1]))
+            else:
+                out.append(dict(mod=mod, x=self.mask_token.to(x.dtype).expand(x.shape),
+                                emb=emb, ids=ids, mask=tm, attn=attn))
         return out
 
     def forward_mask_decoder(self, dec_embeds, num_decoder_tokens: int,
@@ -242,6 +259,7 @@ class EgoM2P(nn.Module):
         emb = torch.cat([e["emb"] for e in dec_embeds], dim=1)
         mask = torch.cat([e["mask"] for e in dec_embeds], dim=1)
         ids = torch.cat([e["ids"] for e in dec_embeds], dim=1)
+        attn = torch.cat([e["attn"] for e in dec_embeds], dim=1)
         mod_ids = torch.cat([
             torch.full(e["x"].shape[:2], info[e["mod"]]["id"], dtype=torch.int32,
                        device=device) for e in dec_embeds], dim=1)
@@ -268,15 +286,39 @@ class EgoM2P(nn.Module):
             return torch.gather(a, 1, ids_keep)
 
         tokens_k, emb_k, mask_k = take(tokens), take(emb), take(mask)
-        ids_k, mod_k = take(ids), take(mod_ids)
+        ids_k, attn_k, mod_k = take(ids), take(attn), take(mod_ids)
         tokens_k = tokens_k.masked_fill(mask_k[..., None], 0.0)
         emb_k = emb_k.masked_fill(mask_k[..., None], 0.0)
         ids_k = ids_k.masked_fill(mask_k, 0)
         mod_k = mod_k.masked_fill(mask_k, -1)
-        # image-type modalities only (embed_decoder): the cumsum + separation
-        # mask reduces exactly to "attend within your own modality"
-        sa_mask = SegmentMask(segments=mod_k)
+        cfg = self.config
+        all_img = all(info[e["mod"]]["type"] not in SEQ_TYPES for e in dec_embeds)
+        if all_img and cfg.decoder_sep_mask and not cfg.decoder_causal_mask:
+            # for image-type modalities the cumsum + separation mask reduces
+            # exactly to "attend within your own modality"
+            sa_mask = SegmentMask(segments=mod_k)
+        else:
+            sa_mask = self.adapt_decoder_attention_mask(attn_k, mod_k)
         return tokens_k, emb_k, mask_k[:, None, :], ids_k, sa_mask, mod_k
+
+    def adapt_decoder_attention_mask(self, attn_compressed: torch.Tensor,
+                                     mod_ids: torch.Tensor) -> torch.Tensor:
+        """The cumsum-compressed encoding (B, M) -> the (B, M, M) boolean
+        self-attention mask, True = blocked: query i sees the keys before
+        the running sum at i (or, with `decoder_causal_mask`, the keys up to
+        i), and with `decoder_sep_mask` only its own modality's
+        (reference: egom2p_model.py:446-481)."""
+        B, M = attn_compressed.shape
+        device = attn_compressed.device
+        if self.config.decoder_causal_mask:
+            blocked = torch.ones(M, M, dtype=torch.bool, device=device).triu(1)
+            blocked = blocked[None].expand(B, M, M)
+        else:
+            cums = torch.cumsum(attn_compressed, dim=-1)
+            blocked = torch.arange(M, device=device)[None, None, :] >= cums[:, :, None]
+        if self.config.decoder_sep_mask:
+            blocked = blocked | (mod_ids[:, None, :] != mod_ids[:, :, None])
+        return blocked
 
     # ------------------------------------------------------------- backbones
     def _keep_masks(self, blk, branches: int, B: int, generator, device,
@@ -468,6 +510,30 @@ class EgoM2P(nn.Module):
         the sampler applies it to position chunks."""
         return self.decoder_embeddings[target_mod].forward_logits(y, head_weight)
 
+    def forward_dec_autoregressive_hidden(self, target_mod: str, out_ids: torch.Tensor,
+                                          pos_emb: torch.Tensor, context, encoder_mask,
+                                          compute_dtype=None) -> torch.Tensor:
+        """One full re-forward of the decoder over a sequence target's
+        output slots `out_ids` (B, S) (tokens written so far, the rest
+        anything: the causal mask hides them from earlier slots), each slot's
+        token embedding plus `pos_emb` (B, S, D), under a (1, S, S) causal
+        self-attention mask; returns the hidden states (B, S, D)
+        (reference: generate.py:892-903)."""
+        compute_dtype = compute_dtype or self.compute_dtype
+        S = out_ids.shape[1]
+        y = self.decoder_embeddings[target_mod].token_emb(out_ids.long()).to(compute_dtype)
+        y = y + pos_emb[:, :S]
+        causal = torch.ones(S, S, dtype=torch.bool, device=y.device).triu(1)[None]
+        return self.forward_decoder(y, context, encoder_mask, causal)
+
+    def forward_dec_autoregressive_logits(self, target_mod: str, out_ids, pos_emb, context,
+                                          encoder_mask, compute_dtype=None) -> torch.Tensor:
+        """fp32 logits (B, S, V) of every output slot of the re-forward
+        above (egom2p_tpu/models/egom2p.py:forward_dec_autoregressive_logits)."""
+        y = self.forward_dec_autoregressive_hidden(target_mod, out_ids, pos_emb, context,
+                                                   encoder_mask, compute_dtype)
+        return self.forward_mod_logits(target_mod, y)
+
 
 # ----------------------------------------------------------------- registry
 def _cfg(depth, dim, heads, **kw):
@@ -478,8 +544,7 @@ _GELU = dict(mlp_ratio=4.0, qkv_bias=True, act="gelu")
 _SWIGLU = dict(mlp_ratio=4.0, qkv_bias=False, proj_bias=False, mlp_bias=False,
                norm_bias=False, act="silu", gated_mlp=True)
 
-# (reference: egom2p_model.py:882-1196); the causal-decoder variant waits
-# for the autoregressive decoder path
+# (reference: egom2p_model.py:882-1196)
 MODEL_REGISTRY: Dict[str, Dict[str, Any]] = {
     "egom2p_tiny_6e_6d_gelu": _cfg(6, 384, 6, **_GELU),
     "egom2p_small_8e_8d_gelu": _cfg(8, 512, 8, **_GELU),
@@ -489,6 +554,8 @@ MODEL_REGISTRY: Dict[str, Dict[str, Any]] = {
     "egom2p_tiny_6e_6d_swiglu_nobias": _cfg(6, 384, 6, **_SWIGLU),
     "egom2p_small_8e_8d_swiglu_nobias": _cfg(8, 512, 8, **_SWIGLU),
     "egom2p_base_12e_12d_swiglu_nobias": _cfg(12, 768, 12, **_SWIGLU),
+    "egom2p_base_12e_12d_swiglu_nobias_causal": _cfg(
+        12, 768, 12, decoder_causal_mask=True, **_SWIGLU),
     "egom2p_large_24e_24d_swiglu_nobias": _cfg(24, 1020, 15, **_SWIGLU),
     "egom2p_xlarge_24e_24d_swiglu_nobias": _cfg(24, 2046, 31, **_SWIGLU),
     "egom2p_base_12e_12d_swiglu_qknorm_nobias": _cfg(12, 768, 12, qk_norm=True, **_SWIGLU),

@@ -286,13 +286,15 @@ def test_masking_branches_match_jax(tree, weights, inputs, targets):
 
 # ------------------------------------------------------------------ loader
 def test_placeholders_match_jax():
-    for m in ("tok_rgb", "tok_cam", "tok_gaze"):
-        a, b = make_empty_mod_entry(MODALITY_INFO[m]), jax_empty_entry(jax_config_info()[m])
+    """Token grids, a caption's (max_tokens + 1) * 2 packed slots, T5
+    embedding rows and raw pixels: JAX's shapes, dtypes and values."""
+    jax_info = jax_config_info()
+    for m in ("tok_rgb", "tok_cam", "tok_gaze", "caption", "t5_caption", "rgb@224"):
+        a, b = make_empty_mod_entry(MODALITY_INFO[m]), jax_empty_entry(jax_info[m])
         for k in b:
             np.testing.assert_array_equal(a[k], b[k])
             assert a[k].dtype == b[k].dtype
-    with pytest.raises(NotImplementedError):
-        make_empty_mod_entry(MODALITY_INFO["caption"])
+    assert make_empty_mod_entry(MODALITY_INFO["caption"])["tensor"].shape == (514,)
 
 
 def test_mixture_loader_matches_jax(tree):

@@ -350,7 +350,7 @@ def test_transfer_masking_matches_jax():
                 assert a[m][k].dtype == b[m][k].dtype
     assert a["tok_depth"]["decoder_attention_mask"][0] == info["tok_depth"]["max_tokens"]
     assert not a["tok_rgb"]["input_mask"].any() and a["tok_rgb"]["target_mask"].all()
-    # a modality in neither set raises, as JAX's does; text is not ported
+    # a modality in neither set raises, as JAX's does; text needs a tokenizer
     partial = TransferMasking(info, ["tok_rgb"], ["tok_depth"])
     with pytest.raises(ValueError, match="not in input or target set"):
         partial(sample)
@@ -358,7 +358,7 @@ def test_transfer_masking_matches_jax():
         JaxTransferMasking(info, None, ["tok_rgb"], ["tok_depth"])(sample)
     text = copy.deepcopy(info)
     text["tok_cam"]["type"] = "seq"
-    with pytest.raises(NotImplementedError, match="text modalities are not ported"):
+    with pytest.raises(ValueError, match="need a text_tokenizer"):
         TransferMasking(text, ["tok_rgb", "tok_cam"], ["tok_depth", "tok_gaze"])(sample)
 
 

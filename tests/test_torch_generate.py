@@ -98,8 +98,15 @@ def test_init_helpers_and_bucket_match_jax():
             np.testing.assert_array_equal(td[m][k], jd[m][k], err_msg=f"{m}/{k}")
     for n in (0, 1, 255, 256, 257, 1707, 6827, 8534):
         assert tsampler._bucket(n) == jsampler._bucket(n)
-    with pytest.raises(NotImplementedError):
-        tsampler.init_empty_target_modality({}, {"caption": {"type": "seq"}}, "caption", 1, 4)
+    # a caption target and a T5-embedding target: JAX's slots and masks
+    seq_info = {"caption": {"type": "seq"}, "t5": {"type": "seq_emb", "orig_emb_dim": 16}}
+    for mod in seq_info:
+        jd, td = {}, {}
+        jsampler.init_empty_target_modality(jd, seq_info, mod, 2, 6)
+        tsampler.init_empty_target_modality(td, seq_info, mod, 2, 6)
+        for k in jd[mod]:
+            np.testing.assert_array_equal(td[mod][k], jd[mod][k], err_msg=f"{mod}/{k}")
+            assert td[mod][k].dtype == jd[mod][k].dtype
 
 
 @pytest.mark.parametrize("temperature,top_k,top_p", [

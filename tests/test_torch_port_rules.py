@@ -41,6 +41,43 @@ def test_port_sources_do_not_name(pattern, what):
     assert not found, f"{what} in {found}"
 
 
+@pytest.mark.parametrize("path", ["egom2p_torch/utils/__init__.py",
+                                  "egom2p_torch/utils/text_tokenizer.py",
+                                  "egom2p_torch/data/span.py"])
+def test_text_modules_are_the_port_own_copies(path):
+    """The tokenizer and the span functions are the port's own copies of
+    the JAX package's pure-Python modules: covered by the import rule above
+    and importing neither JAX nor the JAX package."""
+    assert REPO / path in PORT_FILES
+    text = (REPO / path).read_text()
+    for pattern in (r"^\s*(import|from)\s+(jax|flax|egom2p_tpu)\b", r"egom2p_tpu\.\w+ import"):
+        assert not re.search(pattern, text, re.MULTILINE), (path, pattern)
+
+
+def test_tokenizers_is_imported_only_to_train_a_tokenizer():
+    """The card's machine has no `tokenizers` package: no source of the port
+    (nor chip_smoke.py) imports it at module level, and the one import is
+    inside train_unified_wordpiece_tokenizer's body."""
+    import ast
+    found = []
+    for p in PORT_FILES + [REPO / "chip_smoke.py"]:
+        if p.suffix != ".py":
+            continue
+        tree = ast.parse(p.read_text())
+        scopes = {}
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for child in ast.walk(node):
+                    scopes.setdefault(id(child), node.name)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n == "tokenizers" or n.startswith("tokenizers.") for n in names):
+                found.append((str(p.relative_to(REPO)), scopes.get(id(node))))
+    assert found and set(found) == {("egom2p_torch/utils/text_tokenizer.py",
+                                     "train_unified_wordpiece_tokenizer")}, found
+
+
 def test_forward_kernel_sources_are_split_by_head_dim():
     """One wgmma forward template serves heads of 64 and 80 (the stock
     route's width-80 instances): it holds no mma.sync product, and no

@@ -219,14 +219,27 @@ def test_forward_mask_decoder_matches_jax(small_models, with_perm):
 
 
 def test_decoder_rejects_sequence_modalities(small_models):
-    _, _, tmodel = small_models
+    """A sequence-type decoder modality is not taken as a token grid: it
+    gets the next-token shift (inputs x[:, :-1], targets ids[:, 1:], a
+    target where either neighbour is), as in the JAX package."""
+    jmodel, params, tmodel = small_models
     info = copy.deepcopy(tmodel.mod_info)
     info["tok_cam"]["type"] = "seq_token"
-    model = create_model(NAME, MODS4, MODS4, modality_info=info)
-    md = to_torch(make_mod_dict(np.random.default_rng(3), tmodel.mod_info,
-                                inputs=(2, 4, 2, 4), targets=(2, 4, 2, 4)))
-    with pytest.raises(NotImplementedError):
-        model.embed_decoder(md)
+    model = create_model(NAME, MODS4, MODS4, modality_info=info, compute_dtype="float32")
+    model.load_state_dict(tmodel.state_dict())
+    jmodel = jax_create_model(NAME, MODS4, MODS4, modality_info=info, compute_dtype="float32")
+    md = make_mod_dict(np.random.default_rng(3), tmodel.mod_info,
+                       inputs=(2, 4, 2, 4), targets=(2, 4, 2, 4))
+    got = {e["mod"]: e for e in model.embed_decoder(to_torch(md))}
+    ref = {e["mod"]: e for e in jmodel.apply(params, to_jax(md),
+                                             method=jmodel.embed_decoder)}
+    L = info["tok_cam"]["max_tokens"]
+    assert got["tok_cam"]["ids"].shape == (2, L - 1)
+    for mod in MODS4:
+        for k in ("x", "emb", "ids", "mask", "attn"):
+            np.testing.assert_allclose(got[mod][k].detach().float().numpy(),
+                                       np.asarray(ref[mod][k], dtype=np.float32),
+                                       atol=1e-6, err_msg=f"{mod} {k}")
 
 
 @pytest.mark.parametrize("loss_type", ["mod", "weighted_mod", "token"])
@@ -336,10 +349,14 @@ def test_masking_and_loader_match_jax(scaled):
 
 
 def test_masking_rejects_sequence_modalities():
+    """Without a text tokenizer a sequence modality is refused, as JAX's
+    UnifiedMasking refuses it."""
     info = _synthetic_info(small_info())
     info["tok_cam"]["type"] = "seq"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="need a text_tokenizer"):
         UnifiedMasking(info, 8, 8, [1.0] * 4)
+    with pytest.raises(AssertionError, match="text_tokenizer"):
+        JaxUnifiedMasking(info, None, 8, 8, [1.0] * 4)
 
 
 def test_accumulated_step_equals_one_step(small_models):

@@ -398,7 +398,12 @@ def test_trainer_on_shards_with_eval_frozen_trunk_and_resume(tmp_path, monkeypat
 
 
 def test_trainer_refuses_what_is_not_ported(trees, tmp_path):
+    """Tensor parallelism raises before anything runs; a text tokenizer
+    path that names no file raises as it is read."""
     pattern, _, _, _ = trees
-    args, _ = shard_args(tmp_path, pattern, "--text_tokenizer_path", "tok.json")
-    with pytest.raises(NotImplementedError, match="text"):
+    args, _ = shard_args(tmp_path, pattern, "--tensor_parallel", "2")
+    with pytest.raises(NotImplementedError, match="tensor"):
+        run_training.main(args)
+    args, _ = shard_args(tmp_path, pattern, "--text_tokenizer_path", str(tmp_path / "tok.json"))
+    with pytest.raises(FileNotFoundError):
         run_training.setup_data(args)
