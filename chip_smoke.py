@@ -75,6 +75,19 @@
    caption2rgb at B = 8: ROAR in 3 steps over 5120 rgb tokens on a seeded
    caption with CFG 2.0 on the caption (the stacked 2B-row step): clips/s
    and 36 flash64 launches a step (12 encoder, 12 + 12 decoder).
+3e. Multi-condition rgb2depth (GenerationSampler.generate_multi_guided)
+   on the served EgoM2P-base and rgb tokens, B = 8: conditions {tok_rgb}
+   and {tok_cam} (seeded cam tokens) at weights [2.0, 1.0], 3 ROAR steps,
+   temperature 0.01, top-p 0.8: generate ms and clips/s (median of 3), 108
+   flash64 launches a generate (one encoder over the stacked 3B rows, the
+   decoder's self and cross attention, 12 each a step), every position
+   filled; a greedy first step with the kernel against its plain version
+   (the tokens that differ, at most MULTI_GREEDY_SHARE); then the encoder
+   context of an EgoM2P-base over rgb@224 pixels (ImagePatchEncoderEmbedding,
+   196 patches) and the rgb tokens, fp32, kernel against plain.
+3f. generate_sam_dense at width 768, 2 + 2 blocks (caption + tok_rgb, a
+   tokenizer.json the phase writes): SAM_BATCH sequences over one clip's
+   rgb tokens, merged into one; ms and flash64 launches.
 4. Training kernel phase at the pretraining step's shapes (B=8, 12 heads,
    N = M = 2048, q/k/v as views of fused projections): the flash64_train
    forward, dq and dk/dv kernels against their plain versions with key
@@ -210,6 +223,26 @@
    batch's step with the kernels against the plain versions; then
    the causal registry model for CAUSAL_STEPS steps (finite, the same
    launches).
+5h. The rgb video VQ-VAE at the CLI's video defaults (16 x 256 x 256 x 3,
+   tubelet 2, patch 16, dim 768, 12 + 12 blocks of 12 heads, B = 8, exact
+   fp32) through cli/run_training_vqvae.main on seeded .npy clips (24 clips,
+   3 steps, the rgb augmentations), its eval with seeded RANDOM InceptionV3
+   and LPIPS-VGG weight files written into EGOM2P_CKPT_DIR (the numbers are
+   of random networks), the image log and --tokenize of 2 clips: step ms,
+   clips/s, TFLOP/s against the FP32 peak, 24 / 24 / 24 forward / dq / dk-dv
+   launches a step (2048 tokens, no mask); one step with the kernels
+   against the plain versions (loss, gradients' relative L2); a profiled
+   step (device time by kernel class, idle share); rows 3-5 at the step's
+   shape (phase 4's no-mask 2048^2 case) beside their bounds and
+   scaled_dot_product_attention.
+5i. cfgs/vqvae/clip_b16.yaml (or its JSON copy CLIP_B16_CONFIG) at B = 64
+   through the CLI on seeded 224 x 224 images with a random bf16 CLIP-B16
+   teacher: steps and images/s, no kernel launch (197 and 196 tokens take
+   the dense path); then one bf16 forward of a random DINOv2-B14 (12
+   flash64_train forward launches at 257 tokens) and of a random
+   ImageBind-H14 (32 stock-route forward launches, 16 heads of 80) at B =
+   8, kernels against plain versions, and each attention kernel at that
+   shape beside its plain version, bound and scaled_dot_product_attention.
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -1588,10 +1621,11 @@ def profile_step(model, optimizer, batch, step_ms):
     _device_breakdown(prof, "step", wall_ms, step_ms)
 
 
-def _device_breakdown(prof, what, wall_ms, ref_ms):
+def _device_breakdown(prof, what, wall_ms, ref_ms, top=0):
     """Prints a trace's device time by kernel class and the device's idle
-    share against `ref_ms`, the same work's time without the profiler."""
-    spans, by_class = [], {}
+    share against `ref_ms`, the same work's time without the profiler (and
+    the `top` longest kernels by name)."""
+    spans, by_class, by_name = [], {}, {}
     for e in prof.events():
         # kernels and copies only: the optimizer's annotated ranges
         # ("Optimizer.step#AdamW.step") also sit on the device timeline
@@ -1602,6 +1636,7 @@ def _device_breakdown(prof, what, wall_ms, ref_ms):
         spans.append((start, end))
         cls = _kernel_class(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + (end - start) / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
     if not spans:  # a measurement, not a check: say so and go on
         print(f"profiled {what}: wall {wall_ms:.1f} ms; the profiler recorded no device "
               f"activity, device time by kernel class not measured")
@@ -1623,6 +1658,8 @@ def _device_breakdown(prof, what, wall_ms, ref_ms):
           f"traced window)")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:24s} {ms:9.2f} ms  {ms / total:6.1%}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:9.2f} ms  {name[:110]}")
 
 
 def _plain_stock_fwd(q, k, v, kv_blocked=None, segments=None, *, hd, sm_scale):
@@ -4109,6 +4146,465 @@ def caption_train_phase(dev):
     return totals
 
 
+# --------------------------------------------- image-domain tokenizers (slice 15)
+MULTI_WEIGHTS = [2.0, 1.0]     # conditions {tok_rgb} and {tok_cam}
+MULTI_LAUNCHES = 3 * (12 + 12 * 2)   # one stacked encoder + decoder self / cross a step
+MULTI_GREEDY_SHARE = 5e-3      # greedy tokens the bf16 kernel may move against its plain version
+VIDEO_ARGS = dict(frames=16, size=256, tubelet=2, patch=16)   # the CLI's video defaults
+VIDEO_CLIPS, VIDEO_CLIP_FRAMES = 24, 20   # 3 steps of 8; windows of 16 in 20 frames
+VIDEO_STEP = dict(NO_LAUNCHES, fwd=24, dq=24, dkv=24)         # 12 + 12 blocks
+VIDEO_EVAL_CLIPS = 2
+FEATURE_IMAGES = 192           # 3 steps at the config's batch of 64
+TEACHER_B = 8
+# bf16 tower: kernels against plain, relative L2 of the map (1.26e-2 seen on
+# ImageBind's 32 blocks, NVIDIA H100 80GB HBM3, 700 W)
+TEACHER_REL_L2 = 3e-2
+SAM_BATCH, SAM_SLOTS = 8, 64
+# cfgs/vqvae/clip_b16.yaml, for a machine without PyYAML
+CLIP_B16_CONFIG = {
+    "run_name": "auto", "domain": "CLIP-B16", "teacher_ckpt": None, "teacher_dtype": "bf16",
+    "vq_dim": 768, "vq_depth": 12, "vq_heads": 12, "codebook_size": 8192, "latent_dim": 32,
+    "norm_codes": True, "quantizer_type": "lucid", "code_replacement_policy": "batch_random",
+    "commitment_weight": 1.0, "quantizer_ema_decay": 0.99, "kmeans_init": False,
+    "loss_fn": "mse", "codebook_weight": 1.0, "dtype": "fp32", "epochs": 100, "opt": "adamw",
+    "opt_betas": [0.9, 0.99], "blr": 0.000025, "warmup_lr": 0.000001, "min_lr": 0.0,
+    "warmup_epochs": 5, "batch_size": 64, "clip_grad": 1.0, "save_ckpt_freq": 10,
+    "output_dir": "output/vqvae_clip_b16", "log_wandb": False}
+
+
+def _multi_inputs(rgb, cam):
+    """(uncond, conds) of multi-condition rgb2depth: every modality with
+    the conditioning emptied; the conditions {tok_rgb} and {tok_cam}."""
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+    from egom2p_torch.generate.sampler import (empty_img_modality, init_empty_target_modality,
+                                               init_full_input_modality)
+    full = {"tok_rgb": {"tensor": rgb.copy()}, "tok_cam": {"tensor": cam.copy()}}
+    for m in full:
+        init_full_input_modality(full, MODALITY_INFO, m)
+    init_empty_target_modality(full, MODALITY_INFO, "tok_depth", rgb.shape[0],
+                               MODALITY_INFO["tok_depth"]["max_tokens"])
+    uncond = {m: {k: np.array(v) for k, v in d.items()} for m, d in full.items()}
+    for m in ("tok_rgb", "tok_cam"):
+        empty_img_modality(uncond[m])
+    return uncond, [{"tok_rgb": full["tok_rgb"]}, {"tok_cam": full["tok_cam"]}]
+
+
+def multi_guided_phase(dev, served):
+    """Phase 3e (docstring): multi-condition rgb2depth and the rgb@224
+    encoder context.  Returns {"launches": per generate, "rgb224_err": x}."""
+    import egom2p_torch.ops.flash64 as f64
+    from egom2p_torch.cli.eval_common import roar_schedule
+
+    model, sampler = served["model"], served["sampler"]
+    rgb = served["rgb"].reshape(served["rgb"].shape[0], -1).cpu().numpy().astype(np.int32)
+    b = rgb.shape[0]
+    cam = np.random.default_rng(15).integers(0, 256, (b, 30)).astype(np.int32)
+
+    def schedule(temperature, steps=3):
+        out = roar_schedule("tok_rgb", "tok_depth", temperature=temperature)[:steps]
+        return [dict(s, cfg_scale=MULTI_WEIGHTS) for s in out]
+
+    def run(sched, seed):
+        uncond, conds = _multi_inputs(rgb, cam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler.generate_multi_guided(uncond, conds, sched, top_p=0.8, seed=seed)
+        torch.cuda.synchronize()
+        return out["tok_depth"], time.perf_counter() - t0
+
+    run(schedule(0.01), 100)  # warm-up
+    times = []
+    for rep in range(3):
+        f64.flash64_attention.launches = 0
+        depth, seconds = run(schedule(0.01), rep)
+        launches = f64.flash64_attention.launches
+        times.append(seconds)
+        print(f"multi-condition rgb2depth run {rep} (B={b}, conditions tok_rgb / tok_cam at "
+              f"{MULTI_WEIGHTS}): generate {seconds * 1e3:.1f} ms, {b / seconds:.3f} clips/s, "
+              f"flash64 launches {launches}")
+        if launches != MULTI_LAUNCHES:
+            raise AssertionError(f"multi-guided generate: {launches} launches, expected "
+                                 f"{MULTI_LAUNCHES}")
+        if not depth["target_mask"].all() or depth["tensor"].min() < 0 \
+                or depth["tensor"].max() >= 64000:
+            raise AssertionError("multi-guided generate: a position unfilled or out of range")
+    gen_ms = float(np.median(times)) * 1e3
+    print(f"multi-condition rgb2depth median: {gen_ms:.1f} ms, {b / gen_ms * 1e3:.3f} clips/s")
+    # greedy first step, the kernel against its plain version
+    kernel = f64.flash64_attention
+    greedy_k, _ = run(schedule(0.0, 1), 7)
+    f64.flash64_attention = f64.flash64_attention_reference
+    try:
+        greedy_p, _ = run(schedule(0.0, 1), 7)
+    finally:
+        f64.flash64_attention = kernel
+    filled = ~greedy_p["input_mask"]
+    if not np.array_equal(filled, ~greedy_k["input_mask"]):
+        raise AssertionError("greedy multi-guided: the positions filled differ")
+    unequal = int((greedy_k["tensor"][filled] != greedy_p["tensor"][filled]).sum())
+    share = unequal / max(int(filled.sum()), 1)
+    print(f"greedy multi-guided step, kernels vs plain: {unequal} of {int(filled.sum())} "
+          f"tokens differ ({share:.2e}; tolerance {MULTI_GREEDY_SHARE:g})")
+    if share > MULTI_GREEDY_SHARE:
+        raise AssertionError("greedy multi-guided tokens: the kernel disagrees with plain")
+    return {"launches": launches, "generate_ms": gen_ms,
+            "rgb224_err": rgb224_context_check(dev, served["rgb"])}
+
+
+def rgb224_context_check(dev, rgb_tokens):
+    """The encoder context of EgoM2P-base over rgb@224 pixels (196 patches)
+    and the rgb tokens, fp32, the kernel against its plain version."""
+    import egom2p_torch.ops.flash64 as f64
+    from egom2p_torch.models.egom2p import create_model
+    from egom2p_torch.ops.attention import inference_attention
+
+    model = create_model(BASE_MODEL, ("rgb@224", "tok_rgb"), ("tok_depth",), device=dev).eval()
+    model.init_random_(torch.Generator(device=dev).manual_seed(4))
+    b = rgb_tokens.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    md = {"rgb@224": {"tensor": torch.rand((b, 224, 224, 3), generator=gen, device=dev) * 2 - 1,
+                      "input_mask": torch.zeros((b, 196), dtype=torch.bool, device=dev)},
+          "tok_rgb": {"tensor": rgb_tokens.reshape(b, -1),
+                      "input_mask": torch.zeros((b, rgb_tokens[0].numel()), dtype=torch.bool,
+                                                device=dev)}}
+    n = 196 + rgb_tokens[0].numel()
+    n = -(-n // 256) * 256
+    kernel = f64.flash64_attention
+    with torch.inference_mode(), inference_attention():
+        f64.flash64_attention.launches = 0
+        ctx_k, _ = model.forward_enc_context(md, n, torch.float32)
+        launches = f64.flash64_attention.launches
+        f64.flash64_attention = f64.flash64_attention_reference
+        try:
+            ctx_p, _ = model.forward_enc_context(md, n, torch.float32)
+        finally:
+            f64.flash64_attention = kernel
+    err = (ctx_k - ctx_p).abs().max().item()
+    print(f"rgb@224 + tok_rgb encoder context (B={b}, {n} tokens), fp32, kernel vs plain: "
+          f"max_abs_err {err:.3e} (tolerance {CONTEXT_ATOL:g}), {launches} flash64 launches")
+    if not torch.isfinite(ctx_k).all() or err > CONTEXT_ATOL \
+            or launches != model.config.encoder_depth:
+        raise AssertionError("rgb@224 encoder context disagrees with plain attention")
+    return err
+
+
+def write_random_metric_weights(directory):
+    """RANDOM (seeded) InceptionV3 and LPIPS-VGG weight files at the
+    published shapes in `directory`: the metrics' code runs on the card; the
+    numbers they give mean nothing (no published weights are in the repo)."""
+    from egom2p_torch.core import inception_v3, vgg_features
+    rng = np.random.default_rng(21)
+    os.makedirs(directory, exist_ok=True)
+    np.savez(os.path.join(directory, "lpips_vgg.npz"), **vgg_features.random_weights(rng))
+    np.savez(os.path.join(directory, "inception_v3.npz"),
+             **inception_v3.random_weights(rng, n_classes=1008))
+    print(f"RANDOM seeded LPIPS-VGG and InceptionV3 (1008 classes) weights written to "
+          f"{directory}: the LPIPS / FID / IS numbers below are of random networks")
+
+
+def video_vqvae_flops_per_sample(frames=16, size=256, tubelet=2, patch=16, dim=768, depth=12,
+                                 channels=3, latent=32, codes=256):
+    """Model FLOPs of one video VQ-VAE training clip: the tubelet patchify
+    and the unpatchify products, 2 x depth blocks over the (frames / t) x
+    (size / p)^2 tokens (qkv, proj, MLP 4x; QK^T and AV), the quant
+    projections and the codebook lookup; forward times 3."""
+    n = (frames // tubelet) * (size // patch) ** 2
+    pix = tubelet * patch * patch * channels
+    per_token = 2 * depth * (24 * dim ** 2 + 4 * n * dim) + 2 * 2 * pix * dim
+    per_token += 4 * dim * latent + 2 * codes * latent
+    return 3 * n * per_token
+
+
+def _write_video_clips(root, n, frames, size, seed):
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        np.save(os.path.join(root, f"clip{i:03d}.npy"),
+                rng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8))
+    return root
+
+
+def video_vqvae_phase(dev, tmp, train_rows):
+    """Phase 5h (docstring): the rgb video VQ-VAE at the CLI's video
+    defaults.  Returns {"launches": per step, "step_ms": x, ...}."""
+    from egom2p_torch.cli import run_training_vqvae
+    from egom2p_torch.train.vqvae_train import make_vqvae_train_step, reconst_loss
+
+    va = VIDEO_ARGS
+    clips = _write_video_clips(os.path.join(tmp, "video_clips"), VIDEO_CLIPS, VIDEO_CLIP_FRAMES,
+                               va["size"], 16)
+    tok_dir = _write_video_clips(os.path.join(tmp, "video_tok"), 2, va["frames"], va["size"], 17)
+    ckpt_dir = os.path.join(tmp, "metric_weights")
+    write_random_metric_weights(ckpt_dir)
+    out = os.path.join(tmp, "video_vqvae")
+    argv = ["--domain", "rgb", "--data_path", clips, "--use_npy", "--num_frames",
+            str(va["frames"]), "--input_size", str(va["size"]), "--tubelet_size",
+            str(va["tubelet"]), "--patch_size", str(va["patch"]), "--batch_size", str(B),
+            "--epochs", "1", "--warmup_epochs", "0", "--eval_freq", "1",
+            "--num_eval_metrics_samples", str(VIDEO_EVAL_CLIPS), "--output_dir", out,
+            "--async_save", "false", "--print_freq", "1", "--device", "cuda"]
+    per_step, seconds = [], []
+
+    def on_step(step, metrics, secs):
+        per_step.append(_counts())
+        seconds.append(secs)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _env(EGOM2P_CKPT_DIR=ckpt_dir):
+        res = run_training_vqvae.main(argv, on_step=on_step)
+    run_s = time.perf_counter() - t0
+    prev = {k: 0 for k in per_step[0]}
+    for i, counts in enumerate(per_step):
+        step = {k: counts[k] - prev[k] for k in counts}
+        prev = counts
+        if step != VIDEO_STEP:
+            raise AssertionError(f"video VQ-VAE step {i}: launches {step}, expected {VIDEO_STEP}")
+    metrics = res["metrics"]
+    if not all(math.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"video VQ-VAE: non-finite losses {metrics}")
+    log = [json.loads(line) for line in open(os.path.join(out, "log.txt"))]
+    wanted = {"eval_mse", "eval_psnr", "eval_lpips", "eval_fid", "eval_inception_score",
+              "eval_codebook_usage"} | ({"eval_ms_ssim"} if va["size"] >= 176 else set())
+    if not wanted <= set(log[-1]) or not all(math.isfinite(log[-1][k]) for k in wanted):
+        raise AssertionError(f"video VQ-VAE eval: {log[-1]}")
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    flops = video_vqvae_flops_per_sample(va["frames"], va["size"], va["tubelet"], va["patch"]) * B
+    print(f"video VQ-VAE (rgb, {va['frames']} x {va['size']}^2, tubelet {va['tubelet']}, patch "
+          f"{va['patch']}, the CLI's dim 768, 12 + 12 blocks, 12 heads; {sum(p.numel() for p in res['tokenizer'].net.parameters()) / 1e6:.1f}M "
+          f"params; exact fp32): steps {[round(s * 1e3, 1) for s in seconds]} ms, median "
+          f"{step_ms:.1f} ms, {B / step_ms * 1e3:.2f} clips/s, {flops / step_ms / 1e9:.1f} "
+          f"TFLOP/s ({flops / step_ms / 1e9 / FP32_PEAK_TFLOPS:.1%} of the FP32 peak), launches "
+          f"a step {VIDEO_STEP['fwd']} / {VIDEO_STEP['dq']} / {VIDEO_STEP['dkv']}; first loss "
+          f"{metrics[0]['loss']:.4f}; the CLI run {run_s:.1f} s with its eval "
+          f"(random LPIPS / Inception: lpips {log[-1]['eval_lpips']:.4f}, fid "
+          f"{log[-1]['eval_fid']:.2f}, IS {log[-1]['eval_inception_score']:.3f}; ms_ssim "
+          f"{log[-1].get('eval_ms_ssim', float('nan')):.4f}, psnr {log[-1]['eval_psnr']:.2f})")
+    ckpt = os.path.join(out, "checkpoint-final.pth")
+    t0 = time.perf_counter()
+    paths = run_training_vqvae.main(argv + ["--tokenize", "--resume", ckpt, "--tokenize_path",
+                                            tok_dir, "--tokenize_save_path", out])
+    tokens = [np.load(p)["arr_0"] for p in paths]
+    grid = (va["frames"] // va["tubelet"], va["size"] // va["patch"], va["size"] // va["patch"])
+    if any(t.shape != grid or t.dtype != np.int16 or t.min() < 0 or t.max() >= 256
+           for t in tokens):
+        raise AssertionError(f"--tokenize: {[(t.shape, t.dtype) for t in tokens]}")
+    print(f"--tokenize of {len(paths)} clips: {time.perf_counter() - t0:.2f} s, {grid} int16 "
+          "tokens each")
+    # one step, the kernels against their plain versions
+    net, optimizer = res["tokenizer"].net, res["optimizer"]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    batch = torch.rand((B, va["frames"], va["size"], va["size"], 3), generator=gen,
+                       device=dev) * 2 - 1
+    st = net.quantize.state
+    saved = type(st)(embed=st.embed.clone(), cluster_size=st.cluster_size.clone(),
+                     initted=st.initted.clone())
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        pred, commit, _ = net.autoencode_train(batch)
+        loss = reconst_loss(pred, batch, "mse", 3) + commit
+        loss.backward()
+        net.quantize.set_state(saved)
+        return loss.item(), [p.grad.float().clone() for p in net.parameters()]
+
+    before = _counts()
+    loss_k, g_k = grads()
+    after = _counts()
+    if {k: after[k] - before[k] for k in after} != VIDEO_STEP:
+        raise AssertionError("the video step check missed a kernel")
+    with _swapped(_plain_versions("default")):
+        loss_p, g_p = grads()
+    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(g_k, g_p)))
+    den = math.sqrt(sum((b ** 2).sum().item() for b in g_p))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"video VQ-VAE step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.2e}; tolerance {STEP_LOSS_RTOL:g}), gradient rel L2 difference "
+          f"{num / den:.2e} (tolerance {STEP_GRAD_REL_L2:g})")
+    if not math.isfinite(loss_k) or loss_rel > STEP_LOSS_RTOL or num / den > STEP_GRAD_REL_L2:
+        raise AssertionError("the video VQ-VAE step with the kernels disagrees with plain")
+    del g_k, g_p
+    net.zero_grad(set_to_none=True)
+    # a profiled step
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = make_vqvae_train_step(net, optimizer)
+    step_fn(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _device_breakdown(prof, "video VQ-VAE step", wall_ms, step_ms, top=12)
+    # rows 3-5 at this step's shape: the no-mask 2048^2 case of the training kernel phase
+    no_mask = [r for r in train_rows if r["case"] == "self-attention, 2048^2, no mask"]
+    for r in no_mask:
+        print(f"rows 3-5 at the video step's shape (B={B}, 2048^2, 12 heads of 64, no mask, "
+              f"{r['mode']}): kernel ms " + " ".join(f"{k} {v:.3f}" for k, v in r["ms"].items())
+              + f"; bounds fwd {attention_bound_ms(2, B, HEADS, 2048, 2048, 64)[0]:.3f}, dq "
+              f"{attention_bound_ms(3, B, HEADS, 2048, 2048, 64, 3, 2)[0]:.3f}, dk/dv "
+              f"{attention_bound_ms(4, B, HEADS, 2048, 2048, 64, 2, 4)[0]:.3f}; "
+              f"scaled_dot_product_attention fwd {r['library_ms']['fwd']:.3f}, bwd "
+              f"{r['library_ms']['bwd']:.3f}; errors "
+              + " ".join(f"{k} {v:.2e}" for k, v in r["err"].items()))
+    return {"launches": VIDEO_STEP, "step_ms": step_ms, "no_mask": no_mask[0]}
+
+
+def _teacher_attention_row(dev, spec, heads, hd):
+    """The attention kernel of a teacher's block at its shape (B, 257
+    tokens, no mask) against its plain version, timed, with its bound and
+    scaled_dot_product_attention."""
+    import egom2p_torch.ops.flash64_train as ft
+    import egom2p_torch.ops.flash_attention as fa
+
+    n = 1 + spec.grid ** 2
+    rng = np.random.default_rng(19)
+    C = heads * hd
+    qkv = _randn(rng, (TEACHER_B, n, 3 * C), dev)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    if hd == 64:
+        kernel = lambda: ft.flash64_train_fwd(q, k, v)  # noqa: E731
+        plain = lambda: ft.flash64_train_reference_fwd(q, k, v, None, None, False)  # noqa: E731
+    else:  # the stock route's packed operands at the kernel's width 80
+        kw = dict(hd=hd, sm_scale=hd ** -0.5)
+        qp, kp, vp = (t.contiguous() for t in (q, k, v))
+        kernel = lambda: fa.flash_attention_fwd(qp, kp, vp, **kw)  # noqa: E731
+        plain = lambda: ft.flash64_train_reference_fwd(qp, kp, vp, None, None, True, **kw)  # noqa
+    o, _ = kernel()
+    ro, _ = plain()
+    err = (o.float() - ro.float()).abs().max().item()
+    ms, plain_ms = _cuda_time_ms(kernel, 20), _cuda_time_ms(plain, 3, 1)
+    lib, _, _ = _sdpa_ms(*(_split_heads(t, heads) for t in (q, k, v)), reps=20)
+    bound = attention_bound_ms(2, TEACHER_B, heads, n, n, hd)
+    print(f"{spec.name} attention (B={TEACHER_B}, {n} tokens, {heads} heads of {hd}, no mask): "
+          f"max_abs_err {err:.2e}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), scaled_dot_product_attention {lib:.4f} ms")
+    if err > TRAIN_O_ATOL:
+        raise AssertionError(f"{spec.name}: the attention kernel disagrees with plain: {err}")
+    return {"shape": [TEACHER_B, n, heads, hd], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib}
+
+
+def teacher_check(dev, domain, wrapper, expected):
+    """One bf16 forward of a full-size random teacher at B = TEACHER_B,
+    the kernels against their plain versions; `expected` launches of
+    `wrapper` (a key of _counts) in the kernel run."""
+    from egom2p_torch.models.teachers import get_feature_extractor
+
+    teacher, spec = get_feature_extractor(domain, None,
+                                          torch.Generator(device=dev).manual_seed(20), dev)
+    if spec.layerscale:  # at its init of 1e-5 LayerScale hides every block from the map
+        for blk in teacher.blocks:
+            blk.ls1.data.fill_(1.0)
+            blk.ls2.data.fill_(1.0)
+    teacher = teacher.to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.rand((TEACHER_B, 224, 224, 3), generator=gen, device=dev) * 2 - 1
+    with torch.no_grad():
+        before = _counts()
+        feats_k = teacher(x).float()
+        launches = _counts()[wrapper] - before[wrapper]
+        with _swapped(_plain_versions("default") + _plain_versions("large")):
+            feats_p = teacher(x).float()
+    rel = _rel_l2(feats_k, feats_p)
+    n_params = sum(p.numel() for p in teacher.parameters()) / 1e6
+    print(f"{domain} teacher (bf16, random weights, {n_params:.1f}M params), B={TEACHER_B}: "
+          f"features {tuple(feats_k.shape)}, kernels vs plain relative L2 {rel:.2e} (tolerance "
+          f"{TEACHER_REL_L2:g}), {launches} {wrapper} launches")
+    if launches != expected or not torch.isfinite(feats_k).all() or rel > TEACHER_REL_L2:
+        raise AssertionError(f"{domain} teacher: {launches} launches, rel L2 {rel}")
+    del teacher
+    return spec, launches
+
+
+def feature_vqvae_phase(dev, tmp):
+    """Phase 5i (docstring): cfgs/vqvae/clip_b16.yaml at B = 64 on a random
+    bf16 CLIP-B16 teacher, then DINOv2-B14 and ImageBind-H14 forwards.
+    Returns {"step_ms", "dino": row 3's teacher row, "imagebind": row 9's}."""
+    from egom2p_torch.cli import run_training_vqvae
+
+    imgs = np.random.default_rng(22).integers(0, 256, (FEATURE_IMAGES, 224, 224, 3),
+                                              dtype=np.uint8)
+    data = os.path.join(tmp, "images.npy")
+    np.save(data, imgs)
+    try:
+        import yaml  # noqa: F401
+        cfg = os.path.join(REPO_DIR, "cfgs/vqvae/clip_b16.yaml")
+    except ImportError:
+        cfg = os.path.join(tmp, "clip_b16.json")
+        with open(cfg, "w") as f:
+            json.dump(CLIP_B16_CONFIG, f)
+    seconds = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = run_training_vqvae.main(
+        ["--config", cfg, "--data_path", data, "--epochs", "1", "--warmup_epochs", "0",
+         "--eval_freq", "0", "--async_save", "false", "--print_freq", "1",
+         "--output_dir", os.path.join(tmp, "clip_b16"), "--device", "cuda"],
+        on_step=lambda step, metrics, secs: seconds.append(secs))
+    launches = _counts()
+    b = CLIP_B16_CONFIG["batch_size"]
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    print(f"CLIP-B16 feature VQ-VAE ({os.path.basename(cfg)}: dim 768, 12 + 12 blocks, 8192 "
+          f"codes; random bf16 CLIP-B16 teacher), B={b}: steps "
+          f"{[round(s * 1e3, 1) for s in seconds]} ms, median {step_ms:.1f} ms, "
+          f"{b / step_ms * 1e3:.1f} images/s, first loss {res['metrics'][0]['loss']:.4f}; "
+          f"kernel launches {launches} (196 + 197 tokens: the dense path); "
+          f"{time.perf_counter() - t0:.1f} s with the teacher and the data")
+    if not all(math.isfinite(m["loss"]) for m in res["metrics"]) or any(launches.values()):
+        raise AssertionError("CLIP-B16 feature VQ-VAE: non-finite loss or a kernel launched")
+    del res
+    torch.cuda.empty_cache()
+    dino, _ = teacher_check(dev, "DINOv2-B14", "fwd", 12)
+    dino_row = _teacher_attention_row(dev, dino, 12, 64)
+    imagebind, _ = teacher_check(dev, "ImageBind-H14", "stock_fwd", 32)
+    imagebind_row = _teacher_attention_row(dev, imagebind, 16, 80)
+    return {"step_ms": step_ms, "dino": dino_row, "imagebind": imagebind_row}
+
+
+def sam_dense_phase(dev, served, tmp):
+    """Phase 3f (docstring): generate_sam_dense at width 768, 2 + 2 blocks.
+    Returns the flash64 launches."""
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+    from egom2p_torch.generate.sampler import (GenerationSampler, init_empty_target_modality,
+                                               init_full_input_modality)
+    from egom2p_torch.generate.schedules import build_chained_generation_schedules
+    from egom2p_torch.models.egom2p import create_model
+    from egom2p_torch.ops.flash64 import flash64_attention
+    from egom2p_torch.utils.text_tokenizer import load_text_tokenizer, write_wordpiece_json
+
+    tok = load_text_tokenizer(write_wordpiece_json(os.path.join(tmp, "sam_tokenizer.json"),
+                                                   CAPTION_WORDS))
+    mods = ("caption", "tok_rgb")
+    model = create_model(BASE_MODEL, mods, mods, device=dev, encoder_depth=2,
+                         decoder_depth=2).eval()
+    model.init_random_(torch.Generator(device=dev).manual_seed(23))
+    rgb = served["rgb"][:1].reshape(1, -1).cpu().numpy().astype(np.int32)
+    md = {"tok_rgb": {"tensor": rgb}}
+    init_full_input_modality(md, MODALITY_INFO, "tok_rgb")
+    init_empty_target_modality(md, MODALITY_INFO, "caption", 1, SAM_SLOTS)
+    schedule = build_chained_generation_schedules(
+        ["tok_rgb"], ["caption"], [SAM_SLOTS], ["autoregressive"], [0], ["linear"], [0.01],
+        ["constant"], [1.0], ["constant"])
+    flash64_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = GenerationSampler(model).generate_sam_dense(md, schedule, tok, batch_size=SAM_BATCH,
+                                                      key="caption", top_p=0.8, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    seq = out["caption"]["tensor"]
+    launches = flash64_attention.launches
+    print(f"generate_sam_dense (EgoM2P-base width, 2 + 2 blocks, caption + tok_rgb; "
+          f"{SAM_BATCH} sequences over one clip's rgb tokens, {SAM_SLOTS} slots): "
+          f"{seconds * 1e3:.1f} ms, merged sequence {seq.shape[1]} ids, {launches} flash64 "
+          "launches")
+    if seq.shape[0] != 1 or seq.shape[1] < 1 or seq.min() < 0 \
+            or seq.max() >= MODALITY_INFO["caption"]["vocab_size"] or launches < 2:
+        raise AssertionError(f"generate_sam_dense: {seq.shape}, {launches} launches")
+    return launches
+
+
 def _demangled(names):
     """{mangled: demangled} by the toolkit's cu++filt (the mangled name where
     it is missing)."""
@@ -4215,6 +4711,8 @@ def main() -> int:
         evaluated = phase(eval_phase, dev, served, ckpt_dir)
         seq_evaluated = phase(seq_eval_phase, dev, served, ckpt_dir, evaluated["ckpt"])
         captioned = phase(caption_serve_phase, dev, served, ckpt_dir)
+        multi = phase(multi_guided_phase, dev, served)
+        sam_launches = phase(sam_dense_phase, dev, served, ckpt_dir)
     served.clear()  # the training phases need the card's memory
     torch.cuda.empty_cache()
     train_rows = phase(train_kernel_phase, dev)
@@ -4224,6 +4722,9 @@ def main() -> int:
     caption_launches = phase(caption_train_phase, dev)
     remat_launches, large_remat_launches = phase(remat_phase, dev)
     pipeline_launches = phase(tokenizer_pipeline_phase, dev)
+    with tempfile.TemporaryDirectory() as image_dir:
+        video = phase(video_vqvae_phase, dev, image_dir, train_rows)
+        features = phase(feature_vqvae_phase, dev, image_dir)
     dp_launches = phase(data_parallel_phase, dev, first_metrics, default_ms)
     fsdp_launches, fsdp_step_launches = phase(fsdp_phase, dev, first_metrics, default_ms)
     fused_rows = phase(fused_bwd_phase, dev)
@@ -4255,7 +4756,9 @@ def main() -> int:
         eval_launches={**evaluated["launches"], **seq_evaluated["launches"]},
         rgb2cam_b1=seq_evaluated["b1"],
         caption_launches={k: captioned[k] for k in ("rgb2caption", "caption2rgb")},
-        ar_cross=captioned["ar_cross"])
+        ar_cross=captioned["ar_cross"], multi_guided_launches=multi["launches"],
+        multi_guided_ms=multi["generate_ms"], rgb224_context_err=multi["rgb224_err"],
+        sam_dense_launches=sam_launches)
     add("flash64_fwd_safemax", "flash64_fwd.cu", "flash64.py:119", safemax_launches, max_err,
         rows[1]["ms"], rows[1]["plain_ms"], serve_bound, rows[1]["library_ms"],
         exp2_bound_ms=serve_exp2)
@@ -4271,8 +4774,15 @@ def main() -> int:
                     "fsdp_launches": fsdp_launches[part],
                     "fsdp_launches_per_step": fsdp_step_launches[part],
                     "caption_train_launches": caption_launches[BASE_MODEL][part],
-                    "causal_train_launches": caption_launches[CAUSAL_MODEL][part]}
+                    "causal_train_launches": caption_launches[CAUSAL_MODEL][part],
+                    "video_vqvae_launches_per_step": video["launches"][part]}
              for part in ("fwd", "dq", "dkv", "ce_fwd")}
+    no_mask = video["no_mask"]  # rows 3-5 at the video step's shape, 2048^2 with no mask
+    paths["fwd"]["video_no_mask"] = {"ms": no_mask["ms"]["fwd"], "max_abs_err": no_mask["err"]["o"]}
+    paths["dq"]["video_no_mask"] = {"ms": no_mask["ms"]["dq"], "max_abs_err": no_mask["err"]["dq"]}
+    paths["dkv"]["video_no_mask"] = {"ms": no_mask["ms"]["dkv"],
+                                     "max_abs_err": max(no_mask["err"]["dk"], no_mask["err"]["dv"])}
+    paths["fwd"]["dinov2_b14_teacher"] = features["dino"]
     for name, src, line, part, keys, products, tensors, lib, more in (
             ("flash64_train_fwd", "flash64_fwd.cu", 69, "fwd", ("o",), 2, (2, 2), step_lib["fwd"],
              {"exp2_bound_ms": exp2_bound_ms(B, HEADS, 2048, 2048, SM_CLOCK_MHZ)}),
@@ -4316,7 +4826,8 @@ def main() -> int:
         stock_rows[0]["plain_ms"]["fwd"],
         attention_bound_ms(2, B, LARGE_HEADS, 2048, 2048, LARGE_HD), lib["fwd"],
         library_math_ms=lib["math_fwd"], instance="head_dim 80",
-        large_b8_remat_launches=large_remat_launches["stock_fwd"])
+        large_b8_remat_launches=large_remat_launches["stock_fwd"],
+        imagebind_h14_teacher=features["imagebind"])
     add("stock_flash_bwd", "flash64_train.cu", "flash_attention.py:93",
         large_launches["stock_bwd"], stock_errs("dq", "dk", "dv"), stock_rows[0]["ms"]["bwd"],
         stock_rows[0]["plain_ms"]["bwd"],

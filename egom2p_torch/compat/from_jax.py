@@ -12,9 +12,14 @@ exist with the right shape, and none may be left over.
     emb_proj_0 / emb_proj_1 (bottleneck)  -> emb_proj, emb_proj.0 / emb_proj.1
   flax Conv kernel (kt, kh, kw, in, out)  -> torch Conv3d weight (out, in, kt, kh, kw)
   flax Conv kernel (k, in, out)           -> torch Conv1d weight (out, in, k)
+  flax Conv kernel (kh, kw, in, out)      -> torch Conv2d weight (out, in, kh, kw)
   seq VQ-VAE quant_proj Dense (in, out)   -> 1x1 Conv1d weight (out, in, 1)
   CausalNormalize scale / bias            -> <module>.norm.weight / .bias
   VQState embed / cluster_size / initted  -> quantize._codebook.<same>
+  blocks_<i>                              -> blocks.<i>
+  image_raw encoder_embeddings_<m>/proj   -> encoder_embeddings.<m>.proj.weight
+  ViTTeacher cls_token / pos_embed / proj,
+    LayerScale ls1 / ls2                  -> the same names (proj stays (width, feat))
 """
 from __future__ import annotations
 
@@ -81,6 +86,9 @@ def egom2p_state_dict_from_jax(variables: Mapping, model) -> Dict[str, torch.Ten
         elif re.fullmatch(r"(en|de)coder_embeddings_.+", p0) and path[1:] == ("token_emb",):
             side, mod = p0.split("_embeddings_", 1)
             sd[f"{side}_embeddings.{mod}.token_emb.weight"] = arr
+        elif p0.startswith("encoder_embeddings_") and path[1:] == ("proj", "kernel"):
+            # the raw-pixel patch projection (image_raw)
+            sd[f"encoder_embeddings.{p0[len('encoder_embeddings_'):]}.proj.weight"] = arr.T
         elif p0.startswith("encoder_embeddings_") and path[1].startswith("emb_proj"):
             mod = p0[len("encoder_embeddings_"):]
             base = f"encoder_embeddings.{mod}.{path[1].replace('emb_proj_', 'emb_proj.')}"
@@ -182,3 +190,52 @@ def seq_vqvae_state_dict_from_jax(variables: Mapping, vq_state, tokenizer) -> Di
             getattr(vq_state, name), dtype=np.float32).reshape(
                 tokenizer.net.quantize._codebook.get_buffer(name).shape)
     return _checked(sd, tokenizer.net)
+
+
+# ---------------------------------------------- video / feature VQ-VAEs
+def _dotted(path: Tuple[str, ...]) -> str:
+    return ".".join(f"blocks.{p[len('blocks_'):]}" if p.startswith("blocks_") else p
+                    for p in path)
+
+
+def _kernel(arr: np.ndarray) -> np.ndarray:
+    """A flax Dense / Conv kernel in torch's layout."""
+    if arr.ndim == 2:  # (in, out) -> (out, in)
+        return arr.T
+    return arr.transpose(arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))  # (..., in, out)
+
+
+def video_vqvae_state_dict_from_jax(variables: Mapping, vq_state, tokenizer
+                                    ) -> Dict[str, torch.Tensor]:
+    """Flax VideoAutoencoder (or FeatureAutoencoder) variables and a VQState
+    -> state dict for `tokenizer.net` (egom2p_torch VideoVQTokenizer /
+    FeatureVQTokenizer): the tubelet Conv kernel (t, p, p, C, D) -> (D, C,
+    t, p, p), Dense kernels transposed, blocks_<i> -> blocks.<i>."""
+    net = tokenizer.net
+    sd: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(_params(variables)).items():
+        base, leaf = _dotted(path[:-1]), path[-1]
+        sd[f"{base}.{'weight' if leaf == 'kernel' else leaf}"] = (
+            _kernel(arr) if leaf == "kernel" else arr)
+    for name in ("embed", "cluster_size", "initted"):
+        sd[f"quantize._codebook.{name}"] = np.array(
+            getattr(vq_state, name), dtype=np.float32).reshape(
+                net.quantize._codebook.get_buffer(name).shape)
+    return _checked(sd, net)
+
+
+# the feature VQ-VAE's tree follows the same rules
+feature_vqvae_state_dict_from_jax = video_vqvae_state_dict_from_jax
+
+
+def teacher_state_dict_from_jax(variables: Mapping, teacher) -> Dict[str, torch.Tensor]:
+    """Flax ViTTeacher variables -> state dict for `teacher` (egom2p_torch
+    models/teachers.py:ViTTeacher): the patchify Conv kernel (p, p, 3, W)
+    -> (W, 3, p, p), Dense kernels transposed; cls_token, pos_embed, the
+    top-level `proj` (width, feat) and LayerScale ls1 / ls2 as they are."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(_params(variables)).items():
+        base, leaf = _dotted(path[:-1]), path[-1]
+        key = f"{base}.{'weight' if leaf == 'kernel' else leaf}" if base else leaf
+        sd[key] = _kernel(arr) if leaf == "kernel" else arr
+    return _checked(sd, teacher)

@@ -30,6 +30,7 @@ import re
 import threading
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -247,14 +248,7 @@ def load_seq_vqvae_pth(path: str, domain: str, device="cpu", **config) -> SeqTok
     overrides the released widths (seq_vqvae_from_config); every key of the
     file is checked against them.  Keys ending in `pos_emb` (fixed sincos
     tables, which the port computes) are skipped, as in load_egom2p_pth."""
-    ckpt = load_pth(path)
-    sd = dict(ckpt.get("model", ckpt))
-    initted = "quantize._codebook.initted"
-    if initted in sd and sd[initted].numel() == 1:  # a flag in any one-element form
-        sd[initted] = sd[initted].reshape(1)
-    tok = seq_vqvae_from_config(domain, **config)
-    copy_state_dict(tok.net, sd, f"{domain} tokenizer weights {path}",
-                    ignore=lambda key: key.endswith("pos_emb"))
+    tok = load_vqvae_pth(path, seq_vqvae_from_config(domain, **config), f"{domain} tokenizer")
     tok.net.to(device)
     return tok
 
@@ -264,3 +258,83 @@ def save_seq_vqvae_pth(tokenizer: SeqTokenizer, path: str) -> str:
     state_dict} with the codebook buffers."""
     torch.save({"model": {k: v.cpu() for k, v in tokenizer.net.state_dict().items()}}, path)
     return path
+
+
+# (the reference's DiVAE key, the port's key, what each block copies)
+_DIVAE_BLOCK_KEYS = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+                     "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
+                     "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
+
+
+@torch.no_grad()
+def load_divae_encoder_warm_start(safetensors_path: str, net: nn.Module,
+                                  verbose: bool = True) -> Tuple[list, list]:
+    """Warm-start a video VQ-VAE's encoder (tokenizers/video_vqvae.py's
+    VideoAutoencoder) from 4M DiVAE rgb-tokenizer weights in a local
+    .safetensors file (reference: egom2p/vq/vqvae.py:501-554,
+    --init_weights; egom2p_tpu/compat/torch_convert.py:
+    load_divae_encoder_warm_start):
+
+      * the 2-D patch projection `encoder.proj` fills the CENTRAL frame of
+        the tubelet projection (the other frames keep their init);
+      * each encoder block copies norm1 / attn.qkv / attn.proj / norm2 /
+        mlp.fc1 / mlp.fc2 where the file has them;
+      * quant_proj takes the 1x1 conv's (or a linear's) weight and bias.
+
+    The file's keys with no target here (the 2-D encoder's norm_mlp /
+    post_mlp) are skipped and reported.  Returns (copied, skipped) keys.
+    (The JAX package's version asks its LayerNorms for a `scale` they name
+    `weight`, so it leaves the blocks' norm weights at their init; this one
+    copies them, as the reference does.)"""
+    from egom2p_torch.core.safetensors import read_safetensors
+
+    sd = read_safetensors(safetensors_path)
+    own = dict(net.named_parameters())
+    copied, skipped = [], []
+
+    def put(key: str, value) -> None:
+        dst = own[key]
+        value = torch.as_tensor(np.asarray(value, dtype=np.float32))
+        if tuple(dst.shape) != tuple(value.shape):
+            raise ValueError(f"DiVAE warm start: {key} is {tuple(dst.shape)}, "
+                             f"the file gives {tuple(value.shape)}")
+        dst.copy_(value)
+        copied.append(key)
+
+    if "encoder.proj.weight" in sd:
+        w = own["encoder.patch_embed.weight"]          # (D, C, t, p, p)
+        w[:, :, w.shape[2] // 2] = torch.as_tensor(sd["encoder.proj.weight"]).to(w)
+        copied.append("encoder.patch_embed.weight")
+        if "encoder.proj.bias" in sd:
+            put("encoder.patch_embed.bias", sd["encoder.proj.bias"])
+    for i in range(len(net.encoder.blocks)):
+        for name in _DIVAE_BLOCK_KEYS:
+            key = f"encoder.blocks.{i}.{name}"
+            (put(key, sd[key]) if key in sd else skipped.append(key))
+    if "quant_proj.weight" in sd:
+        w = sd["quant_proj.weight"]
+        put("quant_proj.weight", w.reshape(w.shape[0], -1))
+        if "quant_proj.bias" in sd:
+            put("quant_proj.bias", sd["quant_proj.bias"])
+    used = set(copied) | {"encoder.proj.weight", "encoder.proj.bias"}
+    skipped += sorted(k for k in sd if k not in used)
+    if verbose:
+        print(f"DiVAE warm start: copied {len(copied)} tensors, skipped {len(skipped)} keys "
+              "without a source or a target")
+    return copied, skipped
+
+
+def load_vqvae_pth(path: str, tokenizer, what: str):
+    """A trainer checkpoint or a reference .pth ({"model": state_dict}, or a
+    bare state dict) of a VQ-VAE into `tokenizer.net` (any tokenizer of
+    tokenizers/*_vqvae.py, built at the checkpoint's widths), every key
+    checked; keys ending in `pos_emb` (fixed sincos tables, which the port
+    computes) are skipped, as in load_egom2p_pth.  Returns the tokenizer."""
+    ckpt = load_pth(path)
+    sd = dict(ckpt.get("model", ckpt))
+    initted = "quantize._codebook.initted"
+    if initted in sd and sd[initted].numel() == 1:  # a flag in any one-element form
+        sd[initted] = sd[initted].reshape(1)
+    copy_state_dict(tokenizer.net, sd, f"{what} weights {path}",
+                    ignore=lambda key: key.endswith("pos_emb"))
+    return tokenizer

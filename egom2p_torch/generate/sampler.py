@@ -26,7 +26,13 @@ draws differ from jax.random's: compare greedy tokens, candidate sets and
 probabilities across the packages, never sampled tokens.  Top-K is exact
 `torch.topk` over the 128-candidate set (the JAX side's EGOM2P_EXACT_TOPK=1).
 
-Not ported yet: multi-guided generation and dense SAM instances.
+`generate_multi_guided` is weighted multi-condition guidance,
+l_u + sum_i w_i (l_c_i - l_u), with each finished target joining the
+conditions; its step stacks [cond_1, ..., cond_n, uncond] into one
+(n + 1) B-row batch through the encoder and decoder and mixes them in
+chunked_head_sample.  `generate_sam_dense` runs a sequence target's
+generation batch_size times over one shared conditioning and concatenates
+the merged spans into one long sequence.
 """
 from __future__ import annotations
 
@@ -143,6 +149,18 @@ def init_full_input_modality(mod_dict, modality_info, domain, eos_id: int = 3):
         d["input_mask"][:, :eos_idx + 1] = False
         d["input_mask"][:, eos_idx + 1:] = True
         d["target_mask"][:] = True
+    return mod_dict
+
+
+def expand_to_batch(mod_dict, batch_size):
+    """Every array of batch 1 repeated to `batch_size` rows, in place
+    (reference: generate.py:185-195)."""
+    for mod, d in mod_dict.items():
+        for k, v in d.items():
+            if v.shape[0] == 1:
+                d[k] = np.repeat(v, batch_size, axis=0)
+            elif v.shape[0] != batch_size:
+                raise ValueError(f"bad batch dim for {mod}/{k}")
     return mod_dict
 
 
@@ -551,6 +569,117 @@ class GenerationSampler:
                                 "target_mask": np.ones((B, max_len), dtype=bool),
                                 "decoder_attention_mask": np.zeros((B, max_len), dtype=np.int32)}
         return n_gen
+
+    # ------------------------------------------------- multi-guided variant
+    @torch.inference_mode()
+    def generate_multi_guided(self, uncond_dict, cond_dicts, schedule, top_k: float = 0.0,
+                              top_p: float = 0.0, seed: Optional[int] = None):
+        """Weighted multi-condition generation of image-type targets
+        (egom2p_tpu/generate/sampler.py:generate_multi_guided; reference:
+        generate.py:1170-1229).  `uncond_dict` holds every modality (the
+        conditioning ones emptied); each of `cond_dicts` holds a subset of
+        conditioning modalities, and a modality it lacks is taken from
+        `uncond_dict` fully masked.  A schedule step's `cfg_scale` is one
+        weight for every condition or a list of them; when the target
+        changes, the finished one joins as a further condition (weighted as
+        the list's last).  Each step stacks [cond_1, ..., cond_n, uncond]
+        into one batch: the encoder over (n + 1) B rows at the bucketed
+        length, the decoder over the chosen positions, and
+        chunked_head_sample's mix l_u + sum_i w_i (l_c_i - l_u).  Positions
+        come from np.random.default_rng(seed + step) as in the JAX sampler.
+        Returns the updated uncond dict (numpy)."""
+        uncond = {m: {k: _to_numpy(v) for k, v in d.items()} for m, d in uncond_dict.items()}
+        conds = [{m: {k: _to_numpy(v) for k, v in d.items()} for m, d in c.items()}
+                 for c in cond_dicts]
+        cur_target = schedule[0]["target_domain"]
+        for c in conds:
+            c[cur_target] = copy.deepcopy(uncond[cur_target])
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed if seed is not None else 0)
+        with inference_attention():
+            for step, s in enumerate(schedule):
+                target_mod = s["target_domain"]
+                if cur_target != target_mod:
+                    # the finished modality becomes an extra condition
+                    # (reference: generate.py:1192-1210)
+                    for c in conds:
+                        del c[cur_target]
+                        c[target_mod] = copy.deepcopy(uncond[target_mod])
+                    uncond[cur_target]["input_mask"][:] = True
+                    new_cond = {cur_target: copy.deepcopy(uncond[cur_target]),
+                                target_mod: copy.deepcopy(uncond[target_mod])}
+                    new_cond[cur_target]["input_mask"][:] = False
+                    new_cond[cur_target]["target_mask"][:] = True
+                    conds.append(new_cond)
+                    cur_target = target_mod
+                rng = np.random.default_rng((seed or 0) + step)
+                open_mask = ~uncond[target_mod]["target_mask"]
+                n_remaining = int(open_mask[0].sum())
+                if n_remaining == 0:
+                    continue
+                k = min(s["num_tokens"], n_remaining)
+                ids_keep = self._select_positions(~open_mask, k, rng, s["scheme"] == "roar")
+                # [cond_1 .. cond_n, uncond]; a modality a condition lacks is
+                # uncond's, fully masked
+                stacked = None
+                for c in conds + [uncond]:
+                    filled = dict(c)
+                    for m in uncond:
+                        if m not in filled:
+                            masked = {kk: np.array(vv) for kk, vv in uncond[m].items()}
+                            masked["input_mask"][:] = True
+                            filled[m] = masked
+                    stacked = filled if stacked is None else self._stack_dicts(stacked, filled)
+                weights = list(np.atleast_1d(np.asarray(s["cfg_scale"], dtype=float)))
+                if len(weights) == 1:
+                    weights = weights * len(conds)
+                while len(weights) < len(conds):  # the generated modalities' conditions
+                    weights.append(weights[-1])
+                dev = self._to_device(stacked)
+                ids = torch.from_numpy(np.concatenate([ids_keep] * (len(conds) + 1))).to(
+                    self.device, torch.int64)
+                context, enc_mask = self.model.forward_enc_context(
+                    dev, _bucket(self._num_enc_tokens(stacked)))
+                y = self.model.forward_dec_subset_hidden(dev, target_mod, context, enc_mask, ids)
+                samples, _ = chunked_head_sample(
+                    self.model, target_mod, y, tuple(weights[:len(conds)]), generator,
+                    s["temperature"], top_k, top_p, self.info[target_mod]["vocab_size"])
+                samples = samples.cpu().numpy()
+                rows = np.arange(ids_keep.shape[0])[:, None]
+                for dd in [uncond] + conds:
+                    t = dd[target_mod]
+                    t["tensor"][rows, ids_keep] = samples.astype(t["tensor"].dtype)
+                    t["input_mask"][rows, ids_keep] = False
+                    t["target_mask"][rows, ids_keep] = True
+        return uncond
+
+    def generate_sam_dense(self, mod_dict, schedule, text_tokenizer, batch_size: int = 16,
+                           key: str = "sam_instance", top_k: float = 0.0, top_p: float = 0.0,
+                           seed: Optional[int] = None):
+        """Dense instance prediction: the sequence target `key` generated
+        batch_size times over one shared conditioning (the batch-1
+        `mod_dict` repeated), each row's output merged into its input's
+        sentinel spans, and the merged rows concatenated into one long
+        (1, L) sequence (egom2p_tpu/generate/sampler.py:generate_sam_dense;
+        reference: generate.py:1231-1274).  Only the schedule's steps of
+        `key` run.  Returns a copy of `mod_dict` with `key` replaced."""
+        mod_dict = {m: {k: _to_numpy(v) for k, v in d.items()} for m, d in mod_dict.items()}
+        expanded = expand_to_batch({m: {k: np.array(v) for k, v in d.items()}
+                                    for m, d in mod_dict.items()}, batch_size)
+        out = self.generate(expanded, [s for s in schedule if s["target_domain"] == key],
+                            top_k=top_k, top_p=top_p, seed=seed, text_tokenizer=text_tokenizer)
+        sentinel_ids = set(get_sentinel_to_id_mapping(text_tokenizer).values())
+        row, merged = out[key], []
+        for i in range(batch_size):
+            inp = row["tensor"][i][~row["input_mask"][i]].tolist()
+            tgt = row["tensor"][i][~row["target_mask"][i]].tolist()
+            merged.extend(merge_span_masking(inp, tgt, sentinel_ids))
+        merged_arr = np.asarray(merged, dtype=np.int32)[None]
+        mod_dict[key] = {"tensor": merged_arr,
+                         "input_mask": np.zeros(merged_arr.shape, dtype=bool),
+                         "target_mask": np.ones(merged_arr.shape, dtype=bool),
+                         "decoder_attention_mask": np.zeros(merged_arr.shape, dtype=np.int32)}
+        return mod_dict
 
     # ------------------------------------------------------------ public API
     def generate_iter(self, mod_dict, schedule, top_k: float = 0.0, top_p: float = 0.0,

@@ -7,8 +7,9 @@ its `token_emb` table and its modality embedding `mod_emb`, as the reference
 does; EgoM2P ties the decoder's `mod_emb` to the encoder's for shared
 modalities (reference: egom2p_model.py:179-183) unless the config unshares
 them.  The decoder head is tied to `token_emb` (reference:
-decoder_embeddings.py:89-91); an untied `to_logits` head and the raw-pixel
-patch embedding (`image_raw`) are not ported.
+decoder_embeddings.py:89-91); an untied `to_logits` head is not ported.
+Raw pixels (`image_raw`: rgb@224, rgb@448) enter through a bias-free patch
+projection (ImagePatchEncoderEmbedding).
 
 A sequence's positions are the running count of its visible slots: the
 n-th visible slot (input slots in the encoder, target slots in the
@@ -179,6 +180,34 @@ class SequenceEmbEncoderEmbedding(_SequencePositions):
         return x, self.positions(d["input_mask"].bool(), compute_dtype, False)
 
 
+class ImagePatchEncoderEmbedding(nn.Module):
+    """Raw-pixel patch projection (reference: encoder_embeddings.py:395-492;
+    egom2p_tpu/models/embeddings.py:ImagePatchEncoderEmbedding): (B, H, W,
+    C) channel-last pixels -> (B, H/p * W/p, D) by a bias-free product over
+    each patch's pixels in (ph, pw, C) order (the reference's '(ph pw d)'
+    rearrange, so converted weights line up), with the 2-D sincos posemb
+    of the configured image size plus the modality embedding; the input
+    mask is per patch."""
+
+    def __init__(self, num_channels: int, patch_size: int, image_size: int, dim: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Linear(patch_size * patch_size * num_channels, dim, bias=False)
+        self.mod_emb = nn.Parameter(torch.zeros(1, 1, dim))
+        g = image_size // patch_size
+        self.register_buffer("pos_emb", torch.from_numpy(build_2d_sincos_posemb(g, g, dim)),
+                             persistent=False)
+
+    def forward(self, d: Dict[str, torch.Tensor], compute_dtype=torch.bfloat16):
+        x = d["tensor"]
+        B, H, W, C = x.shape
+        p = self.patch_size
+        x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
+        x = self.proj(x.reshape(B, (H // p) * (W // p), p * p * C).to(compute_dtype))
+        emb = (self.pos_emb + self.mod_emb).to(compute_dtype).expand(B, -1, -1)
+        return x, emb
+
+
 def _grid_of(spec: Dict) -> Tuple[int, ...]:
     if spec["kind"] in ("video_token", "image_token"):
         return tuple(spec["grid"])
@@ -197,7 +226,8 @@ def make_encoder_embedding(spec: Dict, dim: int) -> nn.Module:
                                            dim, spec.get("use_bottleneck", False),
                                            spec.get("bottleneck_dim", 64))
     if kind == "image_raw":
-        raise NotImplementedError("the raw-pixel patch embedding (image_raw) is not ported")
+        return ImagePatchEncoderEmbedding(spec.get("num_channels", 3), spec["patch_size"],
+                                          spec["image_size"], dim)
     raise ValueError(f"embedding kind {kind!r}")
 
 

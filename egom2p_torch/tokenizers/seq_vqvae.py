@@ -21,7 +21,8 @@ reference .pth loads with a key-checked copy (core/checkpoint.py).  The
 tokenizer computes in fp32, as the JAX package's default; on the card its
 products run in exact fp32 unless `SeqTokenizer.tf32` allows TF32.
 
-Training: `SeqAutoencoder.autoencode_train` is the forward of the JAX train
+Training: `VQAutoencoder.autoencode_train` (the base this file shares with
+the video and feature VQ-VAEs) is the forward of the JAX train
 step (egom2p_tpu/train/vqvae_train.py:make_vqvae_train_step): it quantizes
 through ops/vq.py:vq_forward under the codebook as it was, then writes the
 updated codebook (EMA statistics, expired codes replaced) into the buffers;
@@ -162,30 +163,26 @@ class Quantizer(nn.Module):
             buf.copy_(getattr(state, name).reshape(buf.shape).to(buf))
 
 
-class SeqAutoencoder(nn.Module):
-    """Encoder + quant / post-quant projections + codebook + decoder."""
+class VQAutoencoder(nn.Module):
+    """What the EMA-codebook VQ-VAEs share (this file's SeqAutoencoder,
+    tokenizers/video_vqvae.py, tokenizers/feature_vqvae.py): an `encoder`,
+    `quant_proj`, the `quantize` codebook buffers, `post_quant_proj`, a
+    `decoder`, and `n_channels`, the data's channels (the target's without
+    gaze's validity channel).  Latents are channel-last (B, ..., latent_dim):
+    a sequence, a (t, h, w) or an (h, w) grid; the codebook sees them
+    flattened in row-major order, as the JAX train step reshapes them."""
 
-    def __init__(self, n_channels: int, num_frames: int = 60, latent_dim: int = 32,
-                 temporal_compress: int = 2, mask_input: bool = False, dim: int = 768,
-                 depth: int = 12, num_heads: int = 12, vq_cfg: VQConfig = None):
-        super().__init__()
-        self.encoder = SeqEncoder(n_channels, num_frames, dim, depth, num_heads,
-                                  temporal_compress=temporal_compress, mask_input=mask_input)
-        self.decoder = SeqDecoder(n_channels, num_frames, dim, depth, num_heads,
-                                  temporal_compress=temporal_compress)
-        self.quant_proj = Conv1x1(dim, latent_dim)
-        self.post_quant_proj = Conv1x1(latent_dim, dim)
-        self.quantize = Quantizer(vq_cfg or VQConfig(dim=latent_dim))
+    n_channels: int
 
     def encode_latents(self, x):
-        return self.quant_proj(self.encoder(x))  # (B, T', latent_dim)
+        return self.quant_proj(self.encoder(x))
 
     def decode_latents(self, quant):
         return self.decoder(self.post_quant_proj(quant))
 
     def autoencode_train(self, x, **draws):
-        """(B, T, C) -> (reconstruction (B, T, C'), commitment loss, tokens
-        (B, T')), differentiable, as the JAX train step's loss computes them
+        """(B, ...) -> (reconstruction, commitment loss, tokens (B, ...)),
+        differentiable, as the JAX train step's loss computes them
         (egom2p_tpu/train/vqvae_train.py:77-89): the decoder sees the codes
         of the codebook as it was before this batch; the codebook buffers
         then take the batch's update.  `draws` go to
@@ -199,7 +196,7 @@ class SeqAutoencoder(nn.Module):
         return self.decode_latents(quant), commit, tokens
 
     @torch.no_grad()
-    def init_random_(self, generator: torch.Generator) -> "SeqAutoencoder":
+    def init_random_(self, generator: torch.Generator) -> "VQAutoencoder":
         """Random weights from `generator` (on the module's device), as
         flax's defaults: lecun-normal (std fan_in^-0.5) weights, zero
         biases, unit norm scales; a fresh codebook (ops/vq.py)."""
@@ -216,13 +213,30 @@ class SeqAutoencoder(nn.Module):
         return self
 
 
-class SeqTokenizer:
-    """Bundles a SeqAutoencoder (fp32, eval mode) with the user-facing calls
+class SeqAutoencoder(VQAutoencoder):
+    """Encoder + quant / post-quant projections + codebook + decoder."""
+
+    def __init__(self, n_channels: int, num_frames: int = 60, latent_dim: int = 32,
+                 temporal_compress: int = 2, mask_input: bool = False, dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, vq_cfg: VQConfig = None):
+        super().__init__()
+        self.n_channels = n_channels
+        self.encoder = SeqEncoder(n_channels, num_frames, dim, depth, num_heads,
+                                  temporal_compress=temporal_compress, mask_input=mask_input)
+        self.decoder = SeqDecoder(n_channels, num_frames, dim, depth, num_heads,
+                                  temporal_compress=temporal_compress)
+        self.quant_proj = Conv1x1(dim, latent_dim)
+        self.post_quant_proj = Conv1x1(latent_dim, dim)
+        self.quantize = Quantizer(vq_cfg or VQConfig(dim=latent_dim))
+
+
+class VQTokenizer:
+    """Bundles a VQAutoencoder (fp32, eval mode) with the user-facing calls
     of the reference's VQVAE (vqvae.py:285-362): encode / tokenize /
     decode_tokens / autoencode.  Inputs may be numpy or tensors on any
     device; outputs are tensors on the tokenizer's device."""
 
-    def __init__(self, net: SeqAutoencoder):
+    def __init__(self, net: VQAutoencoder):
         self.net = net.float().eval()
         # whether the card's fp32 products may run on TF32 while the tokenizer
         # computes; the JAX default is exact fp32
@@ -254,7 +268,8 @@ class SeqTokenizer:
         return torch.as_tensor(x).to(self.device, torch.float32)
 
     def encode(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, T, C) -> (quantized latents (B, T', D), tokens (B, T'))."""
+        """(B, ...) -> (quantized latents (B, ..., D), tokens (B, ...)):
+        (B, T, C) -> (B, T', D), (B, T') for the sequence tokenizers."""
         with self._precision():
             lat = self.net.encode_latents(self._input(x))
             return vq_lookup(self.vq_cfg, self.vq_state, lat)
@@ -263,7 +278,7 @@ class SeqTokenizer:
         return self.encode(x)[1]
 
     def decode_tokens(self, tokens) -> torch.Tensor:
-        """(B, T') token ids -> (B, T, C) fp32."""
+        """(B, ...) token ids -> the decoded data, fp32."""
         with self._precision():
             quant = indices_to_embedding(self.vq_state, tokens)
             return self.net.decode_latents(quant)
@@ -272,6 +287,10 @@ class SeqTokenizer:
         quant, _ = self.encode(x)
         with self._precision():
             return self.net.decode_latents(quant)
+
+
+class SeqTokenizer(VQTokenizer):
+    """A cam or gaze tokenizer: (B, T, C) -> (B, T') tokens."""
 
 
 def seq_vqvae_from_config(domain: str, generator: torch.Generator = None,

@@ -1,16 +1,22 @@
-"""The VQ-VAE tokenizer trainer's evaluation: reconstruction loss and the cam
-/ gaze metric suite, on the live weights and on their EMA.
+"""The VQ-VAE tokenizer trainer's evaluation: reconstruction loss and the
+per-domain metric suite, on the live weights and on their EMA.
 
 Port of egom2p_tpu/train/vqvae_eval.py (reference: run_training_vqvae.py:
-1296-1757) for the cam and gaze domains:
+1296-1757):
 
   * `evaluate_loss`: the mean reconstruction loss over the eval set (the
     commitment term is a training loss; eval tracks reconstruction);
   * `eval_metrics`: cam (MSE, MAE of the translation, PSNR and the geodesic
-    rotation error in degrees, on denormalized 9D trajectories) or gaze
-    (MSE / MAE / PSNR over the valid frames of the denormalized points),
-    plus the codebook usage over windows of 256 samples' tokens; on the
-    port's numpy copies core/metrics.py and data/cam_gaze.py;
+    rotation error in degrees, on denormalized 9D trajectories), gaze
+    (MSE / MAE / PSNR over the valid frames of the denormalized points), the
+    teacher-feature domains (MSE / MAE / PSNR at data range 1, as the
+    reference's DENSE_FEAT_MODALITIES), or rgb / depth clips streamed batch
+    by batch (`_video_metrics_stream`: MSE / MAE / PSNR, and for rgb in
+    [0, 1] per frame MS-SSIM, LPIPS, FID and the Inception score where
+    their weight files are in EGOM2P_CKPT_DIR, core/image_metrics.py; depth
+    on the standardized channel), plus the codebook usage over windows of
+    256 samples' tokens; on the port's numpy copies core/metrics.py and
+    data/cam_gaze.py;
   * `run_eval_suite`: both on the live weights, then the metric suite again
     on the EMA weights (`ema_` keys) when the trainer keeps an EMA.
 
@@ -18,8 +24,7 @@ Under a process group (the data-parallel trainer) rank 0 evaluates the
 whole eval set alone and every rank returns its results (one broadcast):
 the same metrics as one process, on weights every rank holds alike.  The
 metrics are not sums a reduction could split (PSNR, rotation errors,
-codebook usage over windows).  Not ported yet: the video and feature
-domains (MS-SSIM, FID, LPIPS, Inception score).
+codebook usage over windows).
 """
 from __future__ import annotations
 
@@ -31,10 +36,11 @@ import torch
 
 from egom2p_torch.core import metrics as M
 from egom2p_torch.data.cam_gaze import denormalize_cam, denormalize_gaze
-from egom2p_torch.tokenizers.seq_vqvae import SeqTokenizer
+from egom2p_torch.tokenizers.seq_vqvae import VQTokenizer
 from egom2p_torch.train.vqvae_train import reconst_loss
 
 SEQ_DOMAINS = ("cam", "gaze")
+VIDEO_DOMAINS = ("rgb", "depth")
 
 
 def _batches_of(data, batch_size: int, limit: Optional[int] = None):
@@ -48,12 +54,12 @@ def _batches_of(data, batch_size: int, limit: Optional[int] = None):
         yield np.stack([data[j] for j in range(i, min(i + batch_size, n))])
 
 
-def _autoencode_and_tokens(tok: SeqTokenizer, batch: np.ndarray):
+def _autoencode_and_tokens(tok: VQTokenizer, batch: np.ndarray):
     """Reconstruction and tokens of a batch, as numpy."""
     return tok.autoencode(batch).cpu().numpy(), tok.tokenize(batch).cpu().numpy()
 
 
-def evaluate_loss(tok: SeqTokenizer, data, loss_fn: str, codebook_weight: float,
+def evaluate_loss(tok: VQTokenizer, data, loss_fn: str, codebook_weight: float,
                   batch_size: int, n_channels: int, limit: Optional[int] = None) -> Dict[str, float]:
     """Mean eval losses (egom2p_tpu/train/vqvae_eval.py:evaluate_loss;
     reference `evaluate`, run_training_vqvae.py:1421-1504): eval_loss is the
@@ -87,14 +93,19 @@ def _gaze_metrics(pred, gt) -> Dict[str, float]:
     return {"mse": M.mse(pm, gm), "mae": M.mae(pm, gm), "psnr": M.psnr(pm, gm, data_range=1.0)}
 
 
-def eval_metrics(tok: SeqTokenizer, data, domain: str, codebook_size: int, batch_size: int,
-                 limit: Optional[int] = None) -> Dict[str, float]:
-    """The cam or gaze metric suite (egom2p_tpu/train/vqvae_eval.py:
+def eval_metrics(tok: VQTokenizer, data, domain: str, codebook_size: int, batch_size: int,
+                 limit: Optional[int] = None, no_inception: bool = False) -> Dict[str, float]:
+    """The domain's metric suite (egom2p_tpu/train/vqvae_eval.py:
     eval_metrics; reference: run_training_vqvae.py:1507-1757) under the
     tokenizer's current weights."""
-    if domain not in SEQ_DOMAINS:
-        raise NotImplementedError(f"eval domain {domain!r}: the video and feature domains' "
-                                  "metrics are not ported (ROADMAP Queue 1 item 9)")
+    if domain in VIDEO_DOMAINS:
+        # clips are large: batches stream into sums and feature lists
+        # (reference :1598-1652, torchmetrics' update())
+        return _video_metrics_stream(tok, data, domain, batch_size, limit, no_inception,
+                                     codebook_size) or {}
+    from egom2p_torch.models.teachers import TEACHER_SPECS
+    if domain not in SEQ_DOMAINS and domain not in TEACHER_SPECS:
+        raise ValueError(f"unknown eval domain {domain!r}")
     preds, gts, all_tokens = [], [], []
     for batch in _batches_of(data, batch_size, limit):
         rec, tokens = _autoencode_and_tokens(tok, batch)
@@ -104,11 +115,93 @@ def eval_metrics(tok: SeqTokenizer, data, domain: str, codebook_size: int, batch
     if not preds:
         return {}
     pred, gt, tokens = np.concatenate(preds), np.concatenate(gts), np.concatenate(all_tokens)
-    results = _cam_metrics(pred, gt) if domain == "cam" else _gaze_metrics(pred, gt)
+    if domain == "cam":
+        results = _cam_metrics(pred, gt)
+    elif domain == "gaze":
+        results = _gaze_metrics(pred, gt)
+    else:
+        # feature domains: the three metrics the reference builds for
+        # DENSE_FEAT_MODALITIES (run_training_vqvae.py:1546-1562, data_range 1)
+        results = {"mse": M.mse(pred, gt), "mae": M.mae(pred, gt),
+                   "psnr": M.psnr(pred, gt, data_range=1.0)}
     # codebook usage over 256-sample windows (reference :1711-1719)
     results["codebook_usage"] = M.codebook_usage(tokens, codebook_size,
                                                  window=256 * tokens.shape[1])
     return results
+
+
+def _video_metrics_stream(tok: VQTokenizer, data, domain: str, batch_size: int, limit,
+                          no_inception: bool, codebook_size: int) -> Optional[Dict[str, float]]:
+    """rgb / depth metrics over streamed batches (egom2p_tpu/train/
+    vqvae_eval.py:_video_metrics_stream): MSE / MAE sums (PSNR from the
+    global MSE), per-frame MS-SSIM and LPIPS means, and one InceptionV3
+    forward per split feeding FID and IS.  rgb in [0, 1] per frame
+    (reference :1598-1652), depth on the standardized channel (:1604-1608).
+    LPIPS and Inception run on the tokenizer's device where their weight
+    files exist, and are left out where they do not."""
+    from egom2p_torch.core.image_metrics import (MissingPretrainedWeights, fid_from_features,
+                                                 get_inception_fns, get_lpips,
+                                                 inception_score_from_probs, ms_ssim)
+
+    lpips = inception = None
+    if domain == "rgb":
+        try:
+            lpips = get_lpips(tok.device)
+        except MissingPretrainedWeights:
+            pass
+        try:
+            inception = get_inception_fns(tok.device)
+        except MissingPretrainedWeights:
+            pass
+    data_range = 1.0 if domain == "rgb" else 2.0
+    sq = ab = n_el = 0.0
+    ssim_sum = lpips_sum = frames_n = 0.0
+    feats_r, feats_f, probs_f, tokens_list = [], [], [], []
+    ssim_ok = True
+    for batch in _batches_of(data, batch_size, limit):
+        rec, tokens = _autoencode_and_tokens(tok, batch)
+        tokens_list.append(tokens.reshape(len(batch), -1))
+        if domain == "rgb":
+            # [-1, 1] -> [0, 1] (reference denormalize mean / std 0.5, :1599-1601)
+            p, g = np.clip(rec * 0.5 + 0.5, 0.0, 1.0), batch * 0.5 + 0.5
+        else:
+            p, g = rec, batch
+        diff = p - g
+        sq += float(np.sum(diff ** 2))
+        ab += float(np.sum(np.abs(diff)))
+        n_el += diff.size
+        if domain == "rgb":
+            fp = p.reshape(-1, *p.shape[-3:])  # (B*T, H, W, C) frames
+            fg = g.reshape(-1, *g.shape[-3:])
+            ssim_ok = min(fp.shape[-3:-1]) >= 176  # the 5-scale minimum side
+            if ssim_ok:
+                ssim_sum += ms_ssim(fp, fg, data_range=1.0) * len(fp)
+            if lpips is not None:
+                lpips_sum += lpips(fp * 2 - 1, fg * 2 - 1) * len(fp)
+            if inception is not None:
+                feature_fn, _, run = inception
+                f, pr = run(fp)  # one forward feeds FID's fake side and IS
+                feats_f.append(f)
+                probs_f.append(pr)
+                feats_r.append(feature_fn(fg))
+            frames_n += len(fp)
+    if not tokens_list:
+        return None
+    m = sq / n_el
+    out = {"mse": m, "mae": ab / n_el,
+           "psnr": float("inf") if m == 0 else float(10 * np.log10(data_range ** 2 / m))}
+    if domain == "rgb" and frames_n:
+        if ssim_ok:
+            out["ms_ssim"] = ssim_sum / frames_n
+        if lpips is not None:
+            out["lpips"] = lpips_sum / frames_n
+        if inception is not None:
+            out["fid"] = fid_from_features(np.concatenate(feats_r), np.concatenate(feats_f))
+            if not no_inception:
+                out["inception_score"] = inception_score_from_probs(np.concatenate(probs_f))
+    tokens = np.concatenate(tokens_list)
+    out["codebook_usage"] = M.codebook_usage(tokens, codebook_size, window=256 * tokens.shape[1])
+    return out
 
 
 @contextlib.contextmanager
@@ -128,9 +221,10 @@ def swapped_params(net: torch.nn.Module, params: Dict[str, torch.Tensor]):
                 p.copy_(saved[n])
 
 
-def run_eval_suite(tok: SeqTokenizer, data, domain: str, codebook_size: int, loss_fn: str,
+def run_eval_suite(tok: VQTokenizer, data, domain: str, codebook_size: int, loss_fn: str,
                    codebook_weight: float, batch_size: int, limit: Optional[int] = None,
-                   ema: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, float]:
+                   ema: Optional[Dict[str, torch.Tensor]] = None,
+                   no_inception: bool = False) -> Dict[str, float]:
     """The `eval_during_training` analog (egom2p_tpu/train/vqvae_eval.py:
     run_eval_suite; reference :1296-1419): the loss and the metric suite on
     the live weights, then the metric suite on the EMA weights (with the
@@ -141,17 +235,18 @@ def run_eval_suite(tok: SeqTokenizer, data, domain: str, codebook_size: int, los
     results = None
     if distributed.is_main_process():
         results = _eval_suite(tok, data, domain, codebook_size, loss_fn, codebook_weight,
-                              batch_size, limit, ema)
+                              batch_size, limit, ema, no_inception)
     return distributed.broadcast_object(results)
 
 
 def _eval_suite(tok, data, domain, codebook_size, loss_fn, codebook_weight, batch_size,
-                limit, ema) -> Dict[str, float]:
-    n_channels = tok.net.encoder.in_channels
-    out = dict(evaluate_loss(tok, data, loss_fn, codebook_weight, batch_size, n_channels, limit))
-    out.update(eval_metrics(tok, data, domain, codebook_size, batch_size, limit))
+                limit, ema, no_inception) -> Dict[str, float]:
+    out = dict(evaluate_loss(tok, data, loss_fn, codebook_weight, batch_size, tok.net.n_channels,
+                             limit))
+    out.update(eval_metrics(tok, data, domain, codebook_size, batch_size, limit, no_inception))
     if ema is not None:
         with swapped_params(tok.net, ema):
-            ema_out = eval_metrics(tok, data, domain, codebook_size, batch_size, limit)
+            ema_out = eval_metrics(tok, data, domain, codebook_size, batch_size, limit,
+                                   no_inception)
         out.update({f"ema_{k}": v for k, v in ema_out.items()})
     return out

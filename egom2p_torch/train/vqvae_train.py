@@ -1,4 +1,5 @@
-"""The cam / gaze VQ-VAE tokenizer's training step.
+"""The VQ-VAE tokenizers' training step (cam / gaze, rgb / depth video,
+teacher features).
 
 Port of egom2p_tpu/train/vqvae_train.py (reference:
 run_training_vqvae.py:1011-1074, 1076-1419) for the lucid quantizer, on one
@@ -9,8 +10,10 @@ device or data-parallel over a process group:
   * reconstruction losses `mse` and `mse_mask` (the gaze target's last
     channel weights each frame);
   * the codebook's commitment loss and EMA update from ops/vq.py through
-    SeqAutoencoder.autoencode_train: the decoder sees the codes of the
-    codebook as it was before the batch;
+    VQAutoencoder.autoencode_train (tokenizers/seq_vqvae.py): the decoder
+    sees the codes of the codebook as it was before the batch;
+  * the video domains' optional perceptual term, percept_weight x
+    percept_loss(pred, target) (core/image_metrics.py:make_perceptual_loss);
   * the optimizer is core/optim.py's Optimizer (the caller builds the
     VQ-VAE chain: clipping, unmasked AdamW, freeze_masked for
     --freeze_enc), and the EMA of the weights (reference ModelEma) follows
@@ -28,7 +31,7 @@ update, and the weights, the codebook and the weights' EMA stay equal on
 every rank.
 
 Not ported yet: the gradient-trained quantizers (taming, memcodes:
-make_grad_vqvae_train_step) and the perceptual loss of the video domains.
+make_grad_vqvae_train_step).
 """
 from __future__ import annotations
 
@@ -83,12 +86,15 @@ def make_vqvae_train_step(net: nn.Module, optimizer: Optimizer, loss_fn: str = "
                           codebook_weight: float = 1.0,
                           ema: Optional[Dict[str, torch.Tensor]] = None,
                           ema_decay: Optional[float] = None,
-                          ema_update_freq: int = 1) -> Callable[..., Dict[str, torch.Tensor]]:
-    """The train step of a SeqAutoencoder `net`
+                          ema_update_freq: int = 1, percept_loss: Optional[Callable] = None,
+                          percept_weight: float = 0.0) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The train step of a VQAutoencoder `net`
     (egom2p_tpu/train/vqvae_train.py:make_vqvae_train_step).
 
-    `step(batch, **draws)` runs one step on a (B, T, C) fp32 batch on the
-    net's device: loss = reconst + codebook_weight * commit, its gradients,
+    `step(batch, **draws)` runs one step on an fp32 batch on the net's
+    device ((B, T, C) sequences, (B, T, H, W, C) clips, (B, h, w, d)
+    feature maps): loss = reconst + codebook_weight * commit (+
+    percept_weight * percept_loss(pred, batch) when both are set), its gradients,
     the optimizer's step, the codebook's update and, with `ema` and
     `ema_decay`, the weights' EMA.  `draws` pick the replacements of
     expired codes (vq_forward's `generator`, or `replace_idx` /
@@ -98,7 +104,7 @@ def make_vqvae_train_step(net: nn.Module, optimizer: Optimizer, loss_fn: str = "
     a process group `batch` is this rank's rows and the metrics are the
     global batch's (the module docstring)."""
 
-    n_channels = net.encoder.in_channels
+    n_channels = net.n_channels
     codebook_size = net.quantize.cfg.codebook_size
     parallel = distributed.initialized()
     world = distributed.world_size()
@@ -111,6 +117,9 @@ def make_vqvae_train_step(net: nn.Module, optimizer: Optimizer, loss_fn: str = "
         rec = reconst_loss(pred, batch, loss_fn, n_channels, world,
                            distributed.all_reduce_sum_ if parallel else None)
         loss = rec + codebook_weight * commit
+        if percept_loss is not None and percept_weight > 0.0:
+            # this rank's share of the global batch's mean
+            loss = loss + percept_weight * percept_loss(pred, batch) / world
         optimizer.zero_grad()
         loss.backward()
         if parallel:

@@ -3,6 +3,7 @@ name, what its kernel wrappers refuse before a launch, and the bounds that
 chip_smoke.py prints beside each kernel's time.  No CUDA device is needed.
 """
 import itertools
+import json
 import pathlib
 import re
 import sys
@@ -399,6 +400,43 @@ def test_chip_smoke_vqvae_flops_count_the_forward_products(domain, channels):
     # training = forward + backward = 3 x the forward, per sample
     assert 3 * counter.get_total_flops() == batch * chip_smoke.seq_vqvae_train_flops(
         dim=64, depth=2, channels=channels, latent=8, codes=16)
+
+
+def test_chip_smoke_clip_b16_copy_mirrors_the_yaml(tmp_path):
+    """chip_smoke.py's JSON copy of cfgs/vqvae/clip_b16.yaml (its feature
+    VQ-VAE phase reads it on a machine without PyYAML) equals the file key
+    for key, and both give the VQ-VAE trainer the same settings."""
+    yaml = pytest.importorskip("yaml")
+    from egom2p_torch.cli import run_training_vqvae
+    path = REPO / "cfgs/vqvae/clip_b16.yaml"
+    assert chip_smoke.CLIP_B16_CONFIG == yaml.safe_load(path.read_text())
+    by_yaml = vars(run_training_vqvae.get_args(["--config", str(path)]))
+    json_path = tmp_path / "clip_b16.json"
+    json_path.write_text(json.dumps(chip_smoke.CLIP_B16_CONFIG))
+    by_json = vars(run_training_vqvae.get_args(["--config", str(json_path)]))
+    assert {k: v for k, v in by_yaml.items() if k != "config"} == \
+        {k: v for k, v in by_json.items() if k != "config"}
+
+
+def test_chip_smoke_video_vqvae_flops_count_the_forward_products():
+    """video_vqvae_flops_per_sample is 3 x the forward's products that
+    torch's FLOP counter sees, at a small size: the tubelet patchify, the
+    blocks and their attention, the quant projections, the codebook lookup
+    and the unpatchify."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from egom2p_torch.ops.vq import vq_lookup
+    from egom2p_torch.tokenizers.video_vqvae import video_vqvae_from_config
+    kw = dict(frames=4, size=32, tubelet=2, patch=8, dim=48, depth=2, latent=8, codes=16)
+    tok = video_vqvae_from_config("rgb", torch.Generator().manual_seed(0), num_frames=4,
+                                  image_size=32, tubelet_t=2, patch_size=8, dim=48, depth=2,
+                                  num_heads=4, latent_dim=8, codebook_size=16)
+    x = torch.randn(2, 4, 32, 32, 3)
+    with FlopCounterMode(display=False) as counter:
+        net = tok.net
+        quant, _ = vq_lookup(net.quantize.cfg, net.quantize.state, net.encode_latents(x))
+        net.decode_latents(quant)
+    assert 3 * counter.get_total_flops() == 2 * chip_smoke.video_vqvae_flops_per_sample(**kw)
 
 
 def test_world_size_two_with_an_unreachable_rendezvous_raises(tmp_path):

@@ -354,8 +354,8 @@ def test_evaluate_loss_and_metrics_match_jax(domain):
     assert out["ema_mse"] != out["mse"]
     for k, v in tt.net.state_dict().items():
         assert torch.equal(v, before[k]), k
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teval.eval_metrics(tt, data, "rgb", K, 8)
+    with pytest.raises(ValueError, match="unknown eval domain"):
+        teval.eval_metrics(tt, data, "bogus", K, 8)
 
 
 def test_smooth_gaze_tracks_are_gaze_tokenizer_inputs():
