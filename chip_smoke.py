@@ -88,6 +88,17 @@
 3f. generate_sam_dense at width 768, 2 + 2 blocks (caption + tok_rgb, a
    tokenizer.json the phase writes): SAM_BATCH sequences over one clip's
    rgb tokens, merged into one; ms and flash64 launches.
+3g. The rest of Cosmos at full width, random weights from a seed: the image
+   tokenizers DI16x16, CI16x16 and DI8x8 (channels 128 x (2, 4, 4)) written
+   to encoder.jit / decoder.jit files and loaded back bitwise, then a
+   seeded 1000 x 1000 uint8 image at B = 1 (padded and unpadded) through
+   ImageTokenizer.forward and its encode, and for DI the array half of
+   tokenize_images --save_codes (encode, _codes.npy, decode); CV8x8x8 and
+   CV4x8x8 through ContinuousVideoTokenizer.forward on a seeded 33-frame
+   256^2 clip (two windows); DV4x8x8 with the BASE encoder and decoder on
+   one 17-frame window and the decode of its tokens.  Each in exact fp32
+   and on TF32: ms per call, the tokens or latent elements TF32 moves,
+   finite outputs; no attention kernel launches (Cosmos attends densely).
 4. Training kernel phase at the pretraining step's shapes (B=8, 12 heads,
    N = M = 2048, q/k/v as views of fused projections): the flash64_train
    forward, dq and dk/dv kernels against their plain versions with key
@@ -243,6 +254,13 @@
    ImageBind-H14 (32 stock-route forward launches, 16 heads of 80) at B =
    8, kernels against plain versions, and each attention kernel at that
    shape beside its plain version, bound and scaled_dot_product_attention.
+5j. The gradient quantizers through the CLI: the rgb video VQ-VAE at 5h's
+   settings with --quantizer_type taming, B = 8, 3 steps, no eval: step ms,
+   clips/s, 24 / 24 / 24 forward / dq / dk-dv launches a step, finite
+   losses, every parameter and the codebook moved, one step's loss and
+   gradients with the kernels against the plain versions; then Memcodes on
+   cam at cfgs/vqvae/cam.yaml's widths, B = 128, an epoch of 4 steps with
+   eval, and --tokenize of 16 clips (no kernel launch).
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -4605,6 +4623,303 @@ def sam_dense_phase(dev, served, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 3g
+IMAGE_SIDE = 1000          # the seeded uint8 image, B = 1: padded to 1008 at f16, 1000 at f8
+IMAGE_JIT_SIDE = 64        # the input the encoder.jit / decoder.jit files are traced on
+CV_FRAMES = 33             # two windows of the CV tokenizers: 17 + 16 frames
+LATENT_MOVE = 1e-3         # a latent element "moved by TF32": by more than this share of the max
+SERVE_REPS = 2             # timed calls after a warm-up, per precision
+
+
+def _flash_launches() -> int:
+    """Every attention and CE kernel launch so far (the training wrappers'
+    counts and the serving forward's)."""
+    from egom2p_torch.ops.flash64 import flash64_attention
+    return sum(_counts().values()) + flash64_attention.launches
+
+
+def _exact_and_tf32(tok, fn):
+    """fn() with the tokenizer's convs and products in exact fp32 and on
+    TF32 (median ms of SERVE_REPS calls after a warm-up): ({tf32: ms},
+    {tf32: the last result}); exact fp32 after."""
+    ms, out = {}, {}
+    for tf32 in (False, True):
+        tok.encode_tf32 = tok.decode_tf32 = tf32
+        ms[tf32], out[tf32] = _median_ms(fn, SERVE_REPS)
+    tok.encode_tf32 = tok.decode_tf32 = False
+    return ms, out
+
+
+def _moved(exact: torch.Tensor, tf32: torch.Tensor, discrete: bool) -> int:
+    """Tokens TF32 changed, or latent elements it moved by more than
+    LATENT_MOVE of the exact latent's largest magnitude."""
+    if discrete:
+        return int((exact != tf32).sum())
+    return int(((exact.float() - tf32.float()).abs() > LATENT_MOVE * exact.abs().max()).sum())
+
+
+def image_tokenizer_check(dev, tmp, name, cfg, discrete, image):
+    """One Cosmos image tokenizer at full width: random weights from a seed
+    written to encoder.jit / decoder.jit and loaded back (bitwise), then
+    the seeded image through ImageTokenizer.forward and its encode in exact
+    fp32 and on TF32; for DI the array half of tokenize_images --save_codes
+    (encode -> _codes.npy -> decode).  Returns its numbers."""
+    from egom2p_torch.core import checkpoint
+    from egom2p_torch.tokenizers.cosmos.image_api import (ImageTokenizer, pad_image_batch,
+                                                          unpad_image_batch)
+    from egom2p_torch.tokenizers.cosmos.video_api import numpy2tensor, tensor2numpy
+
+    made = ImageTokenizer.random_init(torch.Generator(dev).manual_seed(31), cfg,
+                                      discrete=discrete)
+    t0 = time.perf_counter()
+    enc, dec = checkpoint.save_cosmos_image_jit(made.net, os.path.join(tmp, name),
+                                                IMAGE_JIT_SIDE)
+    tok = checkpoint.load_cosmos_image_pth(enc, dec, cfg, discrete, dev)
+    io_s = time.perf_counter() - t0
+    if any(not torch.equal(v, tok.net.state_dict()[k]) for k, v in made.net.state_dict().items()):
+        raise AssertionError(f"{name}: encoder.jit / decoder.jit do not load back bitwise")
+    n_params = sum(p.numel() for p in made.net.parameters())
+    del made
+    padded, crop = pad_image_batch(image, cfg.spatial_compression)
+    x = torch.from_numpy(numpy2tensor(padded)).to(dev)
+    enc_ms, encoded = _exact_and_tf32(tok, lambda: tok.encode(x)[0])
+    fwd_ms, recon = _exact_and_tf32(tok, lambda: tok.forward(image))
+    moved = _moved(encoded[False], encoded[True], discrete)
+    recon = recon[False]
+    decoded = tok.decode(encoded[False])
+    if recon.shape != image.shape or recon.dtype != np.uint8 or not bool(
+            torch.isfinite(decoded).all()) or not bool(torch.isfinite(encoded[False].float()).all()):
+        raise AssertionError(f"{name}: recon {recon.shape} {recon.dtype}, non-finite values")
+    line = ""
+    if discrete:  # tokenize_images --save_codes: the codes through a file, then the decode
+        path = os.path.join(tmp, f"{name}_codes.npy")
+        np.save(path, encoded[False][0].cpu().numpy().astype(np.int32))
+        back = torch.from_numpy(np.load(path))[None].to(dev)
+        via_file = unpad_image_batch(tensor2numpy(tok.decode(back)), crop)
+        if not torch.equal(back, encoded[False]) or \
+                np.abs(via_file.astype(int) - recon.astype(int)).max() > DECODE_PIXEL_LEVELS:
+            raise AssertionError(f"{name}: the codes file does not decode to the reconstruction")
+        line = f"; _codes.npy {tuple(back.shape[1:])} int32 decoded within a level"
+    what = "tokens" if discrete else "latent elements"
+    print(f"{name} ({n_params / 1e6:.1f}M params; {IMAGE_SIDE}^2 uint8 image padded to "
+          f"{padded.shape[1]}x{padded.shape[2]}, B = 1): encode exact fp32 {enc_ms[False]:.1f} ms"
+          f", TF32 {enc_ms[True]:.1f} ms -> {tuple(encoded[False].shape)}; forward exact "
+          f"{fwd_ms[False]:.1f} ms, TF32 {fwd_ms[True]:.1f} ms; TF32 moves {moved} of "
+          f"{encoded[False].numel()} {what}; jit files written and loaded back in {io_s:.1f} s"
+          + line)
+    return {"encode_ms": enc_ms, "forward_ms": fwd_ms, "moved": moved}
+
+
+def video_tokenizer_check(dev, name, tok, clip, discrete):
+    """A CV tokenizer's forward over the whole clip (window by window), or
+    the DV BASE tokenizer's tokens of one window and their decode, in exact
+    fp32 and on TF32; the encode's first window both ways.  Returns its
+    numbers."""
+    from egom2p_torch.tokenizers.cosmos.video_api import numpy2tensor, pad_video_batch
+
+    window = clip[:, :17]
+    if discrete:
+        dev_window = torch.from_numpy(window).to(dev)
+        enc_ms, encoded = _exact_and_tf32(tok, lambda: tok.forward(dev_window, device_out=True))
+        fwd_ms, out = _exact_and_tf32(tok, lambda: tok.decode(encoded[False]))
+        out = out[False]
+        shape = window.shape
+    else:
+        padded, _ = pad_video_batch(window, 2 * tok.cfg.temporal_compression,
+                                    2 * tok.cfg.spatial_compression)
+        x = torch.from_numpy(numpy2tensor(padded)).to(dev)
+        enc_ms, encoded = _exact_and_tf32(tok, lambda: tok.encode(x)[0])
+        fwd_ms, out = _exact_and_tf32(tok, lambda: tok.forward(clip))
+        out = torch.from_numpy(out[False])
+        shape = clip.shape
+    moved = _moved(encoded[False], encoded[True], discrete)
+    if tuple(out.shape) != tuple(shape) or not bool(torch.isfinite(out.float()).all()) or \
+            not bool(torch.isfinite(encoded[False].float()).all()):
+        raise AssertionError(f"{name}: output {tuple(out.shape)}, or non-finite values")
+    what = "tokens" if discrete else "latent elements"
+    n_params = sum(p.numel() for p in tok.net.parameters())
+    print(f"{name} ({n_params / 1e6:.1f}M params, B = 1): encode of a 17-frame "
+          f"{clip.shape[2]}^2 window "
+          f"exact fp32 {enc_ms[False]:.1f} ms, TF32 {enc_ms[True]:.1f} ms -> "
+          f"{tuple(encoded[False].shape)}; "
+          + (f"decode exact {fwd_ms[False]:.1f} ms, TF32 {fwd_ms[True]:.1f} ms"
+             if discrete else f"forward of {clip.shape[1]} frames (two windows) exact "
+             f"{fwd_ms[False]:.1f} ms, TF32 {fwd_ms[True]:.1f} ms")
+          + f"; TF32 moves {moved} of {encoded[False].numel()} {what}")
+    return {"encode_ms": enc_ms, "forward_ms": fwd_ms, "moved": moved}
+
+
+def cosmos_serve_phase(dev, tmp):
+    """Phase 3g (docstring): the rest of Cosmos at full width.  Returns
+    {tokenizer: its numbers}."""
+    import dataclasses
+
+    from egom2p_torch.tokenizers.cosmos import image_network as imn
+    from egom2p_torch.tokenizers.cosmos import network as vnet
+    from egom2p_torch.tokenizers.cosmos.video_api import (CausalVideoTokenizer,
+                                                          ContinuousVideoTokenizer)
+
+    before = _flash_launches()
+    rng = np.random.default_rng(30)
+    image = rng.integers(0, 256, (1, IMAGE_SIDE, IMAGE_SIDE, 3), dtype=np.uint8)
+    side = VIDEO_ARGS["size"]
+    clip = rng.integers(0, 256, (1, CV_FRAMES, side, side, 3), dtype=np.uint8)
+    out = {}
+    for name, cfg, discrete in (("DI16x16", imn.DI_CONFIG, True),
+                                ("CI16x16", imn.CI_CONFIG, False),
+                                ("DI8x8", imn.DI8x8_CONFIG, True)):
+        out[name] = image_tokenizer_check(dev, tmp, name, cfg, discrete, image)
+    for name, cfg in (("CV8x8x8", vnet.CV8x8x8_CONFIG), ("CV4x8x8", vnet.CV4x8x8_CONFIG)):
+        tok = ContinuousVideoTokenizer.random_init(torch.Generator(dev).manual_seed(32), cfg)
+        out[name] = video_tokenizer_check(dev, name, tok, clip, False)
+        del tok
+    cfg = dataclasses.replace(vnet.DV4x8x8_CONFIG, encoder="BASE", decoder="BASE")
+    net = vnet.CausalDiscreteVideoTokenizer(cfg).to(dev)
+    tok = CausalVideoTokenizer(net.init_random_(torch.Generator(dev).manual_seed(33)))
+    out["DV4x8x8-BASE"] = video_tokenizer_check(dev, "DV4x8x8 BASE", tok, clip, True)
+    del tok, net
+    launches = _flash_launches() - before
+    print(f"Cosmos phase: {launches} attention kernel launches (every Cosmos attention is dense)")
+    if launches:
+        raise AssertionError(f"the Cosmos tokenizers launched {launches} attention kernels")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 5j
+MEMCODES_SAMPLES = 512     # cam trajectories: an epoch of 4 steps at the config's B = 128
+
+
+def _moved_parameters(res, argv, dev):
+    """The names of the trained tokenizer's tensors still equal to their
+    init (the same seed's build)."""
+    from egom2p_torch.cli import run_training_vqvae as rtv
+    init = rtv.build_tokenizer(rtv.get_args(argv), dev, torch.Generator(dev).manual_seed(0))
+    start = init.net.state_dict()
+    return [k for k, v in res["tokenizer"].net.state_dict().items() if torch.equal(v, start[k])]
+
+
+def grad_vqvae_phase(dev, tmp):
+    """Phase 5j (docstring): the gradient quantizers through the VQ-VAE CLI.
+    Returns {"launches": per taming video step, "step_ms": x}."""
+    from egom2p_torch.cli import run_training_vqvae as rtv
+    from egom2p_torch.data.cam_gaze import smooth_cam_trajectories
+    from egom2p_torch.train.vqvae_train import reconst_loss
+
+    va = VIDEO_ARGS
+    clips = os.path.join(tmp, "video_clips")
+    if not os.path.isdir(clips):
+        _write_video_clips(clips, VIDEO_CLIPS, VIDEO_CLIP_FRAMES, va["size"], 16)
+    out = os.path.join(tmp, "video_taming")
+    argv = ["--domain", "rgb", "--data_path", clips, "--use_npy", "--num_frames",
+            str(va["frames"]), "--input_size", str(va["size"]), "--tubelet_size",
+            str(va["tubelet"]), "--patch_size", str(va["patch"]), "--batch_size", str(B),
+            "--epochs", "1", "--warmup_epochs", "0", "--eval_freq", "0", "--quantizer_type",
+            "taming", "--output_dir", out, "--async_save", "false", "--print_freq", "1",
+            "--device", "cuda"]
+    per_step, seconds = [], []
+
+    def on_step(step, metrics, secs):
+        per_step.append(_counts())
+        seconds.append(secs)
+
+    _reset_counts()
+    res = rtv.main(argv, on_step=on_step)
+    prev = {k: 0 for k in per_step[0]}
+    for i, counts in enumerate(per_step):
+        step = {k: counts[k] - prev[k] for k in counts}
+        prev = counts
+        if step != VIDEO_STEP:
+            raise AssertionError(f"taming video step {i}: launches {step}, expected {VIDEO_STEP}")
+    metrics = res["metrics"]
+    if len(metrics) != VIDEO_CLIPS // B or not all(math.isfinite(v) for m in metrics
+                                                   for v in m.values()):
+        raise AssertionError(f"taming video VQ-VAE: metrics {metrics}")
+    still = _moved_parameters(res, argv, dev)
+    if still:
+        raise AssertionError(f"taming video VQ-VAE: unmoved {still[:5]}")
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    flops = video_vqvae_flops_per_sample(va["frames"], va["size"], va["tubelet"], va["patch"]) * B
+    net = res["tokenizer"].net
+    # one step's loss and gradients, the kernels against their plain versions
+    batch = torch.rand((B, va["frames"], va["size"], va["size"], 3),
+                       generator=torch.Generator(device=dev).manual_seed(34), device=dev) * 2 - 1
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        pred, qloss, _ = net.autoencode_train(batch, True)
+        loss = reconst_loss(pred, batch, "mse", 3) + qloss
+        loss.backward()
+        return loss.item(), [p.grad.float().clone() for p in net.parameters()]
+
+    before = _counts()
+    loss_k, g_k = grads()
+    after = _counts()
+    if {k: after[k] - before[k] for k in after} != VIDEO_STEP:
+        raise AssertionError("the taming step check missed a kernel")
+    with _swapped(_plain_versions("default")):
+        loss_p, g_p = grads()
+    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(g_k, g_p)))
+    den = math.sqrt(sum((b ** 2).sum().item() for b in g_p))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    net.zero_grad(set_to_none=True)
+    del g_k, g_p
+    print(f"taming video VQ-VAE (rgb at the CLI's video defaults, 256 codes, "
+          f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f}M params, exact fp32, B = {B}): "
+          f"steps {[round(s * 1e3, 1) for s in seconds]} ms, median {step_ms:.1f} ms, "
+          f"{B / step_ms * 1e3:.2f} clips/s, {flops / step_ms / 1e9:.1f} TFLOP/s; launches a step "
+          f"{VIDEO_STEP['fwd']} / {VIDEO_STEP['dq']} / {VIDEO_STEP['dkv']}; losses "
+          f"{metrics[0]['loss']:.4f} -> {metrics[-1]['loss']:.4f} (code loss "
+          f"{metrics[-1]['code_loss']:.4f}); every parameter and the codebook moved; kernels vs "
+          f"plain: loss rel {loss_rel:.2e} (tolerance {STEP_LOSS_RTOL:g}), gradient rel L2 "
+          f"{num / den:.2e} (tolerance {STEP_GRAD_REL_L2:g})")
+    if not math.isfinite(loss_k) or loss_rel > STEP_LOSS_RTOL or num / den > STEP_GRAD_REL_L2:
+        raise AssertionError("the taming step with the kernels disagrees with plain")
+    del res, net, batch
+    torch.cuda.empty_cache()
+
+    # Memcodes on cam at cfgs/vqvae/cam.yaml's widths, and --tokenize
+    rng = np.random.default_rng(35)
+    data = os.path.join(tmp, "memcodes_cam.npy")
+    np.save(data, smooth_cam_trajectories(rng, MEMCODES_SAMPLES)[1].astype(np.float32))
+    clip_file = os.path.join(tmp, "memcodes_clips.npy")
+    np.save(clip_file, smooth_cam_trajectories(rng, 16)[1].astype(np.float32))
+    out = os.path.join(tmp, "cam_memcodes")
+    argv = ["--config", vqvae_configs(tmp)["cam"], "--data_path", data, "--quantizer_type",
+            "memcodes", "--epochs", "1", "--warmup_epochs", "0",
+            "--num_eval_metrics_samples", "128", "--output_dir", out, "--async_save", "false",
+            "--print_freq", "4", "--device", "cuda"]
+    seconds = []
+    before = _flash_launches()
+    res = rtv.main(argv, on_step=lambda s, m, sec: seconds.append(sec))
+    metrics = res["metrics"]
+    if len(metrics) != MEMCODES_SAMPLES // VQ_B or not all(
+            math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"memcodes cam VQ-VAE: metrics {metrics}")
+    still = _moved_parameters(res, argv, dev)
+    if still:
+        raise AssertionError(f"memcodes cam VQ-VAE: unmoved {still[:5]}")
+    t0 = time.perf_counter()
+    path = rtv.main(argv + ["--tokenize", "--resume", os.path.join(out, "checkpoint-final.pth"),
+                            "--tokenize_path", clip_file, "--tokenize_save_path", out])
+    tok_s = time.perf_counter() - t0
+    tokens = np.load(path)["arr_0"]
+    launches = _flash_launches() - before
+    if tokens.shape != (16, 30) or tokens.dtype != np.int16 or tokens.min() < 0 \
+            or tokens.max() >= 256 or launches:
+        raise AssertionError(f"memcodes --tokenize: {tokens.shape} {tokens.dtype}, "
+                             f"{launches} kernel launches")
+    log = [json.loads(line) for line in open(os.path.join(out, "log.txt"))]
+    cam_ms = float(np.median(seconds[1:])) * 1e3
+    print(f"memcodes cam VQ-VAE (cfgs/vqvae/cam.yaml's widths, 256 codes, B = {VQ_B}, exact "
+          f"fp32): steps {[round(s * 1e3, 1) for s in seconds]} ms, median {cam_ms:.1f} ms "
+          f"({VQ_B / cam_ms * 1e3:.0f} samples/s); losses {metrics[0]['loss']:.4f} -> "
+          f"{metrics[-1]['loss']:.4f}; eval usage {log[-1]['eval_codebook_usage']:.3f}; "
+          f"--tokenize of 16 clips {tok_s:.2f} s -> (16, 30) int16; 0 kernel launches "
+          "(30 tokens: the dense path)")
+    return {"launches": VIDEO_STEP, "step_ms": step_ms, "cam_memcodes_ms": cam_ms}
+
+
 def _demangled(names):
     """{mangled: demangled} by the toolkit's cu++filt (the mangled name where
     it is missing)."""
@@ -4713,6 +5028,7 @@ def main() -> int:
         captioned = phase(caption_serve_phase, dev, served, ckpt_dir)
         multi = phase(multi_guided_phase, dev, served)
         sam_launches = phase(sam_dense_phase, dev, served, ckpt_dir)
+        phase(cosmos_serve_phase, dev, ckpt_dir)
     served.clear()  # the training phases need the card's memory
     torch.cuda.empty_cache()
     train_rows = phase(train_kernel_phase, dev)
@@ -4725,6 +5041,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as image_dir:
         video = phase(video_vqvae_phase, dev, image_dir, train_rows)
         features = phase(feature_vqvae_phase, dev, image_dir)
+        taming = phase(grad_vqvae_phase, dev, image_dir)
     dp_launches = phase(data_parallel_phase, dev, first_metrics, default_ms)
     fsdp_launches, fsdp_step_launches = phase(fsdp_phase, dev, first_metrics, default_ms)
     fused_rows = phase(fused_bwd_phase, dev)
@@ -4775,7 +5092,8 @@ def main() -> int:
                     "fsdp_launches_per_step": fsdp_step_launches[part],
                     "caption_train_launches": caption_launches[BASE_MODEL][part],
                     "causal_train_launches": caption_launches[CAUSAL_MODEL][part],
-                    "video_vqvae_launches_per_step": video["launches"][part]}
+                    "video_vqvae_launches_per_step": video["launches"][part],
+                    "taming_video_vqvae_launches_per_step": taming["launches"][part]}
              for part in ("fwd", "dq", "dkv", "ce_fwd")}
     no_mask = video["no_mask"]  # rows 3-5 at the video step's shape, 2048^2 with no mask
     paths["fwd"]["video_no_mask"] = {"ms": no_mask["ms"]["fwd"], "max_abs_err": no_mask["err"]["o"]}

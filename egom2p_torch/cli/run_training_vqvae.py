@@ -18,6 +18,7 @@ where PyYAML is installed, core/config.py):
   evaluate:   ... --resume checkpoint-final.pth --eval_only --eval_data_path cam_val.npy
   video:      ... --domain rgb --num_frames 16 --data_path CLIPS_DIR --use_npy
   features:   ... --config cfgs/vqvae/clip_b16.yaml --data_path images.npy
+  gradient:   ... --quantizer_type taming   (or memcodes), on any domain
 
 Training (`run_train`): the data (cam: (N, 60, 4, 4) poses, canonicalized,
 or (N, 60, 9); gaze: (N, 60, 3) with a validity channel) is standardized
@@ -41,7 +42,15 @@ LR is blr * batch / 256 on a cosine schedule with warmup; the optimizer
 clips the global norm and applies AdamW with every parameter decayed
 (core/optim.py), and --freeze_enc holds the encoder and quant_proj still
 after AdamW; --kmeans_init fills the codebook from the first 256
-samples' latents; --model_ema keeps an EMA of the weights.  Every
+samples' latents; --model_ema keeps an EMA of the weights.
+--quantizer_type taming | memcodes swaps the EMA codebook for a gradient
+quantizer (tokenizers/seq_vqvae.py:GradVQAutoencoder around the domain's
+core, train/vqvae_train.py:make_grad_vqvae_train_step): the codebook is a
+parameter, the loss is reconst + --codebook_weight x the quantizer's loss,
+and, as in the JAX script, no k-means init and no perceptual term run;
+Memcodes draws its gumbel noise from the step's generator (seed + 1).
+Its checkpoints hold `core.*` and `quantizer.*` (the JAX tree's names), and
+its tokens are flat per sample.  Every
 --eval_freq epochs the loss and the metric suite run on the eval set
 (--eval_data_path, else the training data; train/vqvae_eval.py), on the
 EMA weights too.  Each epoch appends a JSON line to <output_dir>/log.txt.
@@ -88,8 +97,6 @@ raises when there is none; --device cpu asks for the CPU.  Checkpoints are
 .pth files: the JAX package's orbax directories are not read.  With
 --async_save (the default) a periodic checkpoint is written on a background
 thread after its state is copied to host memory; the final save blocks.
-Not ported yet (ROADMAP Queue 1 item 9): the gradient quantizers
-(--quantizer_type taming / memcodes), which raise.
 """
 from __future__ import annotations
 
@@ -101,9 +108,6 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-
-ITEM_9 = "not ported yet (ROADMAP Queue 1 item 9)"
-
 
 def get_args(argv=None):
     from egom2p_torch.core.config import parse_args_with_config, str2bool
@@ -211,6 +215,7 @@ def get_args(argv=None):
 
 SEQ_DOMAINS = ("cam", "gaze")
 VIDEO_DOMAINS = ("rgb", "depth")
+GRAD_QUANTIZERS = ("taming", "memcodes")
 
 
 def is_feature_domain(domain: str) -> bool:
@@ -223,14 +228,6 @@ def is_feature_domain(domain: str) -> bool:
         raise SystemExit(f"unknown --domain {domain!r}; expected one of "
                          f"{SEQ_DOMAINS + VIDEO_DOMAINS} or {tuple(TEACHER_SPECS)}")
     return True
-
-
-def check_ported(args) -> None:
-    """What this entry point does not run yet raises, naming the item."""
-    is_feature_domain(args.domain)
-    if args.quantizer_type != "lucid":
-        raise NotImplementedError(f"--quantizer_type {args.quantizer_type}: the gradient "
-                                  f"quantizers are {ITEM_9}")
 
 
 def _quantizer_config(args) -> Dict:
@@ -251,9 +248,23 @@ def seq_config(args) -> Dict:
 
 def build_tokenizer(args, device, generator: Optional[torch.Generator] = None):
     """The domain's tokenizer on `device`: random weights from `generator`,
-    or zeros to be loaded over (run_training_vqvae.py:build_tokenizer; the
-    video and feature domains take the fixed dead-code threshold 2.0,
-    reference run_training_vqvae.py:391)."""
+    or zeros to be loaded over (run_training_vqvae.py:build_tokenizer): the
+    EMA codebook's, or a gradient quantizer around the domain's core
+    (run_training_vqvae.py:build_grad_tokenizer)."""
+    if args.quantizer_type not in GRAD_QUANTIZERS:
+        return _ema_tokenizer(args, device, generator)
+    from egom2p_torch.tokenizers.seq_vqvae import GradVQAutoencoder, GradVQTokenizer
+    net = GradVQAutoencoder(_ema_tokenizer(args, device).net, args.quantizer_type,
+                            args.codebook_size, args.latent_dim).to(device)
+    if generator is not None:
+        net.init_random_(generator)
+    return GradVQTokenizer(net)
+
+
+def _ema_tokenizer(args, device, generator: Optional[torch.Generator] = None):
+    """The domain's EMA-codebook tokenizer, the core a gradient quantizer
+    wraps (the video and feature domains take the fixed dead-code threshold
+    2.0, reference run_training_vqvae.py:391)."""
     if args.domain in SEQ_DOMAINS:
         from egom2p_torch.tokenizers.seq_vqvae import seq_vqvae_from_config
         return seq_vqvae_from_config(args.domain, generator, device=device, **seq_config(args))
@@ -278,7 +289,7 @@ def _pth(path: str) -> str:
 def load_tokenizer_state(args, path: str, device):
     """The tokenizer of a .pth (a trainer checkpoint or the reference's
     {"model": state_dict}) at the flags' widths, on `device`."""
-    if args.domain in SEQ_DOMAINS:
+    if args.domain in SEQ_DOMAINS and args.quantizer_type not in GRAD_QUANTIZERS:
         from egom2p_torch.core.checkpoint import load_seq_vqvae_pth
         return load_seq_vqvae_pth(_pth(path), args.domain, device, **seq_config(args))
     from egom2p_torch.core.checkpoint import load_vqvae_pth
@@ -577,7 +588,8 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
     from egom2p_torch.core.schedules import cosine_scheduler
     from egom2p_torch.ops.vq import kmeans_init_state
     from egom2p_torch.train.vqvae_eval import run_eval_suite
-    from egom2p_torch.train.vqvae_train import init_ema, make_vqvae_train_step
+    from egom2p_torch.train.vqvae_train import (init_ema, make_grad_vqvae_train_step,
+                                                make_vqvae_train_step)
 
     if not args.data_path:
         raise ValueError("--data_path is required for training")
@@ -603,11 +615,12 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
         print(f"train samples: {data.shape}")
     tok = build_tokenizer(args, device, torch.Generator(device).manual_seed(args.seed))
     net = tok.net
+    grad_vq = args.quantizer_type in GRAD_QUANTIZERS
     if args.encoder_ckpt:
         if not video_domain:
             raise ValueError("--encoder_ckpt warm-starts the video (rgb / depth) encoder")
         from egom2p_torch.core.checkpoint import load_divae_encoder_warm_start
-        load_divae_encoder_warm_start(args.encoder_ckpt, net)
+        load_divae_encoder_warm_start(args.encoder_ckpt, net.core if grad_vq else net)
     batch_size = args.batch_size
     global_batch = batch_size * world
     niter_per_ep = max(n_samples // global_batch, 1)
@@ -624,10 +637,10 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
     if args.model_ema:
         print(f"Using EMA with decay = {args.model_ema_decay:.8f}")
     percept = None
-    if video_domain and args.percept_loss_weight > 0.0:
+    if video_domain and args.percept_loss_weight > 0.0 and not grad_vq:
         from egom2p_torch.core.image_metrics import make_perceptual_loss
         percept = make_perceptual_loss(args.percept_loss_type, device)
-    if args.kmeans_init and not bool(net.quantize.state.initted.all()):
+    if args.kmeans_init and not grad_vq and not bool(net.quantize.state.initted.all()):
         # the data-dependent codebook init, once before training (the
         # reference does it lazily in the first forward, quantize_lucid.py:137-167)
         if video_domain:
@@ -652,13 +665,20 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
         ema = ({k: v.to(device) for k, v in ckpt["model_ema"].items() if k in ema}
                if "model_ema" in ckpt else init_ema(net))
     start_epoch = step // niter_per_ep
-    step_fn = make_vqvae_train_step(net, optimizer, args.loss_fn, args.codebook_weight,
-                                    ema=ema, ema_decay=ema_decay,
-                                    ema_update_freq=args.model_ema_update_freq,
-                                    percept_loss=percept, percept_weight=args.percept_loss_weight)
+    if grad_vq:
+        step_fn = make_grad_vqvae_train_step(net, optimizer, args.loss_fn, args.codebook_weight,
+                                             ema=ema, ema_decay=ema_decay,
+                                             ema_update_freq=args.model_ema_update_freq)
+    else:
+        step_fn = make_vqvae_train_step(net, optimizer, args.loss_fn, args.codebook_weight,
+                                        ema=ema, ema_decay=ema_decay,
+                                        ema_update_freq=args.model_ema_update_freq,
+                                        percept_loss=percept,
+                                        percept_weight=args.percept_loss_weight)
 
     rng = np.random.default_rng(args.seed)
-    draws = torch.Generator(device).manual_seed(args.seed + 1)  # expired codes' replacements
+    # expired codes' replacements, or Memcodes' gumbel noise
+    draws = torch.Generator(device).manual_seed(args.seed + 1)
     jsonl = JsonlLogger(args.output_dir)
     # the eval data is the same every epoch: built once
     eval_data = (build_eval_data(args, fallback=dataset if video_domain else data,
@@ -779,7 +799,7 @@ def main(argv=None, **kwargs):
     from egom2p_torch.core import distributed
 
     args = get_args(argv)
-    check_ported(args)
+    is_feature_domain(args.domain)  # an unknown domain exits
     if args.eval_only or args.tokenize:
         if int(os.environ.get("RANK", "0")) != 0:
             return None  # one process's numbers and files: rank 0's

@@ -13,6 +13,10 @@ exist with the right shape, and none may be left over.
   flax Conv kernel (kt, kh, kw, in, out)  -> torch Conv3d weight (out, in, kt, kh, kw)
   flax Conv kernel (k, in, out)           -> torch Conv1d weight (out, in, k)
   flax Conv kernel (kh, kw, in, out)      -> torch Conv2d weight (out, in, kh, kw)
+  Cosmos image Normalize2d norm/scale     -> <module>.weight (the GroupNorm itself)
+  taming VQ embedding (n, D)              -> quantizer.embedding.weight
+  Memcodes codes / to_k / to_v            -> quantizer.codes / to_k / to_v (as they are)
+  GradVQAutoencoder core/...              -> core.<the core's own keys>
   seq VQ-VAE quant_proj Dense (in, out)   -> 1x1 Conv1d weight (out, in, 1)
   CausalNormalize scale / bias            -> <module>.norm.weight / .bias
   VQState embed / cluster_size / initted  -> quantize._codebook.<same>
@@ -113,7 +117,10 @@ _ATTN_SLOT = {"_s": "0", "_t": "1"}
 
 def _cosmos_torch_key(path: Tuple[str, ...]) -> str:
     """Flax module path inside the tokenizer -> reference torch key prefix
-    (the rules of egom2p_tpu/compat/torch_convert.py:_cosmos_torch_key)."""
+    (the rules of egom2p_tpu/compat/torch_convert.py:_cosmos_torch_key).
+    The BASE network's names (`conv_in`, `conv1`, `nin_shortcut`,
+    `down_<i>_downsample/conv`, `up_<i>_upsample/conv`, `mid_attn_1` without
+    a slot) pass through these rules unchanged but for the level indices."""
     out = []
     for p in path:
         m = re.fullmatch(r"(down|up)_(\d+)_(block|attn)_(\d+)(_[st])?", p)
@@ -145,8 +152,9 @@ def _cosmos_torch_key(path: Tuple[str, ...]) -> str:
 
 
 def cosmos_state_dict_from_jax(variables: Mapping, net) -> Dict[str, torch.Tensor]:
-    """Flax CausalDiscreteVideoTokenizer variables -> state dict for `net`
-    (egom2p_torch CausalDiscreteVideoTokenizer)."""
+    """Flax CausalDiscreteVideoTokenizer or CausalContinuousVideoTokenizer
+    variables (FACTORIZED or BASE) -> state dict for `net` (its egom2p_torch
+    counterpart)."""
     sd: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(_params(variables)).items():
         base, leaf = _cosmos_torch_key(path[:-1]), path[-1]
@@ -161,14 +169,56 @@ def cosmos_state_dict_from_jax(variables: Mapping, net) -> Dict[str, torch.Tenso
     return _checked(sd, net)
 
 
-# ------------------------------------------------------------- seq VQ-VAE
-def seq_vqvae_state_dict_from_jax(variables: Mapping, vq_state, tokenizer) -> Dict[str, torch.Tensor]:
-    """Flax SeqAutoencoder variables and a VQState (any arrays numpy can
-    read) -> state dict for `tokenizer.net` (egom2p_torch SeqTokenizer): the
-    key rules of egom2p_tpu/compat/torch_convert.py:convert_seq_vqvae_state_dict,
-    reversed."""
+def _cosmos2d_torch_key(path: Tuple[str, ...]) -> str:
+    """Flax module path inside the 2-D image tokenizer -> reference torch
+    key prefix (egom2p_tpu/compat/torch_convert.py:_cosmos2d_torch_key):
+    Normalize2d's inner GroupNorm scope is dropped."""
+    out = []
+    for p in path:
+        m = re.fullmatch(r"(down|up)_(\d+)_(block|attn)_(\d+)", p)
+        if m:
+            out.append(f"{m.group(1)}.{m.group(2)}.{m.group(3)}.{m.group(4)}")
+            continue
+        m = re.fullmatch(r"(down|up)_(\d+)_(downsample|upsample)", p)
+        if m:
+            out.append(f"{m.group(1)}.{m.group(2)}.{m.group(3)}")
+            continue
+        m = re.fullmatch(r"mid_(attn_1|block_\d+)", p)
+        if m:
+            out.append(f"mid.{m.group(1)}")
+            continue
+        if p == "norm" and out and out[-1].split(".")[-1].startswith("norm"):
+            continue  # "norm1/norm" -> "norm1"
+        out.append(p)
+    return ".".join(out)
+
+
+def cosmos_image_state_dict_from_jax(variables: Mapping, net) -> Dict[str, torch.Tensor]:
+    """Flax DiscreteImageTokenizer or ContinuousImageTokenizer variables ->
+    state dict for `net` (tokenizers/cosmos/image_network.py): conv2d
+    (kh, kw, in, out) -> (out, in, kh, kw), GroupNorm scale -> weight, the
+    taming codebook -> quantizer.embedding.weight."""
     sd: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(_params(variables)).items():
+        base, leaf = _cosmos2d_torch_key(path[:-1]), path[-1]
+        if leaf == "kernel":
+            sd[f"{base}.weight"] = arr.transpose(3, 2, 0, 1)
+        elif leaf in ("scale", "bias"):
+            sd[f"{base}.{'weight' if leaf == 'scale' else 'bias'}"] = arr
+        elif leaf == "embedding":
+            sd[f"{base}.embedding.weight"] = arr
+        else:
+            raise KeyError(f"no torch key for JAX param {'/'.join(path)}")
+    return _checked(sd, net)
+
+
+# ------------------------------------------------------------- seq VQ-VAE
+def _seq_core_sd(params: Mapping) -> Dict[str, np.ndarray]:
+    """A flax SeqAutoencoder's parameters -> the port's keys: the rules of
+    egom2p_tpu/compat/torch_convert.py:convert_seq_vqvae_state_dict,
+    reversed."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(params).items():
         p0, leaf = path[0], path[-1]
         if p0 in ("quant_proj", "post_quant_proj"):
             sd[f"{p0}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
@@ -185,11 +235,23 @@ def seq_vqvae_state_dict_from_jax(variables: Mapping, vq_state, tokenizer) -> Di
             sd[f"{base}.weight"] = arr.T
         else:  # Dense / Conv bias, LayerNorm weight / bias
             sd[f"{base}.{leaf}"] = arr
-    for name in ("embed", "cluster_size", "initted"):
-        sd[f"quantize._codebook.{name}"] = np.array(
-            getattr(vq_state, name), dtype=np.float32).reshape(
-                tokenizer.net.quantize._codebook.get_buffer(name).shape)
-    return _checked(sd, tokenizer.net)
+    return sd
+
+
+def _codebook_sd(vq_state, net) -> Dict[str, np.ndarray]:
+    """A VQState's arrays as the port's `quantize._codebook` buffers."""
+    return {f"quantize._codebook.{name}": np.array(
+        getattr(vq_state, name), dtype=np.float32).reshape(
+            net.quantize._codebook.get_buffer(name).shape)
+        for name in ("embed", "cluster_size", "initted")}
+
+
+def seq_vqvae_state_dict_from_jax(variables: Mapping, vq_state,
+                                  tokenizer) -> Dict[str, torch.Tensor]:
+    """Flax SeqAutoencoder variables and a VQState (any arrays numpy can
+    read) -> state dict for `tokenizer.net` (egom2p_torch SeqTokenizer)."""
+    return _checked({**_seq_core_sd(_params(variables)), **_codebook_sd(vq_state, tokenizer.net)},
+                    tokenizer.net)
 
 
 # ---------------------------------------------- video / feature VQ-VAEs
@@ -205,27 +267,49 @@ def _kernel(arr: np.ndarray) -> np.ndarray:
     return arr.transpose(arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))  # (..., in, out)
 
 
+def _vit_core_sd(params: Mapping) -> Dict[str, np.ndarray]:
+    """A flax VideoAutoencoder's or FeatureAutoencoder's parameters -> the
+    port's keys: the tubelet Conv kernel (t, p, p, C, D) -> (D, C, t, p,
+    p), Dense kernels transposed, blocks_<i> -> blocks.<i>."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(params).items():
+        base, leaf = _dotted(path[:-1]), path[-1]
+        sd[f"{base}.{'weight' if leaf == 'kernel' else leaf}"] = (
+            _kernel(arr) if leaf == "kernel" else arr)
+    return sd
+
+
 def video_vqvae_state_dict_from_jax(variables: Mapping, vq_state, tokenizer
                                     ) -> Dict[str, torch.Tensor]:
     """Flax VideoAutoencoder (or FeatureAutoencoder) variables and a VQState
     -> state dict for `tokenizer.net` (egom2p_torch VideoVQTokenizer /
-    FeatureVQTokenizer): the tubelet Conv kernel (t, p, p, C, D) -> (D, C,
-    t, p, p), Dense kernels transposed, blocks_<i> -> blocks.<i>."""
-    net = tokenizer.net
-    sd: Dict[str, np.ndarray] = {}
-    for path, arr in _flatten(_params(variables)).items():
-        base, leaf = _dotted(path[:-1]), path[-1]
-        sd[f"{base}.{'weight' if leaf == 'kernel' else leaf}"] = (
-            _kernel(arr) if leaf == "kernel" else arr)
-    for name in ("embed", "cluster_size", "initted"):
-        sd[f"quantize._codebook.{name}"] = np.array(
-            getattr(vq_state, name), dtype=np.float32).reshape(
-                net.quantize._codebook.get_buffer(name).shape)
-    return _checked(sd, net)
+    FeatureVQTokenizer)."""
+    return _checked({**_vit_core_sd(_params(variables)), **_codebook_sd(vq_state, tokenizer.net)},
+                    tokenizer.net)
 
 
 # the feature VQ-VAE's tree follows the same rules
 feature_vqvae_state_dict_from_jax = video_vqvae_state_dict_from_jax
+
+
+def grad_vqvae_state_dict_from_jax(variables: Mapping, tokenizer) -> Dict[str, torch.Tensor]:
+    """Flax GradVQAutoencoder variables -> state dict for `tokenizer.net`
+    (egom2p_torch GradVQAutoencoder): the `core/...` subtree through the
+    sequence or video / feature rules, under `core.`; `quantizer/embedding`
+    (taming) -> quantizer.embedding.weight, `quantizer/{codes,to_k,to_v}`
+    (Memcodes) as they are."""
+    from egom2p_torch.tokenizers.seq_vqvae import SeqAutoencoder
+
+    params = _params(variables)
+    core_sd = (_seq_core_sd if isinstance(tokenizer.net.core, SeqAutoencoder)
+               else _vit_core_sd)(params["core"])
+    sd = {f"core.{k}": v for k, v in core_sd.items()}
+    for name, arr in _flatten(params["quantizer"]).items():
+        sd[f"quantizer.{'embedding.weight' if name == ('embedding',) else '.'.join(name)}"] = arr
+    extra = set(params) - {"core", "quantizer"}
+    if extra:
+        raise KeyError(f"no torch key for JAX params {sorted(extra)}")
+    return _checked(sd, tokenizer.net)
 
 
 def teacher_state_dict_from_jax(variables: Mapping, teacher) -> Dict[str, torch.Tensor]:

@@ -3,8 +3,8 @@ warm start, and the loaders of released EgoM2P and Cosmos weights.
 
 Port of egom2p_tpu/core/checkpoint.py (reference:
 egom2p/utils/checkpoint.py:91-157) and of the .pth readers of
-egom2p_tpu/compat/torch_convert.py:161-275, 334-366 (EgoM2P, the cam and
-gaze VQ-VAEs, Cosmos).  A training checkpoint
+egom2p_tpu/compat/torch_convert.py:161-275, 334-366, 504-541 (EgoM2P, the
+cam and gaze VQ-VAEs, the Cosmos video and image tokenizers).  A training checkpoint
 is `<output_dir>/checkpoint-{tag}.pth` holding
 {"model", "optimizer", "step", "epoch", "args": argparse.Namespace}, as the
 reference pickles it, so the JAX package's readers rebuild the same model
@@ -239,6 +239,86 @@ def load_cosmos_dv_pth(encoder_path: str, decoder_path: Optional[str] = None, cf
     copy_state_dict(net, sd, f"Cosmos weights {encoder_path}"
                              + (f" + {decoder_path}" if decoder_path else ""))
     return CausalVideoTokenizer(net.to(device))
+
+
+def load_cosmos_image_pth(encoder_path: str, decoder_path: Optional[str] = None, cfg=None,
+                          discrete: bool = True, device="cpu"):
+    """Cosmos CI / DI weights from a TorchScript encoder.jit / decoder.jit
+    pair or a .pth of the whole network's state dict -> ImageTokenizer on
+    `device` (egom2p_tpu/compat/torch_convert.py:load_cosmos_image_pth;
+    reference: cosmos_tokenizer/utils.py load_model / load_encoder_model).
+    The quantizer's derived buffers (`inv_quant.*`, `quantizer.*` but a VQ
+    codebook's `quantizer.embedding.weight`) and `distribution.*` are
+    dropped; every other key is checked against the network at `cfg` (DI
+    or CI by default)."""
+    from egom2p_torch.tokenizers.cosmos.image_api import ImageTokenizer
+    from egom2p_torch.tokenizers.cosmos.image_network import (CI_CONFIG, DI_CONFIG,
+                                                              ContinuousImageTokenizer,
+                                                              DiscreteImageTokenizer)
+
+    sd = _cosmos_sd(encoder_path)
+    if decoder_path:
+        sd.update(_cosmos_sd(decoder_path))
+    sd = {k: v for k, v in sd.items() if not k.startswith(("inv_quant", "distribution"))
+          and not (k.startswith("quantizer") and "embedding" not in k)}
+    cfg = cfg or (DI_CONFIG if discrete else CI_CONFIG)
+    net = (DiscreteImageTokenizer if discrete else ContinuousImageTokenizer)(cfg)
+    copy_state_dict(net, sd, f"Cosmos image weights {encoder_path}"
+                             + (f" + {decoder_path}" if decoder_path else ""))
+    return ImageTokenizer(net.to(device))
+
+
+class _EncoderJit(nn.Module):
+    """The key layout of Cosmos's encoder.jit: encoder, quant_conv and the
+    quantizer (a VQ codebook, or the FSQ levels as a buffer)."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.encoder, self.quant_conv = net.encoder, net.quant_conv
+        if isinstance(getattr(net, "quantizer", None), nn.Module):
+            self.quantizer = net.quantizer
+        elif hasattr(net, "quantizer"):
+            self.quantizer = nn.Module()
+            self.quantizer.register_buffer("_levels", torch.tensor(net.cfg.levels))
+
+    def forward(self, x):
+        return self.quant_conv(self.encoder(x))
+
+
+class _DecoderJit(nn.Module):
+    """The key layout of Cosmos's decoder.jit: post_quant_conv, decoder and
+    the inverse quantizer's buffers."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.post_quant_conv, self.decoder = net.post_quant_conv, net.decoder
+        if hasattr(net, "quantizer"):
+            self.inv_quant = nn.Module()
+            self.inv_quant.quantizer = nn.Module()
+            self.inv_quant.quantizer.register_buffer("_levels", torch.tensor(net.cfg.levels))
+
+    def forward(self, z):
+        return self.decoder(self.post_quant_conv(z))
+
+
+def save_cosmos_image_jit(net, directory: str, size: int = 64) -> Tuple[str, str]:
+    """A Cosmos image network (image_network.py) as TorchScript
+    `encoder.jit` / `decoder.jit` files in `directory`, in the key layout of
+    the released files (traced on a `size`^2 image).  Returns the paths."""
+    import warnings
+
+    os.makedirs(directory, exist_ok=True)
+    dev = next(net.parameters()).device
+    grid = size // net.cfg.spatial_compression
+    with warnings.catch_warnings(), torch.no_grad():
+        warnings.simplefilter("ignore")  # the tracer's notes on shape-dependent branches
+        enc = torch.jit.trace(_EncoderJit(net), torch.zeros(1, size, size, 3, device=dev))
+        dec = torch.jit.trace(_DecoderJit(net), torch.zeros(
+            1, net.post_quant_conv.in_channels, grid, grid, device=dev))
+    paths = os.path.join(directory, "encoder.jit"), os.path.join(directory, "decoder.jit")
+    enc.save(paths[0])
+    dec.save(paths[1])
+    return paths
 
 
 def load_seq_vqvae_pth(path: str, domain: str, device="cpu", **config) -> SeqTokenizer:

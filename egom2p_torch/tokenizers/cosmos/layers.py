@@ -1,13 +1,15 @@
 """Causal 3D CNN layers of the Cosmos video tokenizer.
 
-Port of the factorized layers of egom2p_tpu/tokenizers/cosmos/layers.py
-(reference: cosmos_tokenizer/modules/layers3d.py): causal convs with
-first-frame replicate padding in time, per-frame GroupNorm, the hybrid
-spatial/temporal downsample and upsample, factorized resnet blocks, and
-spatial and causal temporal attention.  Tensors are NCTHW (B, C, T, H, W)
-inside, for torch.nn.functional.conv3d; the network's public functions
-take and return the JAX package's channels-last layout.  Module names follow the reference
-torch keys (`conv3d`, `norm.norm`, `conv1.0`, ...).
+Port of egom2p_tpu/tokenizers/cosmos/layers.py (reference:
+cosmos_tokenizer/modules/layers3d.py): causal convs with first-frame
+replicate padding in time, per-frame GroupNorm, the hybrid spatial/temporal
+downsample and upsample and the factorized resnet blocks of the FACTORIZED
+network, the full 3x3x3 resnet blocks and strided downsample / nearest
+upsample of the BASE network, and spatial and causal temporal attention.
+Tensors are NCTHW (B, C, T, H, W) inside, for torch.nn.functional.conv3d;
+the network's public functions take and return the JAX package's
+channels-last layout. Module names follow the reference torch keys
+(`conv3d`, `norm.norm`, `conv1.0`, ...).
 
 The attention blocks are plain dense attention in fp32: the JAX package
 computes them with einsums outside any Pallas kernel.
@@ -160,6 +162,56 @@ class CausalResnetBlockFactorized3d(nn.Module):
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
+
+
+class CausalResnetBlock3d(nn.Module):
+    """The BASE network's resnet block with full 3x3x3 causal convs
+    (reference: layers3d.py:263-303); inference only, so no dropout."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 32):
+        super().__init__()
+        self.norm1 = CausalNormalize(in_channels, num_groups)
+        self.conv1 = CausalConv3d(in_channels, out_channels, (3, 3, 3), padding=1)
+        self.norm2 = CausalNormalize(out_channels, num_groups)
+        self.conv2 = CausalConv3d(out_channels, out_channels, (3, 3, 3), padding=1)
+        self.nin_shortcut = (CausalConv3d(in_channels, out_channels, (1, 1, 1), padding=0)
+                             if in_channels != out_channels else None)
+
+    def forward(self, x):
+        h = self.conv1(nonlinearity(self.norm1(x)))
+        h = self.conv2(nonlinearity(self.norm2(h)))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class CausalDownsample3d(nn.Module):
+    """Strided 3x3x3 causal conv, spatial and temporal: right / bottom zero
+    pad, one replicated lead frame (reference: layers3d.py:124-141)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = CausalConv3d(channels, channels, (3, 3, 3), stride=2, time_stride=2,
+                                 padding=0)
+
+    def forward(self, x):
+        x = F.pad(x, (0, 1, 0, 1, 0, 0))
+        return self.conv(torch.cat([x[:, :, :1], x], dim=2))
+
+
+class CausalUpsample3d(nn.Module):
+    """Nearest 2x upsample in space and time, then a 3x3x3 causal conv; the
+    first copy of frame 0 dropped (reference: layers3d.py:104-121)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = CausalConv3d(channels, channels, (3, 3, 3), padding=1)
+
+    def forward(self, x):
+        x = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
+        time_factor = 2 if x.shape[2] > 1 else 1
+        x = self.conv(x.repeat_interleave(time_factor, dim=2))
+        return x[:, :, time_factor - 1:]
 
 
 class _AttnBase(nn.Module):

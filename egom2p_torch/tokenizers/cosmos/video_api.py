@@ -1,21 +1,26 @@
-"""User-facing causal video tokenizer: uint8 video in, token grids out, and
-token grids back to video.
+"""User-facing causal video tokenizers: uint8 video in, token grids (DV) or
+latents (CV) out, and back to video.
 
-Port of `CausalVideoTokenizer` from egom2p_tpu/tokenizers/cosmos/video_api.py
+Port of `CausalVideoTokenizer`, `ContinuousVideoTokenizer` and
+`sliding_window_autoencode` from egom2p_tpu/tokenizers/cosmos/video_api.py
 (reference: cosmos_tokenizer/video_lib.py:33-152, video_lib_ori.py:85-154):
-a 17-frame temporal window slides over the video; each window is padded to
-the tokenizer's alignment on the device (black spatially, edge frames in
-time), converted from uint8 to [-1, 1] on the device, and encoded to FSQ
-indices; `decode` maps indices back to video and `reconstruct` runs the
-round trip window by window.  Input and output are channels-last, as in the
-JAX package.
+a 17-frame temporal window slides over the video; for the DV tokenizer each
+window is padded to the tokenizer's alignment on the device (black
+spatially, edge frames in time), converted from uint8 to [-1, 1] on the
+device, and encoded to FSQ indices; `decode` maps indices back to video and
+`reconstruct` runs the round trip window by window.  The CV tokenizer's
+`forward` reconstructs window by window (the host pads each window and
+converts it to [-1, 1], then encode -> latent -> decode).  Input and output
+are channels-last, as in the JAX package.
 
 Precision follows the JAX package's default: the uint8 window becomes
 `compute_dtype` (bf16), the [-1, 1] conversion and the Haar patch run in it,
 and the network's weights and activations are fp32 from conv_in on; FSQ is
-fp32.  Decoding is fp32 throughout.  On a CUDA device, whether cuDNN and
-cuBLAS may run the fp32 products on TF32 is the tokenizer's own setting, one
-for the encode and one for the decode, applied only while it computes.
+fp32. Decoding is fp32 throughout, but the CV tokenizer rounds its latent to
+`compute_dtype` before the decoder (the JAX package's `_decode` casts it).
+On a CUDA device, whether cuDNN and cuBLAS may run the fp32 products on TF32
+is the tokenizer's own setting, one for the encode and one for the decode,
+applied only while it computes.
 """
 from __future__ import annotations
 
@@ -26,8 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from egom2p_torch.tokenizers.cosmos.network import (CausalDiscreteVideoTokenizer,
-                                                    DiscreteVideoConfig)
+from egom2p_torch.tokenizers.cosmos.network import (CV8x8x8_CONFIG,
+                                                    CausalContinuousVideoTokenizer,
+                                                    CausalDiscreteVideoTokenizer,
+                                                    ContinuousVideoConfig, DiscreteVideoConfig)
 
 # Whether the card's fp32 convs and products may run on TF32: for the encode
 # only where no token of the serving batch changes, for the decode only where
@@ -95,6 +102,38 @@ def tensor2numpy(video) -> np.ndarray:
     return tensor2uint8(torch.as_tensor(video)).cpu().numpy()
 
 
+def sliding_window_autoencode(autoencode_fn, video_uint8, temporal_window: int,
+                              temporal_align: int, spatial_align: int,
+                              device="cpu") -> np.ndarray:
+    """Reconstruct uint8 video (B, T, H, W, 3) of any length window by
+    window: each `temporal_window` slice padded on the host to the
+    compression alignment, converted to fp32 [-1, 1] on `device`, run
+    through `autoencode_fn` ([-1, 1] in and out) and unpadded
+    (reference: video_lib_ori.py:122-154, video_lib.py:118-152).  Returns
+    uint8 numpy."""
+    if video_uint8.ndim != 5:
+        raise ValueError(f"video must be (B, T, H, W, 3), got {tuple(video_uint8.shape)}")
+    outs = []
+    for i in range((video_uint8.shape[1] - 1) // temporal_window + 1):
+        window = np.asarray(video_uint8[:, i * temporal_window:(i + 1) * temporal_window])
+        padded, crop = pad_video_batch(window, temporal_align, spatial_align)
+        recon = autoencode_fn(torch.from_numpy(numpy2tensor(padded)).to(device))
+        outs.append(unpad_video_batch(tensor2numpy(recon), crop))
+    return np.concatenate(outs, axis=1)
+
+
+@contextlib.contextmanager
+def tf32_precision(tf32: bool):
+    """`tf32` for cuDNN's convs and cuBLAS's products while a tokenizer
+    computes; the process's own settings after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 class CausalVideoTokenizer:
     """Bundles the network (kept in fp32) with the windowed uint8 encode and
     the decode.  `compute_dtype` is the dtype of the encoder's input and
@@ -114,25 +153,13 @@ class CausalVideoTokenizer:
     def device(self) -> torch.device:
         return next(self.net.parameters()).device
 
-    @staticmethod
-    @contextlib.contextmanager
-    def _precision(tf32: bool):
-        """`tf32` for cuDNN's convs and cuBLAS's products while the
-        tokenizer computes; the process's own settings after."""
-        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
     def encode_window(self, window_uint8: torch.Tensor) -> torch.Tensor:
         """One unpadded uint8 window (B, T, H, W, 3) on the device ->
         indices (B, t, h, w) int32."""
         x = pad_video_window(window_uint8, 2 * self.cfg.temporal_compression,
                              2 * self.cfg.spatial_compression)
         x = x.to(self.compute_dtype) / 127.5 - 1.0
-        with self._precision(self.encode_tf32):
+        with tf32_precision(self.encode_tf32):
             indices, _ = self.net.encode(x)
         return indices
 
@@ -140,7 +167,7 @@ class CausalVideoTokenizer:
     def encode(self, video_pm1: torch.Tensor):
         """(B, T, H, W, 3) in [-1, 1] on the device, already padded ->
         (indices, codes)."""
-        with self._precision(self.encode_tf32):
+        with tf32_precision(self.encode_tf32):
             return self.net.encode(video_pm1.to(self.compute_dtype))
 
     @torch.inference_mode()
@@ -149,7 +176,7 @@ class CausalVideoTokenizer:
         fp32 video (B, 1 + (t - 1) * pt, H, W, 3) in about [-1, 1], on the
         tokenizer's device."""
         indices = torch.as_tensor(indices).to(self.device)
-        with self._precision(self.decode_tf32):
+        with tf32_precision(self.decode_tf32):
             return self.net.decode_code(indices)
 
     def autoencode(self, video_pm1: torch.Tensor) -> torch.Tensor:
@@ -163,16 +190,9 @@ class CausalVideoTokenizer:
         autoencoder, window by window: each window padded to the
         compression alignment, round-tripped in [-1, 1] and unpadded
         (reference: video_lib_ori.py:122-154).  Returns uint8 numpy."""
-        if video_uint8.ndim != 5:
-            raise ValueError(f"video must be (B, T, H, W, 3), got {tuple(video_uint8.shape)}")
-        outs = []
-        for i in range((video_uint8.shape[1] - 1) // temporal_window + 1):
-            window = np.asarray(video_uint8[:, i * temporal_window:(i + 1) * temporal_window])
-            padded, crop = pad_video_batch(window, 2 * self.cfg.temporal_compression,
-                                           2 * self.cfg.spatial_compression)
-            recon = self.autoencode(torch.from_numpy(numpy2tensor(padded)).to(self.device))
-            outs.append(unpad_video_batch(tensor2numpy(recon), crop))
-        return np.concatenate(outs, axis=1)
+        return sliding_window_autoencode(self.autoencode, video_uint8, temporal_window,
+                                         2 * self.cfg.temporal_compression,
+                                         2 * self.cfg.spatial_compression, self.device)
 
     @torch.inference_mode()
     def forward(self, video_uint8, temporal_window: int = 17,
@@ -190,5 +210,64 @@ class CausalVideoTokenizer:
                for i in range((num_frames - 1) // temporal_window + 1)]
         tokens = out[0] if len(out) == 1 else torch.cat(out, dim=1)
         return tokens if device_out else tokens.cpu().numpy()
+
+    __call__ = forward
+
+
+class ContinuousVideoTokenizer:
+    """The CV (continuous latent) counterpart of CausalVideoTokenizer
+    (reference: video_lib.py:84-116 handles both; the continuous branch
+    returns a latent instead of indices).  The network stays fp32; the
+    input is cast to `compute_dtype` (bf16 by default, float32 for parity
+    tests) before the patch, and so is the latent before the decoder, as in
+    the JAX package.  `encode_tf32` / `decode_tf32` let the card's fp32
+    products run on TF32."""
+
+    def __init__(self, net: CausalContinuousVideoTokenizer,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        self.net = net.float().eval()
+        self.cfg: ContinuousVideoConfig = net.cfg
+        self.compute_dtype = compute_dtype
+        self.encode_tf32 = ENCODE_TF32
+        self.decode_tf32 = DECODE_TF32
+
+    @classmethod
+    def random_init(cls, generator: torch.Generator, cfg: ContinuousVideoConfig = None,
+                    device=None, **kw) -> "ContinuousVideoTokenizer":
+        """Random weights from `generator`, on `generator`'s device unless
+        `device` says otherwise (the JAX package's random_init)."""
+        net = CausalContinuousVideoTokenizer(cfg or CV8x8x8_CONFIG)
+        net = net.to(device if device is not None else generator.device)
+        return cls(net.init_random_(generator), **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.net.parameters()).device
+
+    @torch.inference_mode()
+    def encode(self, video_pm1):
+        """(B, T, H, W, 3) in [-1, 1], padded -> (latent (B, t, h, w, C),):
+        the AE's latent, the VAE's mean."""
+        x = torch.as_tensor(video_pm1).to(self.device, self.compute_dtype)
+        with tf32_precision(self.encode_tf32):
+            latent, _ = self.net.encode(x)
+        return (latent,)
+
+    @torch.inference_mode()
+    def decode(self, latent) -> torch.Tensor:
+        """latent (B, t, h, w, C) -> fp32 video in about [-1, 1]."""
+        z = torch.as_tensor(latent).to(self.device).to(self.compute_dtype)
+        with tf32_precision(self.decode_tf32):
+            return self.net.decode(z)
+
+    def autoencode(self, video_pm1) -> torch.Tensor:
+        return self.decode(self.encode(video_pm1)[0])
+
+    def forward(self, video_uint8, temporal_window: int = 17) -> np.ndarray:
+        """uint8 (B, T, H, W, 3) -> the reconstructed uint8 video, window by
+        window (reference: video_lib.py:118-152)."""
+        return sliding_window_autoencode(self.autoencode, video_uint8, temporal_window,
+                                         2 * self.cfg.temporal_compression,
+                                         2 * self.cfg.spatial_compression, self.device)
 
     __call__ = forward

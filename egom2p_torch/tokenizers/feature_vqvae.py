@@ -61,6 +61,7 @@ class FeatureAutoencoder(VQAutoencoder):
                  depth: int = 12, num_heads: int = 12, vq_cfg: VQConfig = None):
         super().__init__()
         self.n_channels = n_channels
+        self.latent_grid = (grid, grid)
         self.encoder = FeatureViT(n_channels, dim, grid, dim, depth, num_heads)
         self.decoder = FeatureViT(dim, n_channels, grid, dim, depth, num_heads)
         self.quant_proj = Linear(dim, latent_dim)

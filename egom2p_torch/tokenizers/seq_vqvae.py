@@ -31,8 +31,16 @@ train/vqvae_train.py builds the step around it.
 Shapes of the released configs: cam (B, 60, 9) -> 30 tokens of 256 codes;
 gaze (B, 60, 3) (x, y, valid) -> 30 tokens, decoded to (B, 60, 2).
 
-Not ported yet: the gradient-trained quantizers (GradVQAutoencoder /
-GradVQTokenizer over ops/quantizers.py).
+The gradient-trained quantizers (the reference's `quant_type`, vqvae.py:
+169-198): `GradVQAutoencoder` wraps any of these cores (sequence, video or
+feature) around a taming VQ or Memcodes quantizer of ops/quantizers.py,
+whose codebook is a parameter the optimizer trains; the core's EMA codebook
+buffers are dropped.  Its state dict is the JAX tree's, key for key:
+`core.<the core's keys>` and `quantizer.embedding.weight` (taming) or
+`quantizer.{codes,to_k,to_v}` (Memcodes).  Tokens are flat per sample
+((B, N), or (B, heads, N) for Memcodes with several heads), as in JAX;
+`decode_tokens` restores the core's latent grid, the feature core's (h, w)
+included (JAX's hands the feature core a flat latent and raises there).
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from torch import nn
 
 from egom2p_torch.models.transformer import Block, LayerNorm, Linear, Mlp
 from egom2p_torch.ops.posemb import build_1d_sincos_posemb
+from egom2p_torch.ops.quantizers import Memcodes, TamingVectorQuantizer
 from egom2p_torch.ops.vq import (VQConfig, VQState, indices_to_embedding, init_vq_state,
                                  vq_forward, vq_lookup)
 
@@ -163,16 +172,33 @@ class Quantizer(nn.Module):
             buf.copy_(getattr(state, name).reshape(buf.shape).to(buf))
 
 
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from `generator` (on the module's device), as flax's
+    defaults: lecun-normal (std fan_in^-0.5) weights, zero biases, unit
+    norm scales."""
+    for name, p in module.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+        elif p.dim() == 1:
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+    return module
+
+
 class VQAutoencoder(nn.Module):
     """What the EMA-codebook VQ-VAEs share (this file's SeqAutoencoder,
     tokenizers/video_vqvae.py, tokenizers/feature_vqvae.py): an `encoder`,
     `quant_proj`, the `quantize` codebook buffers, `post_quant_proj`, a
-    `decoder`, and `n_channels`, the data's channels (the target's without
-    gaze's validity channel).  Latents are channel-last (B, ..., latent_dim):
-    a sequence, a (t, h, w) or an (h, w) grid; the codebook sees them
-    flattened in row-major order, as the JAX train step reshapes them."""
+    `decoder`, `n_channels`, the data's channels (the target's without
+    gaze's validity channel), and `latent_grid`, the latent's shape per
+    sample without its channels.  Latents are channel-last (B, ...,
+    latent_dim): a sequence, a (t, h, w) or an (h, w) grid; the codebook sees
+    them flattened in row-major order, as the JAX train step reshapes them."""
 
     n_channels: int
+    latent_grid: Tuple[int, ...]
 
     def encode_latents(self, x):
         return self.quant_proj(self.encoder(x))
@@ -200,14 +226,7 @@ class VQAutoencoder(nn.Module):
         """Random weights from `generator` (on the module's device), as
         flax's defaults: lecun-normal (std fan_in^-0.5) weights, zero
         biases, unit norm scales; a fresh codebook (ops/vq.py)."""
-        for name, p in self.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            elif p.dim() == 1:
-                p.fill_(1.0)
-            else:
-                fan_in = p[0].numel()
-                p.normal_(0.0, fan_in ** -0.5, generator=generator)
+        init_weights_(self, generator)
         self.quantize.set_state(init_vq_state(self.quantize.cfg, generator,
                                               device=self.quantize._codebook.embed.device))
         return self
@@ -221,6 +240,7 @@ class SeqAutoencoder(VQAutoencoder):
                  depth: int = 12, num_heads: int = 12, vq_cfg: VQConfig = None):
         super().__init__()
         self.n_channels = n_channels
+        self.latent_grid = (num_frames // temporal_compress,)
         self.encoder = SeqEncoder(n_channels, num_frames, dim, depth, num_heads,
                                   temporal_compress=temporal_compress, mask_input=mask_input)
         self.decoder = SeqDecoder(n_channels, num_frames, dim, depth, num_heads,
@@ -291,6 +311,98 @@ class VQTokenizer:
 
 class SeqTokenizer(VQTokenizer):
     """A cam or gaze tokenizer: (B, T, C) -> (B, T') tokens."""
+
+
+class GradVQAutoencoder(nn.Module):
+    """An autoencoder core (a VQAutoencoder: sequence, video or feature)
+    around a gradient-trained quantizer, the taming VQ or Memcodes
+    (egom2p_tpu/tokenizers/seq_vqvae.py:GradVQAutoencoder; reference:
+    egom2p/vq/vqvae.py:169-198).  The core's EMA codebook is removed: the
+    quantizer's codebook is a parameter and learns by backprop."""
+
+    def __init__(self, core: VQAutoencoder, quantizer_type: str, codebook_size: int,
+                 latent_dim: int, num_codebooks: int = 1, beta: float = 0.25):
+        super().__init__()
+        if quantizer_type not in ("taming", "memcodes"):
+            raise ValueError(f"unknown gradient quantizer {quantizer_type!r}")
+        if hasattr(core, "quantize"):
+            del core.quantize  # no EMA codebook to train, save or count
+        self.core = core
+        self.quantizer_type = quantizer_type
+        self.codebook_size, self.latent_dim = codebook_size, latent_dim
+        if quantizer_type == "taming":
+            self.quantizer = TamingVectorQuantizer(codebook_size, latent_dim, beta=beta)
+        else:
+            self.quantizer = Memcodes(latent_dim, codebook_size, heads=num_codebooks)
+
+    @property
+    def n_channels(self) -> int:
+        return self.core.n_channels
+
+    @torch.no_grad()
+    def init_random_(self, generator: torch.Generator) -> "GradVQAutoencoder":
+        """The core's weights as VQAutoencoder.init_random_ draws them, then
+        the quantizer's (ops/quantizers.py: the JAX package's inits)."""
+        init_weights_(self.core, generator)
+        self.quantizer.init_random_(generator)
+        return self
+
+    def quantize(self, lat: torch.Tensor, training: bool = False, noise=None,
+                 generator: torch.Generator = None):
+        """Latents (B, ..., D) -> (quantized latents, quantizer loss,
+        tokens): the latents flattened per sample, as in JAX.  `noise` /
+        `generator`: Memcodes' gumbel draws at train time."""
+        flat = lat.reshape(lat.shape[0], -1, lat.shape[-1])
+        if self.quantizer_type == "taming":
+            quant, qloss, (tokens, *_) = self.quantizer(flat, generator=generator)
+        else:
+            quant, qloss, tokens = self.quantizer(flat, training, noise, generator)
+        return quant.reshape(lat.shape), qloss, tokens
+
+    def autoencode_train(self, x, training: bool = False, noise=None,
+                         generator: torch.Generator = None):
+        """(B, ...) -> (reconstruction, quantizer loss, tokens),
+        differentiable (the JAX train step's forward)."""
+        quant, qloss, tokens = self.quantize(self.core.encode_latents(x), training, noise,
+                                             generator)
+        return self.core.decode_latents(quant), qloss, tokens
+
+    def tokenize(self, x) -> torch.Tensor:
+        return self.quantize(self.core.encode_latents(x))[2]
+
+    def decode_tokens(self, tokens) -> torch.Tensor:
+        if self.quantizer_type == "taming":
+            quant = self.quantizer.get_codebook_entry(tokens)
+        else:
+            quant = self.quantizer.indices_to_embedding(tokens)
+        quant = quant.reshape(quant.shape[0], *self.core.latent_grid, self.latent_dim)
+        return self.core.decode_latents(quant)
+
+
+class GradVQTokenizer(VQTokenizer):
+    """A GradVQAutoencoder (fp32, eval mode) with tokenize / decode_tokens
+    / autoencode (egom2p_tpu/tokenizers/seq_vqvae.py:GradVQTokenizer) and
+    the user-facing calls of VQTokenizer."""
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.net.parameters()).device
+
+    def encode(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, ...) -> (quantized latents (B, ..., D), tokens)."""
+        with self._precision():
+            lat = self.net.core.encode_latents(self._input(x))
+            quant, _, tokens = self.net.quantize(lat)
+            return quant, tokens
+
+    def decode_tokens(self, tokens) -> torch.Tensor:
+        with self._precision():
+            return self.net.decode_tokens(torch.as_tensor(tokens).to(self.device))
+
+    def autoencode(self, x) -> torch.Tensor:
+        quant, _ = self.encode(x)
+        with self._precision():
+            return self.net.core.decode_latents(quant)
 
 
 def seq_vqvae_from_config(domain: str, generator: torch.Generator = None,

@@ -110,6 +110,8 @@ class VideoAutoencoder(VQAutoencoder):
                  vq_cfg: VQConfig = None):
         super().__init__()
         self.n_channels = n_channels
+        self.latent_grid = (num_frames // tubelet_t, image_size // patch_size,
+                            image_size // patch_size)
         kw = dict(num_frames=num_frames, image_size=image_size, tubelet_t=tubelet_t,
                   patch_size=patch_size, dim=dim, depth=depth, num_heads=num_heads)
         self.encoder = VideoViTEncoder(n_channels, **kw)

@@ -30,8 +30,14 @@ and the metrics are the global batch's.  Every rank applies the same
 update, and the weights, the codebook and the weights' EMA stay equal on
 every rank.
 
-Not ported yet: the gradient-trained quantizers (taming, memcodes:
-make_grad_vqvae_train_step).
+The gradient quantizers (taming, memcodes) train through
+`make_grad_vqvae_train_step` (egom2p_tpu/train/vqvae_train.py:
+make_grad_vqvae_train_step): loss = reconst + codebook_weight x the
+quantizer's loss, the codebook a parameter like any other, no EMA codebook
+and no perceptual term, the codebook usage counted over `codebook_size`,
+and the weights' EMA as above.  Under a process group the losses are each
+rank's share of the global batch's and the gradients are summed, as above;
+Memcodes' gumbel noise is each rank's own draws.
 """
 from __future__ import annotations
 
@@ -129,6 +135,55 @@ def make_vqvae_train_step(net: nn.Module, optimizer: Optimizer, loss_fn: str = "
         ema_update(ema, net, count, ema_decay, ema_update_freq)
         metrics = {"loss": loss.detach(), "reconst_loss": rec.detach(),
                    "code_loss": commit.detach()}
+        counts = torch.bincount(tokens.reshape(-1), minlength=codebook_size)
+        if parallel:
+            metrics = distributed.global_metrics(metrics)
+            counts = distributed.all_reduce_sum_(counts.float())
+        return {**metrics, "codebook_usage": (counts > 0).float().mean(),
+                "grad_norm": grad_norm.detach()}
+
+    return step
+
+
+def make_grad_vqvae_train_step(net: nn.Module, optimizer: Optimizer, loss_fn: str = "mse",
+                               codebook_weight: float = 1.0,
+                               ema: Optional[Dict[str, torch.Tensor]] = None,
+                               ema_decay: Optional[float] = None,
+                               ema_update_freq: int = 1) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The train step of a GradVQAutoencoder `net` (taming / memcodes;
+    egom2p_tpu/train/vqvae_train.py:make_grad_vqvae_train_step).
+
+    `step(batch, noise=None, generator=None)` runs one step on an fp32
+    batch on the net's device: the forward in training mode (Memcodes'
+    hard gumbel softmax on `noise`, uniform draws in [1e-9, 1 - 1e-9) of
+    shape (B, heads, N, codebook_size), or draws from `generator`), loss =
+    reconst + codebook_weight * the quantizer's loss, its gradients, the
+    optimizer's step and, with `ema` and `ema_decay`, the weights' EMA.
+    Returns the JAX step's metrics (loss, reconst_loss, code_loss,
+    codebook_usage over `codebook_size`) and the gradient norm before
+    clipping (grad_norm), as 0-d tensors."""
+    n_channels, codebook_size = net.n_channels, net.codebook_size
+    parallel = distributed.initialized()
+    world = distributed.world_size()
+
+    def step(batch: torch.Tensor, noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        net.train()
+        pred, qloss, tokens = net.autoencode_train(batch, True, noise, generator)
+        rec = reconst_loss(pred, batch, loss_fn, n_channels, world,
+                           distributed.all_reduce_sum_ if parallel else None)
+        if world > 1:  # this rank's share of the global batch's mean
+            qloss = qloss / world
+        loss = rec + codebook_weight * qloss
+        optimizer.zero_grad()
+        loss.backward()
+        if parallel:
+            distributed.all_reduce_grads_(optimizer.params)
+        count = optimizer.step_count
+        grad_norm = optimizer.step()
+        ema_update(ema, net, count, ema_decay, ema_update_freq)
+        metrics = {"loss": loss.detach(), "reconst_loss": rec.detach(),
+                   "code_loss": qloss.detach()}
         counts = torch.bincount(tokens.reshape(-1), minlength=codebook_size)
         if parallel:
             metrics = distributed.global_metrics(metrics)

@@ -312,8 +312,10 @@ def test_eval_path_imports_no_jax():
     mp4 in and out; the cam / gaze VQ-VAE, VQ lookup, cam / gaze host
     modules and metrics; the shard reader, loader, configs and train and
     eval steps; the VQ-VAE trainer, its eval and the two shard tools; the
-    process group helpers and the data-parallel tests' rank module) and
-    chip_smoke.py load without JAX or the JAX package."""
+    process group helpers and the data-parallel tests' rank module; the
+    gradient quantizers, the Cosmos image tokenizers, the latent
+    distributions and tokenize_images) and chip_smoke.py load without JAX
+    or the JAX package."""
     import subprocess
     code = ("import sys\n"
             "import chip_smoke\n"
@@ -328,6 +330,11 @@ def test_eval_path_imports_no_jax():
             "import egom2p_torch.cli.run_training_vqvae, egom2p_torch.cli.tokenize_videos\n"
             "import egom2p_torch.train.vqvae_train, egom2p_torch.train.vqvae_eval\n"
             "import egom2p_torch.core.distributed\n"
+            "import egom2p_torch.ops.quantizers, egom2p_torch.cli.tokenize_images\n"
+            "import egom2p_torch.tokenizers.cosmos.image_network\n"
+            "import egom2p_torch.tokenizers.cosmos.image_api\n"
+            "import egom2p_torch.tokenizers.cosmos.layers2d\n"
+            "import egom2p_torch.tokenizers.cosmos.distributions\n"
             "sys.path.insert(0, 'tests')\n"
             "import torch_dist_ranks\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"

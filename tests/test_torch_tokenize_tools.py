@@ -168,8 +168,6 @@ def test_vqvae_cli_trains_resumes_evaluates_and_tokenizes(domain, tmp_path, caps
 def test_vqvae_cli_refuses_what_is_not_ported(tmp_path):
     np.save(tmp_path / "d.npy", smooth_gaze_tracks(np.random.default_rng(0), 8))
     base = vqvae_argv("gaze", tmp_path / "d.npy", tmp_path / "o")
-    with pytest.raises(NotImplementedError, match="item 9"):  # the gradient quantizers
-        run_training_vqvae.main(base + ["--quantizer_type", "taming"])
     with pytest.raises(ValueError, match="video"):  # a DiVAE warm start is the video encoder's
         run_training_vqvae.main(base + ["--encoder_ckpt", "divae.safetensors"])
     with pytest.raises(SystemExit, match="unknown --domain"):
