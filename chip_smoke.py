@@ -99,6 +99,15 @@
    one 17-frame window and the decode of its tokens.  Each in exact fp32
    and on TF32: ms per call, the tokens or latent elements TF32 moves,
    finite outputs; no attention kernel launches (Cosmos attends densely).
+3h. The local model hub: the served EgoM2P-base written as a directory of
+   config.json + model.safetensors (core/safetensors.py, no package), a
+   directory of config.json + a .pth, and a bare .pth with the reference's
+   pickled args, each loaded back by FM.from_pretrained(..., device="cuda"):
+   every tensor bitwise served's (write and load seconds printed).  On the
+   safetensors load, greedy rgb2depth at B = 8 with phase 3's greedy seed:
+   216 flash64 launches, every token equal to served's; then
+   forward_dec_subset_logits at SUBSET_ROWS chosen positions a row,
+   bitwise equal to forward_mod_logits(forward_dec_subset_hidden(...)).
 4. Training kernel phase at the pretraining step's shapes (B=8, 12 heads,
    N = M = 2048, q/k/v as views of fused projections): the flash64_train
    forward, dq and dk/dv kernels against their plain versions with key
@@ -261,6 +270,29 @@
    gradients with the kernels against the plain versions; then Memcodes on
    cam at cfgs/vqvae/cam.yaml's widths, B = 128, an epoch of 4 steps with
    eval, and --tokenize of 16 clips (no kernel launch).
+5k. LoRA fine-tuning of EgoM2P-base (models/lora.py): rank 4 adapters on
+   every attention linear (84), the base frozen, AdamW on the adapters,
+   LORA_STEPS steps at B = 8 on phase 5's synthetic batch through
+   lora_train_step_fn (torch.func.functional_call on the merged weights):
+   36 / 36 / 36 / 2 launches a step, finite losses, the base weights
+   bitwise unchanged, gradients on the adapters only (every b moved); the
+   step ms beside phase 5's; the adapters' gradients with the kernels
+   against the plain versions (phase 5's tolerances) and merge_lora + the
+   model's own forward against the adapted forward (MERGE_LOSS_RTOL).
+5l. The rgb video VQ-VAE of phase 5h on augmented clips: VideoClipDataset
+   with auto_augment AUG_SPEC and random erasing (p = AUG_REPROB, per-pixel
+   noise) over 5h's seeded .npy clips, made by VideoBatchLoader's
+   AUG_WORKERS forked workers (data/rand_augment.py: torch on the host's
+   CPU): the host's augmented clips/s alone, then AUG_STEPS steps at B = 8
+   (24 / 24 / 24 launches a step) and their clips/s, one augmented batch's
+   loss and gradients with the kernels against the plain versions.
+5m. MultiModalDatasetFolder over seeded .npy rgb (uint8), depth (uint16),
+   tok_rgb (4 stored crops) and crop_settings files, with
+   UnifiedDataTransform, default_modality_transforms() (+ DepthTransform)
+   and the pre-tokenized augmenter at 224 px: a stored random crop of
+   each sample resized (data/resample.py, Pillow's arithmetic without
+   Pillow); samples/s on the host, no kernel.  Prints whether Pillow and
+   OpenCV import on the card's machine.
 6. Fused-backward kernel phase at the same shapes: the fused one-pass
    dq/dk/dv kernel against its plain version with key padding and segments
    and at a ragged 2000^2, in both softmax modes; its time beside the split
@@ -297,11 +329,11 @@
    dim to be a multiple of 128), finite losses near ln V, every parameter
    moved; step time, tokens/s, peak memory, a profiled step and a one-batch
    kernels-vs-plain check.
-12. Prints the kernel JSON line (per kernel: launches on its main path, max
-   error, kernel / plain / library times and the card's bound for the same
-   work: the larger of its bytes at 3.35 TB/s and its operations at the
-   dense bf16 peak), the card's name and power limit, and last the device
-   JSON line.
+12. Prints its seconds in all, the kernel JSON line (per kernel: launches
+   on its main path, max error, kernel / plain / library times and the
+   card's bound for the same work: the larger of its bytes at 3.35 TB/s and
+   its operations at the dense bf16 peak), the card's name and power limit,
+   and last the device JSON line.
 
 `python3 chip_smoke.py --cards N` runs the trainer data-parallel over N
 cards; `--cards N --fsdp` runs it with and without --fsdp true over N
@@ -324,6 +356,8 @@ import time
 
 import numpy as np
 import torch
+
+_STARTED = time.perf_counter()  # the script's seconds in all are printed from here
 
 B = 8                      # clips per batch, as the rgb2depth bench
 HEADS = 12
@@ -742,10 +776,10 @@ def slice_phase(dev):
           f"{safemax_launches}")
     if safemax_launches != LAUNCHES_PER_GENERATE or not out["tok_depth"]["target_mask"].all():
         raise AssertionError(f"safemax run: {safemax_launches} launches")
-    head_check(model, sampler, tokens)
+    greedy = head_check(model, sampler, tokens)
     encode_tf32_check(tokenizer, video)
     served = dict(model=model, sampler=sampler, tokenizer=tokenizer, video=video,
-                  rgb=tokens, depth=out["tok_depth"]["tensor"])
+                  rgb=tokens, depth=out["tok_depth"]["tensor"], greedy_depth=greedy)
     return launches, safemax_launches, B / (tok_ms + gen_ms) * 1e3, served
 
 
@@ -769,6 +803,7 @@ def head_check(model, sampler, tokens):
           f"rgb2depth on the served batch: {unequal} unequal tokens of {np.asarray(fp32).size}")
     if unequal:
         raise AssertionError(f"the TF32 generation head changed {unequal} greedy tokens")
+    return np.asarray(tf32)
 
 
 def _median_ms(fn, reps: int = 3):
@@ -4346,7 +4381,7 @@ def video_vqvae_phase(dev, tmp, train_rows):
     """Phase 5h (docstring): the rgb video VQ-VAE at the CLI's video
     defaults.  Returns {"launches": per step, "step_ms": x, ...}."""
     from egom2p_torch.cli import run_training_vqvae
-    from egom2p_torch.train.vqvae_train import make_vqvae_train_step, reconst_loss
+    from egom2p_torch.train.vqvae_train import make_vqvae_train_step
 
     va = VIDEO_ARGS
     clips = _write_video_clips(os.path.join(tmp, "video_clips"), VIDEO_CLIPS, VIDEO_CLIP_FRAMES,
@@ -4414,35 +4449,7 @@ def video_vqvae_phase(dev, tmp, train_rows):
     gen = torch.Generator(device=dev).manual_seed(18)
     batch = torch.rand((B, va["frames"], va["size"], va["size"], 3), generator=gen,
                        device=dev) * 2 - 1
-    st = net.quantize.state
-    saved = type(st)(embed=st.embed.clone(), cluster_size=st.cluster_size.clone(),
-                     initted=st.initted.clone())
-
-    def grads():
-        net.zero_grad(set_to_none=True)
-        pred, commit, _ = net.autoencode_train(batch)
-        loss = reconst_loss(pred, batch, "mse", 3) + commit
-        loss.backward()
-        net.quantize.set_state(saved)
-        return loss.item(), [p.grad.float().clone() for p in net.parameters()]
-
-    before = _counts()
-    loss_k, g_k = grads()
-    after = _counts()
-    if {k: after[k] - before[k] for k in after} != VIDEO_STEP:
-        raise AssertionError("the video step check missed a kernel")
-    with _swapped(_plain_versions("default")):
-        loss_p, g_p = grads()
-    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(g_k, g_p)))
-    den = math.sqrt(sum((b ** 2).sum().item() for b in g_p))
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"video VQ-VAE step, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
-          f"(rel {loss_rel:.2e}; tolerance {STEP_LOSS_RTOL:g}), gradient rel L2 difference "
-          f"{num / den:.2e} (tolerance {STEP_GRAD_REL_L2:g})")
-    if not math.isfinite(loss_k) or loss_rel > STEP_LOSS_RTOL or num / den > STEP_GRAD_REL_L2:
-        raise AssertionError("the video VQ-VAE step with the kernels disagrees with plain")
-    del g_k, g_p
-    net.zero_grad(set_to_none=True)
+    video_step_check(net, batch, "video VQ-VAE step")
     # a profiled step
     from torch.profiler import ProfilerActivity, profile
     step_fn = make_vqvae_train_step(net, optimizer)
@@ -4465,7 +4472,45 @@ def video_vqvae_phase(dev, tmp, train_rows):
               f"scaled_dot_product_attention fwd {r['library_ms']['fwd']:.3f}, bwd "
               f"{r['library_ms']['bwd']:.3f}; errors "
               + " ".join(f"{k} {v:.2e}" for k, v in r["err"].items()))
-    return {"launches": VIDEO_STEP, "step_ms": step_ms, "no_mask": no_mask[0]}
+    return {"launches": VIDEO_STEP, "step_ms": step_ms, "no_mask": no_mask[0], "net": net,
+            "optimizer": optimizer, "clips": clips}
+
+
+def video_step_check(net, batch, label):
+    """The video VQ-VAE's loss and gradients on `batch` with the kernels
+    (VIDEO_STEP's launches) against the plain versions, within
+    STEP_LOSS_RTOL and STEP_GRAD_REL_L2; the codebook state restored after
+    each run."""
+    from egom2p_torch.train.vqvae_train import reconst_loss
+
+    st = net.quantize.state
+    saved = type(st)(embed=st.embed.clone(), cluster_size=st.cluster_size.clone(),
+                     initted=st.initted.clone())
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        pred, commit, _ = net.autoencode_train(batch)
+        loss = reconst_loss(pred, batch, "mse", 3) + commit
+        loss.backward()
+        net.quantize.set_state(saved)
+        return loss.item(), [p.grad.float().clone() for p in net.parameters()]
+
+    before = _counts()
+    loss_k, g_k = grads()
+    after = _counts()
+    if {k: after[k] - before[k] for k in after} != VIDEO_STEP:
+        raise AssertionError(f"{label}: the check missed a kernel")
+    with _swapped(_plain_versions("default")):
+        loss_p, g_p = grads()
+    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(g_k, g_p)))
+    den = math.sqrt(sum((b ** 2).sum().item() for b in g_p))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"{label}, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.2e}; tolerance {STEP_LOSS_RTOL:g}), gradient rel L2 difference "
+          f"{num / den:.2e} (tolerance {STEP_GRAD_REL_L2:g})")
+    if not math.isfinite(loss_k) or loss_rel > STEP_LOSS_RTOL or num / den > STEP_GRAD_REL_L2:
+        raise AssertionError(f"{label}: the kernels disagree with the plain versions")
+    net.zero_grad(set_to_none=True)
 
 
 def _teacher_attention_row(dev, spec, heads, hd):
@@ -4920,6 +4965,333 @@ def grad_vqvae_phase(dev, tmp):
     return {"launches": VIDEO_STEP, "step_ms": step_ms, "cam_memcodes_ms": cam_ms}
 
 
+# ---------------- the hub, LoRA, augmented clips and the folder dataset
+HUB_LAYOUTS = (("safetensors", "model.safetensors"), ("pth_dir", "egom2p-base.pth"),
+               ("bare_pth", None))
+SUBSET_ROWS = 1707             # one ROAR step's chosen positions at B = 8 (ROADMAP)
+LORA_RANK, LORA_STEPS, LORA_LR = 4, 4, 1e-3
+LORA_STEP = DEFAULT_STEP       # 36 / 36 / 36 / 2: the base step's kernels through the merged weights
+MERGE_LOSS_RTOL = 1e-3         # merge_lora + a plain forward vs the adapted forward (bf16 noise)
+AUG_SPEC, AUG_REPROB = "rand-m9-n2-mstd0.5", 0.25
+AUG_STEPS, AUG_WORKERS = 3, 6
+FOLDER_CLASSES, FOLDER_PER_CLASS, FOLDER_SIZE = 2, 16, 224
+FOLDER_SOURCE = (256, 320)     # the stored frames' (h, w): resized to 224 after the crop
+
+
+def hub_phase(dev, served, tmp):
+    """Phase 3h (docstring): served's EgoM2P-base written in three layouts
+    and loaded back through FM.from_pretrained on the card; greedy
+    rgb2depth on the safetensors load and forward_dec_subset_logits.
+    Returns the flash64 launches of the generate."""
+    from egom2p_torch.cli.eval_common import MODS4, roar_schedule
+    from egom2p_torch.generate.sampler import GenerationSampler
+    from egom2p_torch.models.hub import FM
+    from egom2p_torch.ops.attention import inference_attention
+    from egom2p_torch.ops.flash64 import flash64_attention
+
+    model = served["model"]
+    ref = model.state_dict()
+    loaded = None
+    for layout, weights in HUB_LAYOUTS:
+        root = os.path.join(tmp, f"hub_{layout}")
+        t0 = time.perf_counter()
+        if weights is None:  # a bare .pth with the reference's pickled args
+            os.makedirs(root, exist_ok=True)
+            target = os.path.join(root, "egom2p-base.pth")
+            torch.save({"model": {k: v.cpu() for k, v in ref.items()},
+                        "args": argparse.Namespace(model=BASE_MODEL, in_domains=list(MODS4),
+                                                   out_domains=list(MODS4))}, target)
+        else:
+            FM(model).save_pretrained(root, weights)
+            target = root
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+        t0 = time.perf_counter()
+        fm = FM.from_pretrained(target, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        sd = fm.model.state_dict()
+        if set(sd) != set(ref) or not all(sd[k].device == v.device and torch.equal(sd[k], v)
+                                          for k, v in ref.items()):
+            raise AssertionError(f"hub {layout}: the loaded weights differ from served's")
+        print(f"hub {layout}: {size / 2 ** 30:.2f} GiB written in {write_s:.2f} s, "
+              f"FM.from_pretrained on the card in {load_s:.2f} s, {len(sd)} tensors bitwise "
+              "equal to served's")
+        for f in os.listdir(root):
+            os.remove(os.path.join(root, f))
+        if layout == "safetensors":
+            loaded = fm.model
+        else:
+            del fm
+    # greedy rgb2depth on the safetensors load: served's tokens (head_check, seed 5)
+    sampler = GenerationSampler(loaded)
+    schedule = roar_schedule("tok_rgb", "tok_depth", temperature=0.0)
+    flash64_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sampler.generate(_rgb2depth_sample(served["rgb"]), schedule, seed=5)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    launches = flash64_attention.launches
+    tokens = np.asarray(out["tok_depth"]["tensor"])
+    unequal = int((tokens != served["greedy_depth"]).sum())
+    print(f"hub: greedy rgb2depth at B={B} on the model.safetensors load: {gen_ms:.1f} ms, "
+          f"flash64 launches {launches}, {unequal} of {tokens.size} tokens unlike served's")
+    if launches != LAUNCHES_PER_GENERATE or unequal:
+        raise AssertionError(f"hub generate: {launches} launches, {unequal} tokens differ")
+    # forward_dec_subset_logits on one step's chosen positions
+    md = {m: {k: torch.as_tensor(v).to(dev) for k, v in d.items()}
+          for m, d in _rgb2depth_sample(served["rgb"]).items()}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    ids_keep = torch.stack([torch.randperm(5120, generator=gen, device=dev)[:SUBSET_ROWS]
+                            for _ in range(B)])
+    with torch.inference_mode(), inference_attention():
+        ctx, mask = loaded.forward_enc_context(md, 5120)
+        logits = loaded.forward_dec_subset_logits(md, "tok_depth", ctx, mask, ids_keep)
+        y = loaded.forward_dec_subset_hidden(md, "tok_depth", ctx, mask, ids_keep)
+        pair = loaded.forward_mod_logits("tok_depth", y)
+    same = bool(torch.equal(logits, pair))
+    print(f"hub: forward_dec_subset_logits at ({B}, {SUBSET_ROWS}) positions: logits "
+          f"{tuple(logits.shape)} {logits.dtype}, bitwise equal to forward_mod_logits("
+          f"forward_dec_subset_hidden): {same}")
+    if not same or logits.shape != (B, SUBSET_ROWS, 64000) or not torch.isfinite(logits).all():
+        raise AssertionError("forward_dec_subset_logits disagrees with its two halves")
+    del logits, pair, y, ctx, loaded, sampler
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _synthetic_batch(dev):
+    """One batch of phase 5's synthetic data (the trainer's seeded pool at
+    main_mod4's settings, batch 8) on the card."""
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.data.loader import batch_to_device
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = run_training.get_args([
+            "--synthetic_data", "--model", BASE_MODEL, "--num_input_tokens", "2048",
+            "--num_target_tokens", "2048", "--batch_size", str(B), "--seed", "0",
+            "--output_dir", out_dir])
+        loader, _ = run_training.setup_data(args)
+        it = iter(loader)
+        try:
+            return batch_to_device(next(it), dev)
+        finally:
+            it.close()
+
+
+def lora_phase(dev, default_ms):
+    """Phase 5k (docstring): LoRA fine-tuning of EgoM2P-base.  Returns the
+    launches per step."""
+    import copy
+
+    from egom2p_torch.cli.run_training import MODS4
+    from egom2p_torch.models.egom2p import create_model
+    from egom2p_torch.models.lora import init_lora_params, lora_train_step_fn, merge_lora
+
+    model = create_model(BASE_MODEL, sorted(MODS4), sorted(MODS4), device=dev)
+    model.init_random_(torch.Generator(device=dev).manual_seed(0))
+    base = {k: v.detach().clone() for k, v in model.named_parameters()}
+    lora = init_lora_params(dict(model.named_parameters()),
+                            torch.Generator(device=dev).manual_seed(1), rank=LORA_RANK)
+    leaves = [t.requires_grad_(True) for ab in lora.values() for t in ab.values()]
+    optimizer = torch.optim.AdamW(leaves, lr=LORA_LR, weight_decay=0.0)
+    apply = lora_train_step_fn(model)
+    batch = _synthetic_batch(dev)
+    per_step, seconds, losses = [], [], []
+    for step in range(LORA_STEPS):
+        torch.cuda.synchronize()
+        before = _counts()
+        t0 = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = apply(lora, batch, 2048, 2048, "mod")
+        loss.backward()
+        optimizer.step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        after = _counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(loss.item())
+    for i, launches in enumerate(per_step):
+        if launches != LORA_STEP:
+            raise AssertionError(f"LoRA step {i}: launches {launches}, expected {LORA_STEP}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"LoRA: non-finite losses {losses}")
+    unchanged = all(torch.equal(p, base[k]) for k, p in model.named_parameters())
+    no_base_grad = all(p.grad is None for p in model.parameters())
+    adapter_grads = all(t.grad is not None and bool(t.grad.abs().max() > 0) for t in leaves)
+    moved_b = all(bool(ab["b"].abs().max() > 0) for ab in lora.values())
+    n_adapter = sum(t.numel() for t in leaves)
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    print(f"LoRA fine-tuning of EgoM2P-base (rank {LORA_RANK}, {len(lora)} attention linears, "
+          f"{n_adapter / 1e6:.2f}M adapter parameters, B={B}, AdamW lr {LORA_LR:g}): steps "
+          f"{[round(s * 1e3, 1) for s in seconds]} ms (first is warm-up), median {step_ms:.1f} "
+          f"ms beside the full step's {default_ms:.1f} ms (phase 5); losses "
+          f"{[round(v, 4) for v in losses]}; launches a step {LORA_STEP['fwd']} / "
+          f"{LORA_STEP['dq']} / {LORA_STEP['dkv']} / {LORA_STEP['ce_fwd']}; base weights "
+          f"bitwise unchanged: {unchanged}; no base gradient: {no_base_grad}; every adapter "
+          f"has a gradient: {adapter_grads}; every b moved: {moved_b}")
+    if not (unchanged and no_base_grad and adapter_grads and moved_b):
+        raise AssertionError("LoRA: the base moved or an adapter took no gradient")
+    # the adapters' gradients, kernels against plain versions
+    trained = {k: {n: t.detach().clone().requires_grad_(True) for n, t in ab.items()}
+               for k, ab in lora.items()}
+
+    def grads():
+        for ab in trained.values():
+            for t in ab.values():
+                t.grad = None
+        loss, _ = apply(trained, batch, 2048, 2048, "mod")
+        loss.backward()
+        return loss.item(), [t.grad.clone() for ab in trained.values() for t in ab.values()]
+
+    before = _counts()
+    loss_k, g_k = grads()
+    after = _counts()
+    if {k: after[k] - before[k] for k in after} != LORA_STEP:
+        raise AssertionError("the LoRA gradient check missed a kernel")
+    with _swapped(_plain_versions("default")):
+        loss_p, g_p = grads()
+    num = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(g_k, g_p)))
+    den = math.sqrt(sum((b ** 2).sum().item() for b in g_p))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    # merge_lora, then the model's own forward on the merged weights
+    fused = copy.deepcopy(model)
+    with torch.no_grad():
+        for k, w in merge_lora(base, trained).items():
+            fused.get_parameter(k).copy_(w)
+        merged_loss = fused(batch, 2048, 2048, "mod")[0].item()
+        adapted_loss = apply(trained, batch, 2048, 2048, "mod")[0].item()
+    merge_rel = abs(merged_loss - adapted_loss) / abs(adapted_loss)
+    print(f"LoRA, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{loss_rel:.2e}; tolerance {STEP_LOSS_RTOL:g}), adapter gradient rel L2 difference "
+          f"{num / den:.2e} (tolerance {STEP_GRAD_REL_L2:g}); merge_lora + the plain forward "
+          f"{merged_loss:.6f} vs the adapted forward {adapted_loss:.6f} (rel {merge_rel:.2e}; "
+          f"tolerance {MERGE_LOSS_RTOL:g})")
+    if (loss_rel > STEP_LOSS_RTOL or num / den > STEP_GRAD_REL_L2
+            or merge_rel > MERGE_LOSS_RTOL):
+        raise AssertionError("LoRA: kernels, plain versions or the merged model disagree")
+    del model, fused, optimizer, batch, g_k, g_p
+    torch.cuda.empty_cache()
+    return LORA_STEP
+
+
+def augmented_video_phase(dev, video):
+    """Phase 5l (docstring): the rgb video VQ-VAE step of phase 5h on
+    RandAugment + random-erasing clips from VideoBatchLoader's forked
+    workers.  Returns the launches per step."""
+    from egom2p_torch.data.video_dataset import VideoBatchLoader, VideoClipDataset
+    from egom2p_torch.train.vqvae_train import make_vqvae_train_step
+
+    va = VIDEO_ARGS
+    ds = VideoClipDataset(video["clips"], mode="train", clip_len=va["frames"],
+                          crop_size=va["size"], domain="rgb", use_npy=True, seed=0,
+                          auto_augment=AUG_SPEC, reprob=AUG_REPROB)
+    loader = VideoBatchLoader(ds, batch_size=B, seed=0, num_workers=AUG_WORKERS,
+                              prefetch=AUG_WORKERS)
+    # the host alone, from a cold start: two rounds of batches from every
+    # worker (the queue holds one round), nothing else running
+    t0 = time.perf_counter()
+    it = iter(loader)
+    try:
+        batches = [next(it) for _ in range(2 * AUG_WORKERS)]
+        host_s = time.perf_counter() - t0
+    finally:
+        it.close()
+    if any(p.is_alive() for p in it.workers):
+        raise AssertionError("VideoBatchLoader left a worker running")
+    host_batches = len(batches)
+    host_rate = host_batches * B / host_s
+    batches = batches[:AUG_STEPS + 1]
+    for b in batches:
+        if b.shape != (B, va["frames"], va["size"], va["size"], 3) or b.dtype != np.float32 \
+                or not np.isfinite(b).all():
+            raise AssertionError(f"augmented batch {b.shape} {b.dtype}")
+    net, optimizer = video["net"], video["optimizer"]
+    step_fn = make_vqvae_train_step(net, optimizer)
+    check = torch.from_numpy(batches[0]).to(dev)
+    video_step_check(net, check, "augmented video VQ-VAE step")
+    per_step, seconds = [], []
+    for b in batches[1:]:
+        x = torch.from_numpy(b).to(dev)
+        torch.cuda.synchronize()
+        before = _counts()
+        t0 = time.perf_counter()
+        metrics = step_fn(x)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        after = _counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"augmented video step: loss {loss}")
+    for i, launches in enumerate(per_step):
+        if launches != VIDEO_STEP:
+            raise AssertionError(f"augmented video step {i}: launches {launches}")
+    step_ms = float(np.median(seconds)) * 1e3
+    print(f"augmented video VQ-VAE (RandAugment {AUG_SPEC!r}, random erasing p={AUG_REPROB}, "
+          f"{AUG_WORKERS} forked workers): the host alone {host_rate:.2f} augmented clips/s "
+          f"({host_batches} batches of {B} from a cold start in {host_s:.2f} s); "
+          f"steps {[round(s * 1e3, 1) for s in seconds]} ms, median {step_ms:.1f} ms = "
+          f"{B / step_ms * 1e3:.2f} clips/s on the card (phase 5h: {video['step_ms']:.1f} ms); "
+          f"launches a step {VIDEO_STEP['fwd']} / {VIDEO_STEP['dq']} / {VIDEO_STEP['dkv']}")
+    video.pop("net")
+    video.pop("optimizer")
+    del net, optimizer, step_fn
+    torch.cuda.empty_cache()
+    return VIDEO_STEP
+
+
+def folder_dataset_phase(tmp):
+    """Phase 5m (docstring): MultiModalDatasetFolder + UnifiedDataTransform
+    on the host."""
+    import importlib.util
+
+    from egom2p_torch.data.folder_dataset import MultiModalDatasetFolder
+    from egom2p_torch.data.modality_transforms import (DepthTransform,
+                                                       PreTokenizedImageAugmenter,
+                                                       UnifiedDataTransform,
+                                                       default_modality_transforms)
+
+    print("host packages: PIL " + ("imports" if importlib.util.find_spec("PIL") else "absent")
+          + ", cv2 " + ("imports" if importlib.util.find_spec("cv2") else "absent"))
+    rng = np.random.default_rng(20)
+    root = os.path.join(tmp, "folder")
+    h, w = FOLDER_SOURCE
+    for c in range(FOLDER_CLASSES):
+        for i in range(FOLDER_PER_CLASS):
+            for mod, arr in (
+                    ("rgb", rng.integers(0, 256, (h, w, 3), dtype=np.uint8)),
+                    ("depth", rng.integers(0, 65536, (h, w), dtype=np.uint16)),
+                    ("tok_rgb", rng.integers(0, 64000, (4, 5, 32, 32)).astype(np.int16)),
+                    ("crop_settings", np.stack([
+                        [t, l, s, s, f] for t, l, s, f in zip(
+                            rng.integers(0, h - 200, 4), rng.integers(0, w - 200, 4),
+                            rng.integers(160, 200, 4), rng.integers(0, 2, 4))]))):
+                d = os.path.join(root, mod, f"class_{c}")
+                os.makedirs(d, exist_ok=True)
+                np.save(os.path.join(d, f"s{i:03d}.npy"), arr)
+    transforms = default_modality_transforms()
+    transforms["depth"] = DepthTransform()
+    ds = MultiModalDatasetFolder(
+        root, ["rgb", "depth", "tok_rgb", "crop_settings"], modality_transforms=transforms,
+        transform=UnifiedDataTransform(transforms, PreTokenizedImageAugmenter(FOLDER_SIZE)),
+        return_path=True)
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in range(len(ds))]
+    secs = time.perf_counter() - t0
+    s = FOLDER_SIZE
+    for smp in samples:
+        if (smp["rgb"].shape != (s, s, 3) or smp["depth"].shape != (s, s, 1)
+                or smp["tok_rgb"].shape != (5, 32, 32) or smp["rgb"].dtype != np.float32
+                or not np.isfinite(smp["depth"]).all()):
+            raise AssertionError(f"folder sample {[(k, getattr(v, 'shape', v)) for k, v in smp.items()]}")
+    rate = len(samples) / secs
+    print(f"folder dataset: {len(samples)} samples of rgb {FOLDER_SOURCE} uint8, depth uint16 "
+          f"and 4 stored crops of 5 x 32 x 32 tokens (.npy), a stored crop resized to "
+          f"{s}^2 each, in {secs:.2f} s: {rate:.1f} samples/s on the host, one process")
+
+
 def _demangled(names):
     """{mangled: demangled} by the toolkit's cu++filt (the mangled name where
     it is missing)."""
@@ -5029,17 +5401,21 @@ def main() -> int:
         multi = phase(multi_guided_phase, dev, served)
         sam_launches = phase(sam_dense_phase, dev, served, ckpt_dir)
         phase(cosmos_serve_phase, dev, ckpt_dir)
+        hub = phase(hub_phase, dev, served, ckpt_dir)
     served.clear()  # the training phases need the card's memory
     torch.cuda.empty_cache()
     train_rows = phase(train_kernel_phase, dev)
     ce_rows = phase(ce_phase, dev)
     train_launches, default_ms, first_metrics = phase(train_slice_phase, dev)
+    lora = phase(lora_phase, dev, default_ms)
     shard_launches = phase(shard_train_phase, dev, default_ms)
     caption_launches = phase(caption_train_phase, dev)
     remat_launches, large_remat_launches = phase(remat_phase, dev)
     pipeline_launches = phase(tokenizer_pipeline_phase, dev)
     with tempfile.TemporaryDirectory() as image_dir:
         video = phase(video_vqvae_phase, dev, image_dir, train_rows)
+        augmented = phase(augmented_video_phase, dev, video)
+        phase(folder_dataset_phase, image_dir)
         features = phase(feature_vqvae_phase, dev, image_dir)
         taming = phase(grad_vqvae_phase, dev, image_dir)
     dp_launches = phase(data_parallel_phase, dev, first_metrics, default_ms)
@@ -5075,7 +5451,7 @@ def main() -> int:
         caption_launches={k: captioned[k] for k in ("rgb2caption", "caption2rgb")},
         ar_cross=captioned["ar_cross"], multi_guided_launches=multi["launches"],
         multi_guided_ms=multi["generate_ms"], rgb224_context_err=multi["rgb224_err"],
-        sam_dense_launches=sam_launches)
+        sam_dense_launches=sam_launches, hub_rgb2depth_launches=hub)
     add("flash64_fwd_safemax", "flash64_fwd.cu", "flash64.py:119", safemax_launches, max_err,
         rows[1]["ms"], rows[1]["plain_ms"], serve_bound, rows[1]["library_ms"],
         exp2_bound_ms=serve_exp2)
@@ -5093,7 +5469,9 @@ def main() -> int:
                     "caption_train_launches": caption_launches[BASE_MODEL][part],
                     "causal_train_launches": caption_launches[CAUSAL_MODEL][part],
                     "video_vqvae_launches_per_step": video["launches"][part],
-                    "taming_video_vqvae_launches_per_step": taming["launches"][part]}
+                    "taming_video_vqvae_launches_per_step": taming["launches"][part],
+                    "augmented_video_vqvae_launches_per_step": augmented[part],
+                    "lora_launches_per_step": lora[part]}
              for part in ("fwd", "dq", "dkv", "ce_fwd")}
     no_mask = video["no_mask"]  # rows 3-5 at the video step's shape, 2048^2 with no mask
     paths["fwd"]["video_no_mask"] = {"ms": no_mask["ms"]["fwd"], "max_abs_err": no_mask["err"]["o"]}
@@ -5152,6 +5530,7 @@ def main() -> int:
         attention_bound_ms(5, B, LARGE_HEADS, 2048, 2048, LARGE_HD, 4, 4), lib["bwd"],
         library_math_ms=lib["math_bwd"], instance="head_dim 80",
         large_b8_remat_launches=large_remat_launches["stock_bwd"])
+    print(f"chip_smoke: {time.perf_counter() - _STARTED:.1f} s from its imports to its result")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

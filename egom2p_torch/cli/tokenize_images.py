@@ -68,16 +68,17 @@ def write_image(path: str, image: np.ndarray) -> None:
 
 
 def resize_image(image: np.ndarray, short_size=None) -> np.ndarray:
-    """Short-side resample (reference: utils.py resize_image)."""
+    """Short-side resample (reference: utils.py resize_image), Pillow's
+    Lanczos computed without Pillow (data/resample.py)."""
     if short_size is None:
         return image
-    from PIL import Image
+    from egom2p_torch.data.resample import resize
     h, w = image.shape[:2]
     if h < w:
         nh, nw = short_size, int(round(w * short_size / h))
     else:
         nh, nw = int(round(h * short_size / w)), short_size
-    return np.asarray(Image.fromarray(image).resize((nw, nh), Image.LANCZOS))
+    return resize(image, (nh, nw), "lanczos")
 
 
 def build_tokenizer(args, device):

@@ -8,6 +8,8 @@ exist with the right shape, and none may be left over.
 
   flax Dense kernel (in, out)             -> torch Linear weight (out, in)
   EgoM2P mod_emb_<m> / dec_mod_emb_<m>    -> <en|de>coder_embeddings.<m>.mod_emb
+  untied head to_logits (V, D)            -> decoder_embeddings.<m>.to_logits.weight
+  LoRA {path: {a (in, r), b (r, out)}}    -> {dotted weight: {a (r, in), b (out, r)}}
   SequenceEmbEncoderEmbedding emb_proj,
     emb_proj_0 / emb_proj_1 (bottleneck)  -> emb_proj, emb_proj.0 / emb_proj.1
   flax Conv kernel (kt, kh, kw, in, out)  -> torch Conv3d weight (out, in, kt, kh, kw)
@@ -87,6 +89,8 @@ def egom2p_state_dict_from_jax(variables: Mapping, model) -> Dict[str, torch.Ten
             sd[f"decoder_embeddings.{p0[len('dec_mod_emb_'):]}.mod_emb"] = arr
         elif p0 in ("mask_token", "register_tokens"):
             sd[p0] = arr
+        elif p0.startswith("decoder_embeddings_") and path[1:] == ("to_logits",):
+            sd[f"decoder_embeddings.{p0[len('decoder_embeddings_'):]}.to_logits.weight"] = arr
         elif re.fullmatch(r"(en|de)coder_embeddings_.+", p0) and path[1:] == ("token_emb",):
             side, mod = p0.split("_embeddings_", 1)
             sd[f"{side}_embeddings.{mod}.token_emb.weight"] = arr
@@ -109,6 +113,24 @@ def egom2p_state_dict_from_jax(variables: Mapping, model) -> Dict[str, torch.Ten
         else:
             raise KeyError(f"no torch key for JAX param {'/'.join(path)}")
     return _checked(sd, model)
+
+
+def lora_state_from_jax(lora: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's LoRA adapters ({"params/encoder_0/attn/qkv/kernel":
+    {"a": (in, r), "b": (r, out)}}, egom2p_tpu/models/lora.py) -> the port's
+    ({"encoder.0.attn.qkv.weight": {"a": (r, in), "b": (out, r)}},
+    egom2p_torch/models/lora.py)."""
+    out = {}
+    for key, ab in lora.items():
+        path = [p for p in key.split("/") if p != "params"]
+        if path[-1] != "kernel":
+            raise KeyError(f"no torch key for the JAX LoRA entry {key}")
+        block = re.fullmatch(r"(encoder|decoder)_(\d+)", path[0])
+        head = [f"{block[1]}.{block[2]}"] if block else [path[0]]
+        name = ".".join(head + path[1:-1] + ["weight"])
+        out[name] = {k: torch.from_numpy(np.array(ab[k], dtype=np.float32).T.copy())
+                     for k in ("a", "b")}
+    return out
 
 
 # ----------------------------------------------------------------- Cosmos

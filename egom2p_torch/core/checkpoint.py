@@ -321,13 +321,15 @@ def save_cosmos_image_jit(net, directory: str, size: int = 64) -> Tuple[str, str
     return paths
 
 
-def load_seq_vqvae_pth(path: str, domain: str, device="cpu", **config) -> SeqTokenizer:
+def load_seq_vqvae_pth(path: str, domain: str, device="cuda", **config) -> SeqTokenizer:
     """A reference cam or gaze VQ-VAE checkpoint ({"model": state_dict} or a
     bare state dict, with the codebook's `quantize._codebook.{embed,
     cluster_size,initted}` buffers) -> SeqTokenizer on `device`.  `config`
     overrides the released widths (seq_vqvae_from_config); every key of the
     file is checked against them.  Keys ending in `pos_emb` (fixed sincos
     tables, which the port computes) are skipped, as in load_egom2p_pth."""
+    from egom2p_torch.core.device import resolve_device
+    device = resolve_device(device)
     tok = load_vqvae_pth(path, seq_vqvae_from_config(domain, **config), f"{domain} tokenizer")
     tok.net.to(device)
     return tok

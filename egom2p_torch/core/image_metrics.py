@@ -12,7 +12,10 @@ Port of egom2p_tpu/core/image_metrics.py (reference: run_training_vqvae.py:
     `lpips_vgg.npz`, the JAX package's files.  A missing file raises
     MissingPretrainedWeights: nothing is downloaded, and no metric
     computes on weights it does not have.  The networks run on the
-    `device` a caller names (the tokenizer's);
+    `device` a caller names (the tokenizer's), by default the card: without
+    one the helpers raise unless given device="cpu" (core/device.py);
+  * `make_fid` / `make_inception_score` build the metric objects the JAX
+    module's do;
   * `make_perceptual_loss` is the trainer's differentiable LPIPS (the
     `percept_loss` hook of train/vqvae_train.py).
 """
@@ -24,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from egom2p_torch.core.device import resolve_device
 from egom2p_torch.core.metrics import ssim_components as _ssim_components
 
 # ---------------------------------------------------------------- MS-SSIM
@@ -168,11 +172,12 @@ def _lins(wts: Dict[str, np.ndarray]) -> List[np.ndarray]:
     return [wts[k] for k in sorted(wts) if k.startswith("lin")]
 
 
-def make_lpips(kind: str = "vgg", device="cpu") -> Callable[[np.ndarray, np.ndarray], float]:
+def make_lpips(kind: str = "vgg", device="cuda") -> Callable[[np.ndarray, np.ndarray], float]:
     """LPIPS: VGG16 features and the learned linear weights of
     lpips_<kind>.npz (conv{i}_{w,b}, lin{i}), the network on `device`."""
     from egom2p_torch.core.vgg_features import vgg16_features
 
+    device = resolve_device(device)
     wts = dict(np.load(_require_weights(f"lpips_{kind}.npz", "LPIPS")))
     lins = _lins(wts)
 
@@ -197,20 +202,22 @@ def _cached(name: str, what: str, device, build):
     return _CACHE[key]
 
 
-def get_inception_fns(device="cpu"):
+def get_inception_fns(device="cuda"):
     """(feature_fn, probs_fn, run) of inception_v3.npz on `device`, built
     once per file and device."""
     from egom2p_torch.core.inception_v3 import make_inception_fns
+    device = resolve_device(device)
     return _cached("inception_v3.npz", "InceptionV3 (FID pool3 / InceptionScore)", device,
                    lambda path: make_inception_fns(dict(np.load(path)), device=device))
 
 
-def get_lpips(device="cpu") -> Callable[[np.ndarray, np.ndarray], float]:
+def get_lpips(device="cuda") -> Callable[[np.ndarray, np.ndarray], float]:
     """LPIPS of lpips_vgg.npz on `device`, built once per file and device."""
+    device = resolve_device(device)
     return _cached("lpips_vgg.npz", "LPIPS", device, lambda path: make_lpips("vgg", device))
 
 
-def make_perceptual_loss(kind: str = "lpips", device="cpu"):
+def make_perceptual_loss(kind: str = "lpips", device="cuda"):
     """The trainer's hook (reference: run_training_vqvae.py:560-576):
     callable(pred, target) -> a differentiable 0-d tensor, LPIPS on
     lpips_vgg.npz's network on `device` (summed over the five taps, each
@@ -220,6 +227,7 @@ def make_perceptual_loss(kind: str = "lpips", device="cpu"):
 
     if kind != "lpips":
         raise ValueError(f"unsupported percept_loss_type {kind}")
+    device = resolve_device(device)
     wts = {k: np.asarray(v) for k, v in
            np.load(_require_weights("lpips_vgg.npz", "perceptual loss (LPIPS)")).items()}
     convs = conv_weights(wts, device)
@@ -237,10 +245,12 @@ def make_perceptual_loss(kind: str = "lpips", device="cpu"):
     return loss
 
 
-def register_default_perceptual_metrics(device="cpu") -> Dict[str, object]:
+def register_default_perceptual_metrics(device="cuda") -> Dict[str, object]:
     """core/metrics.py's PERCEPTUAL_METRICS filled with this suite: the
-    weight-free metrics, and LPIPS, which raises MissingPretrainedWeights
-    when called without its file."""
+    weight-free metrics, and LPIPS on `device`, which looks for its device
+    and its file when called (a RuntimeError without the device, else
+    MissingPretrainedWeights without the file): registering needs
+    neither."""
     from egom2p_torch.core import metrics as m
 
     m.PERCEPTUAL_METRICS.update({
@@ -251,6 +261,24 @@ def register_default_perceptual_metrics(device="cpu") -> Dict[str, object]:
         "lpips": lambda p, t: get_lpips(device)(p, t),
     })
     return m.PERCEPTUAL_METRICS
+
+
+def make_fid(feature_fn: Optional[Callable] = None, device="cuda") -> FIDAccumulator:
+    """FID accumulator (egom2p_tpu/core/image_metrics.py:make_fid); the
+    default extractor is inception_v3.npz's pool3 on `device`."""
+    if feature_fn is None:
+        feature_fn = get_inception_fns(device)[0]
+    return FIDAccumulator(feature_fn)
+
+
+def make_inception_score(probs_fn: Optional[Callable] = None, splits: int = 10,
+                         device="cuda") -> Callable[[np.ndarray], float]:
+    """The Inception score of images in [0, 1] (reference:
+    run_training_vqvae.py:1574-1586, torchmetrics InceptionScore); the
+    default classifier is inception_v3.npz's on `device`."""
+    if probs_fn is None:
+        probs_fn = get_inception_fns(device)[1]
+    return lambda images: inception_score_from_probs(probs_fn(images), splits=splits)
 
 
 register_default_perceptual_metrics()

@@ -211,11 +211,13 @@ def random_weights(rng: np.random.Generator, n_classes: int = 1000) -> Dict[str,
     return w
 
 
-def make_inception_fns(weights: Dict[str, np.ndarray], batch: int = 32, device="cpu"):
+def make_inception_fns(weights: Dict[str, np.ndarray], batch: int = 32, device="cuda"):
     """(feature_fn, probs_fn, run) over host numpy images, batched on
     `device`: features (N, 2048), softmax class probabilities (N, classes),
     and `run` giving both from one forward (FID and the Inception score
     share it)."""
+    from egom2p_torch.core.device import resolve_device
+    device = resolve_device(device)
     variant = detect_variant(weights)
     w = to_device(weights, device)
 

@@ -80,8 +80,10 @@ def vgg16_features_torch(x: torch.Tensor, weights: Dict[str, torch.Tensor]) -> L
     return feats
 
 
-def vgg16_features(x, weights: Dict[str, np.ndarray], device="cpu") -> List[np.ndarray]:
+def vgg16_features(x, weights: Dict[str, np.ndarray], device="cuda") -> List[np.ndarray]:
     """numpy in, numpy out: the 5 tap features of x computed on `device`."""
+    from egom2p_torch.core.device import resolve_device
+    device = resolve_device(device)
     with torch.no_grad(), exact_fp32():
         xt = torch.as_tensor(np.asarray(x, dtype=np.float32)).to(device)
         return [f.cpu().numpy() for f in vgg16_features_torch(xt, conv_weights(weights, device))]

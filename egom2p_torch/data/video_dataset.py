@@ -5,8 +5,10 @@ imports the JAX package: the same np.random.default_rng draws in the same
 order, so samples are bitwise the JAX dataset's.  mp4 files are decoded by
 the port's own native wrapper (data/video_ingest.py, which needs libav;
 `.npy` clips need none).  The timm-style strong augmentations
-(`auto_augment`, `reprob > 0`) need data/rand_augment.py, which is not
-ported yet: those arguments raise NotImplementedError.
+(`auto_augment`, `reprob > 0`) are data/rand_augment.py's, drawn from the
+dataset's generator where JAX draws them.  `VideoBatchLoader` makes the
+batches in forked worker processes (data/loader.py:LoaderIterator), each
+worker on its own seed; with no workers it is the JAX stream.
 
 The JAX module's notes follow.  It is the equivalent of the reference VideoDataset
 (reference: egom2p/data/video_dataset.py:392-457 decord clip sampling,
@@ -109,10 +111,14 @@ class VideoClipDataset:
         # opt-in timm-style strong augs, mirroring the reference's
         # args.aa / reprob / remode / recount knobs
         # (reference: video_dataset.py:330-392 _aug_frame)
-        if mode == "train" and (auto_augment or reprob > 0):
-            raise NotImplementedError(
-                "auto_augment / reprob need data/rand_augment.py, not ported yet "
-                "(ROADMAP Queue 1 item 9, the data transforms)")
+        self.rand_augment = self.rand_erasing = None
+        if mode == "train" and auto_augment:
+            from egom2p_torch.data.rand_augment import create_random_augment
+            self.rand_augment = create_random_augment(crop_size, auto_augment, rng=self.rng)
+        if mode == "train" and reprob > 0:
+            from egom2p_torch.data.rand_augment import RandomErasing
+            self.rand_erasing = RandomErasing(reprob, mode=remode, max_count=recount,
+                                              num_splits=recount, cube=True, rng=self.rng)
         if files is not None:
             self.samples: List[str] = list(files)
         elif os.path.isdir(data_path):
@@ -195,7 +201,11 @@ class VideoClipDataset:
         if self.mode == "train":
             clip = self._augment(clip)
         clip = center_crop(clip, self.crop_size)
+        if self.rand_augment is not None and self.domain == "rgb":
+            clip = self.rand_augment(np.ascontiguousarray(clip), self.rng)
         out = normalize_pm1(np.ascontiguousarray(clip))
+        if self.rand_erasing is not None and self.domain == "rgb":
+            out = self.rand_erasing(out, self.rng)
         if self.domain == "depth" and out.ndim == 4 and out.shape[-1] == 3:
             out = out.mean(axis=-1, keepdims=True)  # depth stored as rgb mp4
         return out
@@ -212,3 +222,42 @@ class VideoClipDataset:
             if len(order) < batch_size:  # tiny datasets: resample with repeats
                 yield np.stack([self[int(self.rng.integers(len(order)))]
                                 for _ in range(batch_size)])
+
+
+class VideoBatchLoader:
+    """`dataset.iter_batches(batch_size)` made in `num_workers` forked
+    worker processes (data/loader.py:LoaderIterator; `iter()` starts them,
+    `.close()` stops them).  Worker w reseeds the dataset's generator, and
+    its augmentations, with `seed + 1000 * (w + 1)`, as the mixture
+    loader's workers do.  The workers compute on the host only (numpy,
+    scipy and CPU torch, one thread each) and never touch CUDA."""
+
+    def __init__(self, dataset: VideoClipDataset, batch_size: int, seed: int = 0,
+                 num_workers: int = 1, prefetch: int = 2, shuffle: bool = True):
+        if num_workers < 1:
+            raise ValueError("VideoBatchLoader forks workers: use dataset.iter_batches "
+                             "for one stream in this process")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.shuffle = shuffle
+
+    def _worker_loop(self, out_queue, worker_id: int) -> None:
+        import torch
+        try:
+            torch.set_num_threads(1)  # the parent's OpenMP pool does not survive the fork
+            ds = self.dataset
+            ds.rng = np.random.default_rng(self.seed + 1000 * (worker_id + 1))
+            for aug in (ds.rand_augment, ds.rand_erasing):
+                if aug is not None:
+                    aug.rng = ds.rng
+            for batch in ds.iter_batches(self.batch_size, self.shuffle):
+                out_queue.put(batch)
+        except Exception as e:  # raised again in the parent
+            out_queue.put(e)
+
+    def __iter__(self):
+        from egom2p_torch.data.loader import LoaderIterator
+        return LoaderIterator(self)

@@ -389,7 +389,7 @@ class EgoM2P(nn.Module):
         t = torch.where(weights.reshape(-1), target_ids.reshape(-1),
                         torch.zeros_like(target_ids.reshape(-1)))
         if flash and emb_mod.vocab_size >= 4096 and flash_ce_takes_dim(D):
-            return flash_ce_total(yf, emb_mod.token_emb.weight, t, w, chunk=chunk), w.sum()
+            return flash_ce_total(yf, emb_mod.logits_weight, t, w, chunk=chunk), w.sum()
         head_t = emb_mod.head_weight(y.dtype).t()
         bf16_values = y.dtype == torch.bfloat16
 
@@ -504,6 +504,15 @@ class EgoM2P(nn.Module):
         dec_emb = torch.gather(emb, 1, ids_keep.long()[..., None].expand(-1, -1, emb.shape[-1]))
         y = self.mask_token.to(dec_emb.dtype) + dec_emb
         return self.forward_decoder(y, context, encoder_mask, None)
+
+    def forward_dec_subset_logits(self, mod_dict, target_mod: str, context, encoder_mask,
+                                  ids_keep: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        """The decoder subset pass with the vocab head: fp32 logits (B, k, V)
+        at once (egom2p_tpu/models/egom2p.py:forward_dec_subset_logits; the
+        sampler takes the hidden states and applies the head by chunks)."""
+        y = self.forward_dec_subset_hidden(mod_dict, target_mod, context, encoder_mask,
+                                           ids_keep, compute_dtype)
+        return self.forward_mod_logits(target_mod, y)
 
     def forward_mod_logits(self, target_mod: str, y, head_weight=None) -> torch.Tensor:
         """fp32 vocab-head logits of one modality over decoder hidden states;

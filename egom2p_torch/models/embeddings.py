@@ -7,7 +7,10 @@ its `token_emb` table and its modality embedding `mod_emb`, as the reference
 does; EgoM2P ties the decoder's `mod_emb` to the encoder's for shared
 modalities (reference: egom2p_model.py:179-183) unless the config unshares
 them.  The decoder head is tied to `token_emb` (reference:
-decoder_embeddings.py:89-91); an untied `to_logits` head is not ported.
+decoder_embeddings.py:89-91) unless the modality's embed spec says
+`share_embedding: False`: then it is its own `to_logits` (V, D) matrix, as
+the JAX package's share_embedding=False (the reference's untied
+`to_logits` Linear).
 Raw pixels (`image_raw`: rgb@224, rgb@448) enter through a bias-free patch
 projection (ImagePatchEncoderEmbedding).
 
@@ -44,13 +47,23 @@ def _grid_posemb(grid: Tuple[int, ...], dim: int):
     return build_3d_sincos_posemb(grid[0], grid[1], grid[2], dim)
 
 
-class _TiedHead:
-    """The vocab head tied to `token_emb`."""
+class _Head:
+    """The vocab head: `token_emb` (tied) or `to_logits` (untied)."""
+
+    def _init_head(self, vocab_size: int, dim: int, share_embedding: bool) -> None:
+        self.share_embedding = share_embedding
+        if not share_embedding:
+            self.to_logits = nn.Linear(dim, vocab_size, bias=False)
+
+    @property
+    def logits_weight(self) -> torch.Tensor:
+        """The (V, D) head matrix (the parameter itself)."""
+        return self.token_emb.weight if self.share_embedding else self.to_logits.weight
 
     def head_weight(self, dtype) -> torch.Tensor:
         """The (V, D) head matrix rounded to `dtype` and held in fp32: the
         JAX einsum's inputs, for an fp32-accumulated product."""
-        return self.token_emb.weight.to(dtype).float()
+        return self.logits_weight.to(dtype).float()
 
     def forward_logits(self, y: torch.Tensor, head_weight=None) -> torch.Tensor:
         """fp32 logits (..., V) of y (..., D): bf16 operands, fp32 products
@@ -93,9 +106,14 @@ class TokenGridEncoderEmbedding(_TokenGridEmbedding):
         return x, self.positional(ids.shape[0], compute_dtype)
 
 
-class TokenGridDecoderEmbedding(_TiedHead, _TokenGridEmbedding):
+class TokenGridDecoderEmbedding(_Head, _TokenGridEmbedding):
     """Decoder-side token embedding + logits head for grid modalities
     (reference: decoder_embeddings.py:156-501)."""
+
+    def __init__(self, vocab_size: int, grid: Tuple[int, ...], dim: int,
+                 share_embedding: bool = True):
+        super().__init__(vocab_size, grid, dim)
+        self._init_head(vocab_size, dim, share_embedding)
 
     def forward_embed(self, d: Dict[str, torch.Tensor], compute_dtype=torch.bfloat16):
         ids, x = self._values(d, compute_dtype)
@@ -150,9 +168,14 @@ class SequenceEncoderEmbedding(_SequenceEmbedding):
                 self.positions(d["input_mask"].bool(), compute_dtype, False))
 
 
-class SequenceDecoderEmbedding(_TiedHead, _SequenceEmbedding):
+class SequenceDecoderEmbedding(_Head, _SequenceEmbedding):
     """Decoder-side sequence embedding + logits head
     (reference: decoder_embeddings.py:24-152)."""
+
+    def __init__(self, vocab_size: int, max_length: int, dim: int, padding_idx: int = 0,
+                 share_embedding: bool = True):
+        super().__init__(vocab_size, max_length, dim, padding_idx)
+        self._init_head(vocab_size, dim, share_embedding)
 
     def forward_embed(self, d: Dict[str, torch.Tensor], compute_dtype=torch.bfloat16):
         ids = d["tensor"]
@@ -233,9 +256,10 @@ def make_encoder_embedding(spec: Dict, dim: int) -> nn.Module:
 
 def make_decoder_embedding(spec: Dict, dim: int) -> nn.Module:
     kind = spec["kind"]
+    share = spec.get("share_embedding", True)
     if kind in ("video_token", "image_token", "gazecam_token"):
-        return TokenGridDecoderEmbedding(spec["vocab_size"], _grid_of(spec), dim)
+        return TokenGridDecoderEmbedding(spec["vocab_size"], _grid_of(spec), dim, share)
     if kind == "sequence":
         return SequenceDecoderEmbedding(spec["vocab_size"], spec["max_length"], dim,
-                                        spec.get("padding_idx", 0))
+                                        spec.get("padding_idx", 0), share)
     raise ValueError(f"no decoder embedding for kind {kind!r}")

@@ -65,7 +65,7 @@ def test_numpy_metrics_equal_jax():
     for lw in (None, lins):
         assert abs(TM.lpips_from_features(feats, feats_b, lw)
                    - JM.lpips_from_features(feats, feats_b, lw)) < 1e-12
-    reg = TM.register_default_perceptual_metrics()
+    reg = TM.register_default_perceptual_metrics(device="cpu")
     assert reg is tmetrics.PERCEPTUAL_METRICS and {"ms_ssim", "lpips"} <= set(reg)
 
 
@@ -74,22 +74,22 @@ def test_vgg_features_and_perceptual_loss_match_jax(tmp_path, monkeypatch):
     rng = np.random.default_rng(1)
     x = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     y = np.clip(x + rng.normal(0, 0.3, x.shape), -1, 1).astype(np.float32)
-    for got, want in zip(tvgg.vgg16_features(x, w), jvgg.vgg16_features(x, w)):
+    for got, want in zip(tvgg.vgg16_features(x, w, device="cpu"), jvgg.vgg16_features(x, w)):
         _close(got, want, NET_TOL, "vgg tap")
     depth = x[..., :1][None]  # (1, 2, H, W, 1) clip of one channel
-    for got, want in zip(tvgg.vgg16_features(depth, w), jvgg.vgg16_features(depth, w)):
+    for got, want in zip(tvgg.vgg16_features(depth, w, device="cpu"), jvgg.vgg16_features(depth, w)):
         _close(got, want, NET_TOL, "vgg tap, one channel")
     np.savez(tmp_path / "lpips_vgg.npz", **w)
     with pytest.raises(TM.MissingPretrainedWeights, match="lpips_vgg.npz"):
-        TM.get_lpips()
+        TM.get_lpips(device="cpu")
     monkeypatch.setenv("EGOM2P_CKPT_DIR", str(tmp_path))
     monkeypatch.setattr(JM, "_CKPT_DIR", str(tmp_path))
-    np.testing.assert_allclose(TM.get_lpips()(x, y), JM.get_lpips()(x, y), rtol=NET_TOL)
-    assert TM.get_lpips() is TM.get_lpips()  # built once per file and device
+    np.testing.assert_allclose(TM.get_lpips(device="cpu")(x, y), JM.get_lpips()(x, y), rtol=NET_TOL)
+    assert TM.get_lpips(device="cpu") is TM.get_lpips(device="cpu")  # built once per file and device
     import jax
     j_loss, j_grad = jax.value_and_grad(JM.make_perceptual_loss())(jnp.asarray(x), jnp.asarray(y))
     xt = torch.from_numpy(x).requires_grad_(True)
-    t_loss = TM.make_perceptual_loss()(xt, torch.from_numpy(y))
+    t_loss = TM.make_perceptual_loss(device="cpu")(xt, torch.from_numpy(y))
     t_loss.backward()
     np.testing.assert_allclose(t_loss.item(), float(j_loss), rtol=NET_TOL)
     _close(xt.grad.numpy(), np.asarray(j_grad), NET_TOL, "perceptual loss gradient")
@@ -117,7 +117,7 @@ def test_inception_matches_jax(n_classes, size):
         t_f, t_l = tinc.inception_v3_forward(torch.from_numpy(imgs), tinc.to_device(w, "cpu"))
     _close(t_f.numpy(), np.asarray(j_f), NET_TOL, "pool3 features")
     _close(t_l.numpy(), np.asarray(j_l), NET_TOL, "logits")
-    feature_fn, probs_fn, run = tinc.make_inception_fns(w, batch=1)
+    feature_fn, probs_fn, run = tinc.make_inception_fns(w, batch=1, device="cpu")
     np.testing.assert_array_equal(feature_fn(imgs), run(imgs)[0])
     np.testing.assert_allclose(probs_fn(imgs).sum(1), 1.0, rtol=1e-5)
 

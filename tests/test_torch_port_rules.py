@@ -314,8 +314,10 @@ def test_eval_path_imports_no_jax():
     eval steps; the VQ-VAE trainer, its eval and the two shard tools; the
     process group helpers and the data-parallel tests' rank module; the
     gradient quantizers, the Cosmos image tokenizers, the latent
-    distributions and tokenize_images) and chip_smoke.py load without JAX
-    or the JAX package."""
+    distributions and tokenize_images; the data transforms, the folder,
+    generation and video datasets, prep, LoRA and the hub) and
+    chip_smoke.py load without JAX or the JAX package, and without
+    Pillow or OpenCV (which the card's machine may lack)."""
     import subprocess
     code = ("import sys\n"
             "import chip_smoke\n"
@@ -335,10 +337,15 @@ def test_eval_path_imports_no_jax():
             "import egom2p_torch.tokenizers.cosmos.image_api\n"
             "import egom2p_torch.tokenizers.cosmos.layers2d\n"
             "import egom2p_torch.tokenizers.cosmos.distributions\n"
+            "import egom2p_torch.data.rand_augment, egom2p_torch.data.resample\n"
+            "import egom2p_torch.data.modality_transforms, egom2p_torch.data.folder_dataset\n"
+            "import egom2p_torch.data.generation_datasets, egom2p_torch.data.prep\n"
+            "import egom2p_torch.data.video_dataset, egom2p_torch.models.lora\n"
+            "import egom2p_torch.models.hub, egom2p_torch.core.image_metrics\n"
             "sys.path.insert(0, 'tests')\n"
             "import torch_dist_ranks\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-            " 'egom2p_tpu')]\n"
+            " 'egom2p_tpu', 'PIL', 'cv2')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
@@ -468,3 +475,39 @@ def test_world_size_two_with_an_unreachable_rendezvous_raises(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=60)
     assert proc.stdout.startswith("raised"), proc.stdout + proc.stderr
+
+
+def _imports(path):
+    """[(module, enclosing function name or None)] of a source's imports."""
+    import ast
+    tree = ast.parse(path.read_text())
+    scopes = {}
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for child in ast.walk(node):
+                scopes.setdefault(id(child), node.name)
+    out = []
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        out += [(n, scopes.get(id(node))) for n in names]
+    return out
+
+
+def test_no_port_module_imports_opencv():
+    """The SAM polygons are the port's own raster and inside test
+    (data/modality_transforms.py): no source of the port imports cv2."""
+    found = [str(p.relative_to(REPO)) for p in PORT_FILES + [REPO / "chip_smoke.py"]
+             if p.suffix == ".py" and any(m.split(".")[0] == "cv2" for m, _ in _imports(p))]
+    assert not found, found
+
+
+def test_pillow_is_imported_only_inside_the_image_readers():
+    """Pixels are computed with torch and numpy (data/rand_augment.py,
+    data/resample.py); Pillow decodes and encodes image files only, inside
+    the readers and the writer, never at module level."""
+    found = {(str(p.relative_to(REPO)), fn) for p in PORT_FILES + [REPO / "chip_smoke.py"]
+             if p.suffix == ".py" for m, fn in _imports(p) if m.split(".")[0] == "PIL"}
+    assert found == {("egom2p_torch/data/modality_transforms.py", "image_loader"),
+                     ("egom2p_torch/cli/tokenize_images.py", "read_image"),
+                     ("egom2p_torch/cli/tokenize_images.py", "write_image")}, found

@@ -212,7 +212,7 @@ def test_loader_checks_every_key(tmp_path):
     bare = dict(sd, **{"encoder.pos_emb": torch.zeros(1, 30, 128),
                        "quantize._codebook.initted": torch.tensor(True)})
     torch.save(bare, tmp_path / "bare.pth")
-    checkpoint.load_seq_vqvae_pth(str(tmp_path / "bare.pth"), "cam", **SMALL)
+    checkpoint.load_seq_vqvae_pth(str(tmp_path / "bare.pth"), "cam", "cpu", **SMALL)
     for name, bad, match in (
             ("missing", {k: v for k, v in sd.items() if "blocks.1." not in k},
              r"missing \['encoder.blocks.1"),
@@ -220,9 +220,9 @@ def test_loader_checks_every_key(tmp_path):
              r"left over \['decoder.extra.weight'\]")):
         torch.save({"model": bad}, tmp_path / f"{name}.pth")
         with pytest.raises(KeyError, match=match):
-            checkpoint.load_seq_vqvae_pth(str(tmp_path / f"{name}.pth"), "cam", **SMALL)
+            checkpoint.load_seq_vqvae_pth(str(tmp_path / f"{name}.pth"), "cam", "cpu", **SMALL)
     with pytest.raises(ValueError, match="shape mismatch"):
-        checkpoint.load_seq_vqvae_pth(str(tmp_path / "bare.pth"), "gaze", **SMALL)
+        checkpoint.load_seq_vqvae_pth(str(tmp_path / "bare.pth"), "gaze", "cpu", **SMALL)
     with pytest.raises(ValueError, match="unknown seq-vqvae domain"):
         tseq.seq_vqvae_from_config("depth")
 
@@ -236,7 +236,7 @@ def test_reference_pth_at_the_released_width(domain, tmp_path):
     assert sum(p.numel() for p in tok.net.parameters()) > 150e6
     path = checkpoint.save_seq_vqvae_pth(tok, str(tmp_path / f"checkpoint-{domain}.pth"))
     jt = torch_convert.load_seq_vqvae_pth(path, domain)
-    tt = checkpoint.load_seq_vqvae_pth(path, domain)
+    tt = checkpoint.load_seq_vqvae_pth(path, domain, "cpu")
     tokens = np.random.default_rng(6).integers(0, 256, (2, 30))
     np.testing.assert_allclose(tt.decode_tokens(tokens).numpy(),
                                np.asarray(jt.decode_tokens(jnp.asarray(tokens))),

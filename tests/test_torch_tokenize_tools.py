@@ -107,7 +107,7 @@ def test_vqvae_cli_trains_resumes_evaluates_and_tokenizes(domain, tmp_path, caps
     final = load_pth(str(out / "checkpoint-final.pth"))
     assert (final["step"], final["epoch"]) == (6, 1) and final["args"].domain == domain
     assert set(final) >= {"model", "optimizer", "model_ema"}
-    tok = load_seq_vqvae_pth(str(out / "checkpoint-final.pth"), domain, **SMALL_SEQ)
+    tok = load_seq_vqvae_pth(str(out / "checkpoint-final.pth"), domain, "cpu", **SMALL_SEQ)
     for k, v in res["tokenizer"].net.state_dict().items():
         assert torch.equal(tok.net.state_dict()[k], v), k
     assert not torch.equal(final["model_ema"]["decoder.out_proj.weight"],

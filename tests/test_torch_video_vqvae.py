@@ -186,7 +186,10 @@ def _write_clips(root, shapes, seed=0, channels=3):
 def test_video_dataset_samples_bitwise(tmp_path, domain):
     """Train (random windows and the four rgb augmentations), val and
     tokenize samples and the batch iterator, equal to the JAX dataset's;
-    a clip under the crop is zoomed up first; auto_augment raises."""
+    a clip under the crop is zoomed up first; with RandAugment and random
+    erasing on, the draws (the generator's state after each sample) and
+    the clips are the JAX dataset's too, bitwise (data/rand_augment.py
+    gives Pillow's bytes)."""
     root = _write_clips(tmp_path / "v", [(40, 40, 48), (12, 36, 36), (70, 32, 40)])
     kw = dict(clip_len=6, crop_size=32, frame_sample_rate=2, domain=domain, use_npy=True, seed=3)
     for mode in ("train", "val", "tokenize"):
@@ -200,8 +203,13 @@ def test_video_dataset_samples_bitwise(tmp_path, domain):
     for a, b in zip([next(j.iter_batches(2)) for _ in range(3)],
                     [next(t.iter_batches(2)) for _ in range(3)]):
         np.testing.assert_array_equal(b, a)
-    with pytest.raises(NotImplementedError, match="rand_augment"):
-        tvd.VideoClipDataset(root, auto_augment="rand-m9-n2", **kw)
+    aug = dict(kw, auto_augment="rand-m9-n2-mstd0.5", reprob=0.5, seed=11)
+    j, t = jvd.VideoClipDataset(root, **aug), tvd.VideoClipDataset(root, **aug)
+    assert t.rand_augment is not None and t.rand_erasing is not None  # applied to rgb only
+    for i in range(12):
+        a, b = j[i % 3], t[i % 3]
+        np.testing.assert_array_equal(b, a)
+        assert t.rng.bit_generator.state == j.rng.bit_generator.state
 
 
 def test_divae_warm_start_matches_jax(tmp_path):
