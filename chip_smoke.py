@@ -108,6 +108,18 @@
    216 flash64 launches, every token equal to served's; then
    forward_dec_subset_logits at SUBSET_ROWS chosen positions a row,
    bitwise equal to forward_mod_logits(forward_dec_subset_hidden(...)).
+3i. The host tools, run right after 3c on its files: vis_3d/vis_cam.py's
+   plot of the served rgb2cam (60, 9) path against 60 seeded c2w poses
+   (the 1200^2 PNG decoded: each track's colour at its projected
+   positions), vis_3d/cam_viz_tool.py's viewer with --save_rendering, the
+   gaze overlay of the rgb2gaze (60, 2) track on a seeded (16, 256, 256, 3)
+   uint8 clip (the array half; each frame the clip plus one radius-4
+   disc), and examples/tok_{cam,gaze}_example.py on 3c's full-width .pth
+   files (179.6M parameters each, exact fp32) over seeded 60 poses and a
+   60-point gaze track, on the card and on the CPU: the 30 tokens in range
+   and equal, the reconstruction finite and within HOST_TOOLS_ATOL of the
+   CPU's; each step's seconds, tokenize / reconstruct ms, 0 kernel
+   launches.
 4. Training kernel phase at the pretraining step's shapes (B=8, 12 heads,
    N = M = 2048, q/k/v as views of fused projections): the flash64_train
    forward, dq and dk/dv kernels against their plain versions with key
@@ -423,6 +435,13 @@ SEQ_ENCODER_N, SEQ_ENCODER_LIVE = 5376, 5140
 # o by several percent in that norm; the check asserts that it would see that
 SEQ_B1_ATOL = 2e-3
 SEQ_B1_REL_L2 = 1e-2
+# the host tools phase (3i): the gaze overlay's seeded clip, the gaze track's
+# frames, and the examples' reconstruction on the card against the CPU's
+# (exact fp32 both; the released width's fp32 bound against JAX on the CPU,
+# tests/test_torch_seq_vqvae.py: FULL_WIDTH_ATOL)
+HOST_CLIP = (16, 256, 256, 3)
+HOST_FRAMES = 60
+HOST_TOOLS_ATOL = 5e-5
 RAGGED_CROSS = ((1, 129), (129, 1), (63, 2000), (2000, 65), (127, 128), (128, 127), (65, 1707))
 
 
@@ -1081,6 +1100,10 @@ def seq_eval_phase(dev, served, tmp, ckpt):
             out[task] = records
     finally:
         eval_common.run_tokens = run_tokens
+    # what the host tools phase (3i) reads: each task's first .npy and the tokenizers' .pth
+    out["files"] = {"cam": out["rgb2cam"][0]["outputs"][eval_common.TASKS["rgb2cam"].target],
+                    "gaze": out["rgb2gaze"][0]["outputs"][eval_common.TASKS["rgb2gaze"].target],
+                    "cam_ckpt": paths["cam"], "gaze_ckpt": paths["gaze"]}
 
     # greedy rgb2cam of one clip: the loaded files against the in-memory models
     sampler, tokenizers, _ = eval_common.load_task("rgb2cam", args)
@@ -1156,6 +1179,140 @@ def seq_eval_phase(dev, served, tmp, ckpt):
                  "library_ms": lib_ms}
     print(f"cam / gaze eval phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def host_tools_phase(dev, files, tmp):
+    """The visualisers and the tokenizer examples on the cam / gaze eval
+    phase's outputs and tokenizer files (the module docstring, 3i)."""
+    from egom2p_torch.cli import run_training_vqvae
+    from egom2p_torch.data.cam_gaze import cam_9d_to_mat, smooth_cam_trajectories
+    from egom2p_torch.examples import tok_cam_example, tok_gaze_example
+    from egom2p_torch.ops.flash64 import flash64_attention
+    from egom2p_torch.vis_3d import cam_viz_tool, render, vis_cam, vis_gaze
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "host_tools")
+    os.makedirs(root)
+    rng = np.random.default_rng(50)
+    mats = cam_9d_to_mat(smooth_cam_trajectories(rng, 1)[1][0])
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    first = np.eye(4)
+    first[:3, :3], first[:3, 3] = q * np.sign(np.linalg.det(q)), rng.normal(size=3)
+    poses = os.path.join(root, "cam.npy")        # 60 c2w poses off the origin
+    np.save(poses, first @ mats)
+    track = np.stack([rng.uniform(220, 680, HOST_FRAMES), rng.uniform(20, 480, HOST_FRAMES)], 1)
+    track[[3, 17, 40]] = np.nan                  # 896 x 504 px, blinks
+    gaze_px = os.path.join(root, "gaze.npy")
+    np.save(gaze_px, track)
+    flash64_attention.launches = 0
+    _reset_counts()
+    seconds = {}
+
+    # the trajectory plot: the served rgb2cam path against the seeded poses
+    t0 = time.perf_counter()
+    png = os.path.join(root, "trajectory.png")
+    tracks, limits = vis_cam.plot_trajectories(vis_cam.load_traj(files["cam"]),
+                                               vis_cam.load_traj(poses), png)
+    seconds["vis_cam"] = time.perf_counter() - t0
+    img = render.read_png(png)
+    # the view against matplotlib's default (elevation 30, azimuth -60), worked
+    # by hand: a box-side step along x, y, z moves the screen point right / down
+    # by (cos 30, sin 30 sin 30), (sin 30, -cos 30 sin 30), (0, -cos 30) scales
+    unit = np.array([[0.0, 1.0]] * 3)
+    steps = render.project(np.eye(3), unit) - render.project(np.zeros((1, 3)), unit)
+    view = np.array([[0.75 ** 0.5, 0.25], [0.5, -0.1875 ** 0.5], [0.0, -0.75 ** 0.5]])
+    if not np.allclose(steps / np.linalg.norm(steps[2]) * 0.75 ** 0.5, view):
+        raise AssertionError(f"render.project: axis steps {steps.tolist()}, not matplotlib's view")
+    for tr in tracks:
+        xy = np.rint(render.project(tr.positions, limits)).astype(int)
+        hit = (img[xy[:, 1], xy[:, 0]] == render.rgb(tr.color)).all(-1).mean()
+        print(f"vis_cam {tr.label}: {hit:.0%} of its 60 projected positions hold {tr.color}")
+        if img.shape != (render.SIZE, render.SIZE, 3) or hit < 0.5:
+            raise AssertionError(f"trajectory.png {img.shape}: {tr.label} at {hit:.0%}")
+
+    # the viewer and its rendering
+    t0 = time.perf_counter()
+    html = cam_viz_tool.main(["--recon", files["cam"], "--gt", poses, "--output",
+                              os.path.join(root, "viz"), "--save_rendering"])
+    seconds["cam_viz_tool"] = time.perf_counter() - t0
+    with open(html) as f:
+        data = json.loads(f.read().split("const DATA = ")[1].split(";\n")[0])
+    viz = render.read_png(os.path.join(root, "viz", "cam_viz.png"))
+    if (len(data["est"]["traj"]), len(data["gt"]["frusta"])) != (60, 60) or \
+            viz.shape != (render.SIZE, render.SIZE, 3) or \
+            not (viz == render.rgb("#d62728")).all(-1).any():
+        raise AssertionError("cam_viz.html / cam_viz.png")
+
+    # the gaze overlay on a seeded clip (the array half: no libav on this machine)
+    t0 = time.perf_counter()
+    clip = rng.integers(0, 256, HOST_CLIP, dtype=np.uint8)
+    gaze = np.load(files["gaze"])
+    drawn = vis_gaze.overlay_gaze(clip, gaze)
+    seconds["overlay_gaze"] = time.perf_counter() - t0
+    idx = np.linspace(0, len(gaze) - 1, len(clip)).round().astype(int)
+    h, w = HOST_CLIP[1:3]
+    yy, xx = np.mgrid[:h, :w]
+    for t in range(len(clip)):
+        g = gaze[idx[t]]
+        disc = np.zeros((h, w), bool)
+        if not np.isnan(g).any():
+            x, y = int(np.clip(g[0], 0, 1) * (w - 1)), int(np.clip(g[1], 0, 1) * (h - 1))
+            disc = (yy - y) ** 2 + (xx - x) ** 2 <= 16
+        if not (drawn[t][disc] == (255, 32, 32)).all() or \
+                not np.array_equal(drawn[t][~disc], clip[t][~disc]):
+            raise AssertionError(f"overlay_gaze: frame {t} is not the clip with a radius-4 disc")
+    print(f"overlay_gaze: {len(clip)} frames of {HOST_CLIP[1]}^2, each the clip with one "
+          f"radius-4 disc at its resampled gaze point")
+
+    # the tokenizer examples on the eval phase's .pth files, on the card and the CPU
+    tokenize_file = run_training_vqvae.tokenize_file
+    legs = []
+
+    def timed(args, tok, path):
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = tokenize_file(args, tok, path)
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        legs.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    run_training_vqvae.tokenize_file = timed
+    try:
+        for domain, example, data in (("cam", tok_cam_example, poses),
+                                      ("gaze", tok_gaze_example, gaze_px)):
+            res = {}
+            for device in ("cuda", "cpu"):
+                legs.clear()
+                t0 = time.perf_counter()
+                metrics = example.main(["--ckpt", files[f"{domain}_ckpt"], f"--{domain}", data,
+                                        "--out", os.path.join(root, device), "--device", device])
+                total = time.perf_counter() - t0
+                tok = os.path.join(root, device, "token", f"{domain}-")
+                res[device] = (np.load(tok + "tok.npz")["arr_0"], np.load(tok + "recon.npy"))
+                seconds[f"tok_{domain}_example_{device}"] = total
+                print(f"tok_{domain}_example --device {device}: tokenize {legs[0]:.1f} ms, "
+                      f"reconstruct {legs[1]:.1f} ms, {total:.2f} s with the loads; {metrics}")
+            (tc, rc), (tp, rp) = res["cuda"], res["cpu"]
+            err = float(np.abs(rc - rp).max())
+            if tc.shape != (30,) or not 0 <= tc.min() <= tc.max() < 256 or \
+                    not np.array_equal(tc, tp) or not np.isfinite(rc).all() or \
+                    rc.shape != (60, 9 if domain == "cam" else 2) or err > HOST_TOOLS_ATOL:
+                raise AssertionError(f"tok_{domain}_example: tokens {tc.shape} equal to the "
+                                     f"CPU's {np.array_equal(tc, tp)}, reconstruction "
+                                     f"{rc.shape} against the CPU's {err:.3e}")
+            print(f"tok_{domain}_example: the card's 30 tokens equal the CPU's, its "
+                  f"reconstruction within {err:.3e} of the CPU's (tolerance {HOST_TOOLS_ATOL:g})")
+    finally:
+        run_training_vqvae.tokenize_file = tokenize_file
+
+    launches = {"flash64": flash64_attention.launches, **_counts()}
+    if any(launches.values()):
+        raise AssertionError(f"the host tools launched kernels: {launches}")
+    print("host tools: " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+          + "; 0 kernel launches")
+    print(f"host tools phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def _train_case(rng, dev, name, n, mode, C=HEADS * 64):
@@ -5397,6 +5554,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ckpt_dir:
         evaluated = phase(eval_phase, dev, served, ckpt_dir)
         seq_evaluated = phase(seq_eval_phase, dev, served, ckpt_dir, evaluated["ckpt"])
+        phase(host_tools_phase, dev, seq_evaluated["files"], ckpt_dir)
         captioned = phase(caption_serve_phase, dev, served, ckpt_dir)
         multi = phase(multi_guided_phase, dev, served)
         sam_launches = phase(sam_dense_phase, dev, served, ckpt_dir)

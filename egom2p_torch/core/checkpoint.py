@@ -225,11 +225,15 @@ def _cosmos_sd(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_cosmos_dv_pth(encoder_path: str, decoder_path: Optional[str] = None, cfg=None,
-                       device="cpu"):
+                       device="cuda"):
     """Cosmos DV weights from a TorchScript encoder.jit / decoder.jit pair or
     a .pth of the whole network's state dict -> CausalVideoTokenizer on
-    `device`.  The JIT files' quantizer buffers (`quantizer.*`,
-    `inv_quant.*`) are dropped: FSQ holds no weights."""
+    `device` (the card by default: core/device.py).  The JIT files'
+    quantizer buffers (`quantizer.*`, `inv_quant.*`) are dropped: FSQ holds
+    no weights."""
+    from egom2p_torch.core.device import resolve_device
+
+    device = resolve_device(device)
     sd = _cosmos_sd(encoder_path)
     if decoder_path:
         sd.update(_cosmos_sd(decoder_path))
@@ -242,10 +246,10 @@ def load_cosmos_dv_pth(encoder_path: str, decoder_path: Optional[str] = None, cf
 
 
 def load_cosmos_image_pth(encoder_path: str, decoder_path: Optional[str] = None, cfg=None,
-                          discrete: bool = True, device="cpu"):
+                          discrete: bool = True, device="cuda"):
     """Cosmos CI / DI weights from a TorchScript encoder.jit / decoder.jit
     pair or a .pth of the whole network's state dict -> ImageTokenizer on
-    `device` (egom2p_tpu/compat/torch_convert.py:load_cosmos_image_pth;
+    `device`, the card by default (egom2p_tpu/compat/torch_convert.py:load_cosmos_image_pth;
     reference: cosmos_tokenizer/utils.py load_model / load_encoder_model).
     The quantizer's derived buffers (`inv_quant.*`, `quantizer.*` but a VQ
     codebook's `quantizer.embedding.weight`) and `distribution.*` are
@@ -255,7 +259,9 @@ def load_cosmos_image_pth(encoder_path: str, decoder_path: Optional[str] = None,
     from egom2p_torch.tokenizers.cosmos.image_network import (CI_CONFIG, DI_CONFIG,
                                                               ContinuousImageTokenizer,
                                                               DiscreteImageTokenizer)
+    from egom2p_torch.core.device import resolve_device
 
+    device = resolve_device(device)
     sd = _cosmos_sd(encoder_path)
     if decoder_path:
         sd.update(_cosmos_sd(decoder_path))

@@ -340,11 +340,13 @@ def _read_torch_file(path: str) -> Dict:
 
 
 def load_teacher_pth(path: str, domain: str, spec: Optional[TeacherSpec] = None,
-                     device="cpu") -> ViTTeacher:
-    """A published teacher checkpoint on disk -> a ViTTeacher on `device`
-    (every key of the tower checked)."""
+                     device="cuda") -> ViTTeacher:
+    """A published teacher checkpoint on disk -> a ViTTeacher on `device`,
+    the card by default (every key of the tower checked)."""
     from egom2p_torch.core.checkpoint import copy_state_dict
+    from egom2p_torch.core.device import resolve_device
 
+    device = resolve_device(device)
     teacher = ViTTeacher(spec or TEACHER_SPECS[domain])
     sd = teacher_state_dict_from_torch(_read_torch_file(path), domain, teacher.spec)
     copy_state_dict(teacher, sd, f"{domain} teacher weights {path}")
@@ -352,13 +354,17 @@ def load_teacher_pth(path: str, domain: str, spec: Optional[TeacherSpec] = None,
 
 
 def get_feature_extractor(domain: str, ckpt_path: Optional[str] = None,
-                          generator: Optional[torch.Generator] = None, device="cpu"):
-    """The frozen teacher of a feature domain on `device`, in eval mode with
-    no gradients (reference run_training_vqvae.py:460-481; weights from a
-    local checkpoint, else random from `generator`): (teacher, spec), or
-    None for a domain that is not a feature domain."""
+                          generator: Optional[torch.Generator] = None, device="cuda"):
+    """The frozen teacher of a feature domain on `device` (the card by
+    default), in eval mode with no gradients (reference
+    run_training_vqvae.py:460-481; weights from a local checkpoint, else
+    random from `generator`): (teacher, spec), or None for a domain that is
+    not a feature domain."""
+    from egom2p_torch.core.device import resolve_device
+
     if domain not in TEACHER_SPECS:
         return None
+    device = resolve_device(device)
     spec = TEACHER_SPECS[domain]
     if ckpt_path:
         teacher = load_teacher_pth(ckpt_path, domain, device=device)

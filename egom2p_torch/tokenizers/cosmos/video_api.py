@@ -104,7 +104,7 @@ def tensor2numpy(video) -> np.ndarray:
 
 def sliding_window_autoencode(autoencode_fn, video_uint8, temporal_window: int,
                               temporal_align: int, spatial_align: int,
-                              device="cpu") -> np.ndarray:
+                              device) -> np.ndarray:
     """Reconstruct uint8 video (B, T, H, W, 3) of any length window by
     window: each `temporal_window` slice padded on the host to the
     compression alignment, converted to fp32 [-1, 1] on `device`, run

@@ -236,7 +236,7 @@ def test_cosmos_checkpoints_load_into_both_packages_alike(cosmos_files, form):
     paths = ((str(d / "cosmos.pth"), None) if form == "pth"
              else (str(d / "encoder.jit"), str(d / "decoder.jit")))
     jtok = torch_convert.load_cosmos_dv_pth(*paths, cfg=JaxCfg(**SMALL))
-    ttok = checkpoint.load_cosmos_dv_pth(*paths, cfg=TorchCfg(**SMALL))
+    ttok = checkpoint.load_cosmos_dv_pth(*paths, cfg=TorchCfg(**SMALL), device="cpu")
     video = np.random.default_rng(8).integers(0, 256, (1, 16, 64, 64, 3)).astype(np.uint8)
     tokens = ttok.forward(video)
     np.testing.assert_array_equal(tokens, np.asarray(jtok.forward(video)))
@@ -251,10 +251,11 @@ def test_cosmos_checkpoints_load_into_both_packages_alike(cosmos_files, form):
 def test_cosmos_encoder_alone_raises(cosmos_files, tmp_path):
     """An encoder.jit without its decoder leaves the decoder's weights out."""
     with pytest.raises(KeyError, match="missing"):
-        checkpoint.load_cosmos_dv_pth(str(cosmos_files / "encoder.jit"), cfg=TorchCfg(**SMALL))
+        checkpoint.load_cosmos_dv_pth(str(cosmos_files / "encoder.jit"), cfg=TorchCfg(**SMALL),
+                                      device="cpu")
     shutil.copy(cosmos_files / "cosmos.pth", tmp_path / "c.pth")
     sd = torch.load(tmp_path / "c.pth")
     sd["decoder.conv_in.0.conv3d.weight"] = sd["decoder.conv_in.0.conv3d.weight"][:1]
     torch.save(sd, tmp_path / "c.pth")
     with pytest.raises(ValueError, match="shape"):
-        checkpoint.load_cosmos_dv_pth(str(tmp_path / "c.pth"), cfg=TorchCfg(**SMALL))
+        checkpoint.load_cosmos_dv_pth(str(tmp_path / "c.pth"), cfg=TorchCfg(**SMALL), device="cpu")

@@ -173,14 +173,14 @@ def test_load_cosmos_image_pth_in_both_packages(image_files, form):
              else (str(d / "di.pth"), None))
     jcfg, tcfg = jnet.ImageTokenizerConfig(**TINY), tnet.ImageTokenizerConfig(**TINY)
     jtok = torch_convert.load_cosmos_image_pth(*paths, cfg=jcfg)
-    ttok = checkpoint.load_cosmos_image_pth(*paths, cfg=tcfg)
+    ttok = checkpoint.load_cosmos_image_pth(*paths, cfg=tcfg, device="cpu")
     for k, v in tokenizers(True)[2].net.state_dict().items():
         assert torch.equal(ttok.net.state_dict()[k], v), k
     x = np.random.default_rng(5).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     np.testing.assert_array_equal(ttok.encode(x)[0].numpy(), np.asarray(jtok.encode(x)[0]))
     if form == "jit":  # an encoder.jit alone leaves the decoder's weights out
         with pytest.raises(KeyError, match="missing"):
-            checkpoint.load_cosmos_image_pth(paths[0], cfg=tcfg)
+            checkpoint.load_cosmos_image_pth(paths[0], cfg=tcfg, device="cpu")
 
 
 def test_tokenize_images_cli_matches_the_root_script(tmp_path, monkeypatch):

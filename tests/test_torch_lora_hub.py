@@ -30,6 +30,7 @@ from egom2p_torch.core import image_metrics as TM
 from egom2p_torch.core import inception_v3 as tinc
 from egom2p_torch.core import vgg_features as tvgg
 from egom2p_torch.models import lora as tlora
+from egom2p_torch.models import teachers as tteach
 from egom2p_torch.models.egom2p import create_model
 from egom2p_torch.models.hub import FM
 from egom2p_tpu.core import image_metrics as JM
@@ -330,12 +331,19 @@ def _helpers(tmp_path):
         "load_seq_vqvae_pth": lambda: checkpoint.load_seq_vqvae_pth(str(tmp_path / "x.pth"),
                                                                      "cam"),
         "FM.from_pretrained": lambda: FM.from_pretrained(str(tmp_path)),
+        "load_cosmos_dv_pth": lambda: checkpoint.load_cosmos_dv_pth(str(tmp_path / "e.jit")),
+        "load_cosmos_image_pth": lambda: checkpoint.load_cosmos_image_pth(
+            str(tmp_path / "e.jit")),
+        "load_teacher_pth": lambda: tteach.load_teacher_pth(str(tmp_path / "t.pth"),
+                                                            "CLIP-B16"),
+        "get_feature_extractor": lambda: tteach.get_feature_extractor("CLIP-B16"),
     }
 
 
 HELPERS = ["make_lpips", "get_inception_fns", "get_lpips", "make_perceptual_loss",
            "registered lpips", "make_fid", "make_inception_score", "make_inception_fns",
-           "vgg16_features", "load_seq_vqvae_pth", "FM.from_pretrained"]
+           "vgg16_features", "load_seq_vqvae_pth", "FM.from_pretrained", "load_cosmos_dv_pth",
+           "load_cosmos_image_pth", "load_teacher_pth", "get_feature_extractor"]
 
 
 @pytest.mark.parametrize("helper", HELPERS)

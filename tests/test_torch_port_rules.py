@@ -31,11 +31,16 @@ PORT_FILES = sorted([p for p in (REPO / "egom2p_torch").rglob("*")
     (r"^\s*(import|from)\s+flax\b", "an import of flax"),
     (r"^\s*(import|from)\s+egom2p_tpu\b", "an import of the JAX package"),
     (r"torch\.compile\(", "torch.compile"),
+    (r"^\s*(import|from)\s+matplotlib\b", "an import of matplotlib"),
+    (r"^\s*(import|from)\s+(run_training_vqvae|run_training_egom2p|tokenize_images|"
+     r"tokenize_videos|eval_model_\w+|prepare_aligned_shards|vis_cam|vis_gaze|cam_viz_tool|"
+     r"tok_cam_example|tok_gaze_example|bench|bench_train|__graft_entry__)\b",
+     "an import of a root script"),
 ])
 def test_port_sources_do_not_name(pattern, what):
     """No file of the port calls a library's attention, compiles its plain
-    versions, or imports JAX or the JAX package (docstrings may name the JAX
-    files a module mirrors)."""
+    versions, or imports JAX, the JAX package, matplotlib or a root script
+    (docstrings may name the JAX files a module mirrors)."""
     assert len(PORT_FILES) > 40
     rx = re.compile(pattern, re.MULTILINE)
     found = [str(p.relative_to(REPO)) for p in PORT_FILES if rx.search(p.read_text())]
@@ -315,9 +320,10 @@ def test_eval_path_imports_no_jax():
     process group helpers and the data-parallel tests' rank module; the
     gradient quantizers, the Cosmos image tokenizers, the latent
     distributions and tokenize_images; the data transforms, the folder,
-    generation and video datasets, prep, LoRA and the hub) and
-    chip_smoke.py load without JAX or the JAX package, and without
-    Pillow or OpenCV (which the card's machine may lack)."""
+    generation and video datasets, prep, LoRA and the hub; the visualisers,
+    their renderer and the tokenizer examples) and chip_smoke.py load
+    without JAX or the JAX package, and without Pillow, OpenCV or
+    matplotlib (which the card's machine may lack)."""
     import subprocess
     code = ("import sys\n"
             "import chip_smoke\n"
@@ -342,12 +348,32 @@ def test_eval_path_imports_no_jax():
             "import egom2p_torch.data.generation_datasets, egom2p_torch.data.prep\n"
             "import egom2p_torch.data.video_dataset, egom2p_torch.models.lora\n"
             "import egom2p_torch.models.hub, egom2p_torch.core.image_metrics\n"
+            "import egom2p_torch.vis_3d.vis_gaze, egom2p_torch.vis_3d.vis_cam\n"
+            "import egom2p_torch.vis_3d.cam_viz_tool, egom2p_torch.vis_3d.render\n"
+            "import egom2p_torch.examples.tok_cam_example\n"
+            "import egom2p_torch.examples.tok_gaze_example\n"
             "sys.path.insert(0, 'tests')\n"
             "import torch_dist_ranks\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
-            " 'egom2p_tpu', 'PIL', 'cv2')]\n"
+            " 'egom2p_tpu', 'PIL', 'cv2', 'matplotlib')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_launch_scripts_call_the_port():
+    """egom2p_torch/scripts/*.sh start the port's CLIs as modules
+    (`python -m egom2p_torch...`, `torchrun ... -m egom2p_torch...`) and name
+    no root script and none of the TPU launch legs."""
+    scripts = sorted((REPO / "egom2p_torch" / "scripts").glob("*.sh"))
+    assert [p.name for p in scripts] == ["cam_tok_train.sh", "gaze_train.sh",
+                                         "launch_torchrun.sh", "tokenize_cam.sh",
+                                         "tokenize_gaze.sh"]
+    for p in scripts:
+        code = "\n".join(line for line in p.read_text().splitlines()
+                         if not line.lstrip().startswith("#"))
+        calls = re.findall(r"-m (\S+)", code)
+        assert calls and all(c.startswith("egom2p_torch.cli.") for c in calls), p.name
+        assert not re.search(r"\w+\.py\b|gcloud|LIBTPU|jax", code), p.name
 
 
 def test_video_ingest_builds_the_repo_source_only(monkeypatch, tmp_path):

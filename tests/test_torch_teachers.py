@@ -206,7 +206,7 @@ def test_loader_reads_published_layouts_as_jax(family, domain, grid0, tmp_path, 
     path = str(tmp_path / "teacher.pth")
     torch.save(sd, path)
     j_params = jconv.load_teacher_pth(path, domain)
-    tm = tteach.load_teacher_pth(path, domain)
+    tm = tteach.load_teacher_pth(path, domain, device="cpu")
     want = teacher_state_dict_from_jax(j_params, tteach.ViTTeacher(spec))
     for k, v in tm.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), want[k].numpy(), err_msg=k)
