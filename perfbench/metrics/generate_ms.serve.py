@@ -1,0 +1,7 @@
+"""Sampler and model (ROAR generate): mean of run_clip's generate seconds
+over the window's batches, in ms."""
+
+
+def read(layer):
+    xs = [b["generate_s"] for b in layer.get("batches", [])]
+    return 1e3 * sum(xs) / len(xs) if xs else None
