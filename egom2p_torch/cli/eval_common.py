@@ -33,7 +33,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from egom2p_torch.core import checkpoint
+from egom2p_torch.core import checkpoint, tracing
 from egom2p_torch.data.modality_info import MODALITY_INFO
 from egom2p_torch.data.video_ingest import read_video
 from egom2p_torch.generate.decode import decode_targets
@@ -196,7 +196,8 @@ def run_tokens(cond, sampler, schedule, cond_domain: str, target_domain: str,
     init_full_input_modality(sample, MODALITY_INFO, cond_domain)
     init_empty_target_modality(sample, MODALITY_INFO, target_domain, cond.shape[0],
                                MODALITY_INFO[target_domain]["max_tokens"])
-    out = sampler.generate(sample, schedule, top_p=0.8, top_k=0.0, seed=seed)
+    with tracing.span("egom2p.generate"):
+        out = sampler.generate(sample, schedule, top_p=0.8, top_k=0.0, seed=seed)
     _sync(sampler.device)
     return out, time.perf_counter() - t0
 
@@ -204,15 +205,18 @@ def run_tokens(cond, sampler, schedule, cond_domain: str, target_domain: str,
 def run_clip(video, sampler, tokenizer, schedule, cond_domain: str, target_domain: str,
              seed: int = 0) -> Tuple[Dict, Dict[str, float]]:
     """One batch of uint8 clips (B, T, 256, 256, 3) -> the generated mod
-    dict, and the seconds of its tokenize and generate."""
+    dict, and the seconds of its tokenize and generate.  The call is one
+    unit of core/tracing.py (the caller's decode of its tokens joins it)."""
     device = tokenizer.device
-    _sync(device)
-    t0 = time.perf_counter()
-    cond = tokenizer.forward(video, device_out=True)  # (B, 5, 32, 32)
-    cond = cond.reshape(cond.shape[0], -1)
-    _sync(device)
-    tokenize_s = time.perf_counter() - t0
-    out, generate_s = run_tokens(cond, sampler, schedule, cond_domain, target_domain, seed)
+    with tracing.span("egom2p.clip", unit=True):
+        _sync(device)
+        t0 = time.perf_counter()
+        with tracing.span("egom2p.tokenize"):
+            cond = tokenizer.forward(video, device_out=True)  # (B, 5, 32, 32)
+        cond = cond.reshape(cond.shape[0], -1)
+        _sync(device)
+        tokenize_s = time.perf_counter() - t0
+        out, generate_s = run_tokens(cond, sampler, schedule, cond_domain, target_domain, seed)
     return out, {"tokenize_s": tokenize_s, "generate_s": generate_s}
 
 

@@ -27,8 +27,11 @@ synthetic pool.  --frozen_model_epochs N holds the shared trunk still for
 the first N epochs; --use_act_checkpoint recomputes every block in the
 backward (--remat_policy full or dots); --num_register_tokens adds learned
 encoder tokens.  --profile writes a torch.profiler trace of the first
-epoch's steps to <output_dir>/profile; --log_wandb logs to wandb where it
-is installed (else nothing).
+epoch's steps to <output_dir>/profile and prints the program's spans and
+counters over them (core/tracing.py: the data fetch and copy, each step's
+forward, backward, all-reduce and optimizer, live tokens against the slots
+computed, device allocations); --log_wandb logs to wandb where it is
+installed (else nothing).
 
 Across processes (torchrun; core/distributed.py, train/egom2p_train.py):
 each process trains on its device (cuda:LOCAL_RANK) with a loader batch of
@@ -96,6 +99,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from egom2p_torch.core import tracing
 
 MODS4 = ("tok_rgb", "tok_depth", "tok_cam", "tok_gaze")
 SYNTHETIC_ALPHAS = [0.01, 0.1, 1.0, 10.0]
@@ -468,6 +473,34 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _batches(loader_it, to_device, device, n: int):
+    """`n` batches of the loader, each as (its numpy batch, its copy on
+    `device`): the loop's `data:` meter times this fetch and copy.  Each
+    batch's live tokens are counted before the copy; under a profiler each
+    fetch starts a unit of core/tracing.py."""
+    for _ in range(n):
+        with tracing.span("egom2p.data.fetch", unit=True):
+            raw = next(loader_it)
+        _count_live(raw)
+        with tracing.span("egom2p.data.to_device"):
+            batch = to_device(raw, device)
+        yield raw, batch
+
+
+def _count_live(raw) -> None:
+    """A numpy batch's live input and target tokens (masks True where a slot
+    is dead) into core/tracing.py's counters: summed over the rows, and the
+    fullest row's, with the rows and the batch."""
+    live_in = sum((~np.asarray(d["input_mask"], bool)).sum(axis=1) for d in raw.values())
+    live_tgt = sum((~np.asarray(d["target_mask"], bool)).sum(axis=1) for d in raw.values())
+    tracing.count("train.batches", 1)
+    tracing.count("train.rows", len(live_in))
+    tracing.count("train.live_inputs", int(live_in.sum()))
+    tracing.count("train.live_targets", int(live_tgt.sum()))
+    tracing.count("train.live_inputs_max", int(live_in.max()))
+    tracing.count("train.live_targets_max", int(live_tgt.max()))
+
+
 def _raise_open_files_limit() -> None:
     """Many-shard tar loading needs many open files (reference:
     run_training_egom2p.py:840-841)."""
@@ -595,13 +628,13 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
     profiler = _start_profile(args, device) if args.profile else None
     for epoch in range(start_epoch, args.epochs):
         logger = MetricLogger(print_freq=args.print_freq)
-        for _ in logger.log_every(range(niter_per_ep), header=f"Epoch [{epoch}]",
-                                  total=niter_per_ep):
-            raw = next(loader_it)
-            batch = batch_to_device(raw, device)
+        for _, (raw, batch) in logger.log_every(
+                _batches(loader_it, batch_to_device, device, niter_per_ep),
+                header=f"Epoch [{epoch}]", total=niter_per_ep):
             _sync(device)
             t0 = time.perf_counter()
-            metrics = step_fn(batch, shuffle)
+            with tracing.span("egom2p.train.step"):
+                metrics = step_fn(batch, shuffle)
             _sync(device)
             seconds = time.perf_counter() - t0
             values = {k: float(v) for k, v in metrics.items()}
@@ -630,6 +663,7 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
                                 f"trace-rank{distributed.rank()}.json")
             profiler.export_chrome_trace(path)
             print(f"profile trace -> {path}")
+            print(tracing.table(profiler))
             profiler = None
         jsonl.write({"epoch": epoch, "tokens_seen_B": step * tokens_per_sample
                      * global_batch / 1e9,
@@ -682,7 +716,8 @@ def _train(args, device, loader_it, domains, on_step, on_epoch):
 
 def _start_profile(args, device):
     """A started torch.profiler over the first epoch's steps: host and, on
-    CUDA, device activity (run_training_egom2p.py:558-561, 595-598)."""
+    CUDA, device activity (run_training_egom2p.py:558-561, 595-598); the
+    program's spans and counters start afresh with it."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(os.path.join(args.output_dir, "profile"), exist_ok=True)
@@ -690,6 +725,7 @@ def _start_profile(args, device):
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
+    tracing.reset()
     prof.start()
     return prof
 

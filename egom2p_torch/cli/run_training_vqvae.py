@@ -685,25 +685,29 @@ def run_train(args, on_step: Optional[Callable[[int, Dict[str, float], float], N
                                  feat_fn=feat_fn) if args.eval_freq else None)
     batch_iter = dataset.iter_batches(global_batch) if video_domain else None
     step_seconds, history = [], []
+
+    def fetch(it: int, order):
+        """Step `it`'s batch on the device: this process's rows of the
+        global batch; the video and image datasets' augmentations draw in
+        sample order, so every process draws the whole global batch (one
+        process's stream)."""
+        lo = rank * batch_size
+        if video_domain:
+            batch = next(batch_iter)
+        elif feat_domain:
+            batch = _image_batch(data, order[it * global_batch:(it + 1) * global_batch])
+        else:
+            batch = data[order[it * global_batch + lo:it * global_batch + lo + batch_size]]
+        if batch.shape[0] > batch_size:
+            batch = batch[lo:lo + batch_size]
+        return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+
     for epoch in range(start_epoch, args.epochs):
         logger = MetricLogger(print_freq=args.print_freq)
         order = None if video_domain else rng.permutation(n_samples)
-        for it, _ in logger.log_every(range(niter_per_ep), header=f"Epoch [{epoch}]",
-                                      total=niter_per_ep):
-            # this process's rows of the global batch; the video and image
-            # datasets' augmentations draw in sample order, so every process
-            # draws the whole global batch (one process's stream)
-            lo = rank * batch_size
-            if video_domain:
-                batch = next(batch_iter)
-            elif feat_domain:
-                batch = _image_batch(data, order[it * global_batch:(it + 1) * global_batch])
-            else:
-                batch = data[order[it * global_batch + lo:it * global_batch + lo + batch_size]]
-            if batch.shape[0] > batch_size:
-                batch = batch[lo:lo + batch_size]
-            batch = torch.from_numpy(np.ascontiguousarray(batch))
-            batch = batch.to(device)
+        # the fetch and copy run inside the iteration the `data:` meter times
+        for _, batch in logger.log_every((fetch(it, order) for it in range(niter_per_ep)),
+                                         header=f"Epoch [{epoch}]", total=niter_per_ep):
             if feat_domain:  # the frozen teacher's features, on the device
                 batch = feat_fn(batch)
             if device.type == "cuda":

@@ -17,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from egom2p_torch.core import tracing
 from egom2p_torch.data.cam_gaze import CAM_MEAN, CAM_STD, GAZE_MEAN, GAZE_STD
 from egom2p_torch.tokenizers.cosmos.video_api import tensor2uint8
 
@@ -29,15 +30,16 @@ def decode_video_tokens(tokens, tokenizer, key: str = "tok_rgb",
     """Token grids (B, t*h*w) or (B, t, h, w) -> uint8 video (B, 16, H, W, 3);
     depth becomes the channel mean, in gray (the floor of the mean, as
     numpy's uint8 cast of it)."""
-    toks = torch.as_tensor(tokens)
-    if toks.ndim != 4:
-        toks = toks.reshape(toks.shape[0], *grid)
-    video = tensor2uint8(tokenizer.decode(toks))[:, :FRAMES]
-    if key == "tok_depth":
-        gray = torch.div(video.sum(dim=-1, keepdim=True, dtype=torch.int32), 3,
-                         rounding_mode="floor")
-        video = gray.to(torch.uint8).expand(*video.shape)
-    return video.cpu().numpy()
+    with tracing.span("egom2p.decode"):
+        toks = torch.as_tensor(tokens)
+        if toks.ndim != 4:
+            toks = toks.reshape(toks.shape[0], *grid)
+        video = tensor2uint8(tokenizer.decode(toks))[:, :FRAMES]
+        if key == "tok_depth":
+            gray = torch.div(video.sum(dim=-1, keepdim=True, dtype=torch.int32), 3,
+                             rounding_mode="floor")
+            video = gray.to(torch.uint8).expand(*video.shape)
+        return video.cpu().numpy()
 
 
 def decode_tok_vid(filename: str, mod_dict, tokenizers, key: str = "tok_rgb",

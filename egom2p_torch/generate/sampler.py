@@ -9,9 +9,11 @@ JAX sampler, so both packages pick the same `ids_keep`); the chain state
 steps, and each step is one fused device function: the encoder on the cond
 and uncond branches at their own bucketed lengths, the decoder over the k
 chosen positions, the CFG mix, the chunked 64k head, top-p sampling and the
-scatter update.  Under CFG with sequence-type conditioning (a caption) the
-step stacks cond and uncond into one 2B-row batch on the host instead, as
-the JAX sampler does: emptying a caption rewrites its sentinels.
+scatter update (under a profiler, the spans `egom2p.roar.encoder`,
+`.decoder`, `.head` and `.update` of core/tracing.py).  Under CFG with
+sequence-type conditioning (a caption) the step stacks cond and uncond into
+one 2B-row batch on the host instead, as the JAX sampler does: emptying a
+caption rewrites its sentinels.
 
 A sequence target is decoded token by token (`_seq_step`): the encoder runs
 once over the (stacked) branches at the bucketed length, then every token
@@ -43,6 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from egom2p_torch.core import tracing
 from egom2p_torch.data.modality_info import MODALITY_INFO
 from egom2p_torch.data.span import get_sentinel_to_id_mapping, merge_span_masking
 from egom2p_torch.ops.attention import inference_attention
@@ -393,29 +396,37 @@ class GenerationSampler:
                        for mod, d in dev.items()}
             # split-shape CFG: cond and uncond run at their own encoder
             # lengths through the encoder and the decoder cross-attention
-            ctx_c, mask_c = model.forward_enc_context(dev, num_enc_c)
-            ctx_u, mask_u = model.forward_enc_context(un_view, num_enc_u)
-            y_c = model.forward_dec_subset_hidden(dev, target_mod, ctx_c, mask_c, ids_keep)
-            y_u = model.forward_dec_subset_hidden(dev, target_mod, ctx_u, mask_u, ids_keep)
+            with tracing.span("egom2p.roar.encoder"):
+                ctx_c, mask_c = model.forward_enc_context(dev, num_enc_c)
+            with tracing.span("egom2p.roar.encoder"):
+                ctx_u, mask_u = model.forward_enc_context(un_view, num_enc_u)
+            with tracing.span("egom2p.roar.decoder"):
+                y_c = model.forward_dec_subset_hidden(dev, target_mod, ctx_c, mask_c, ids_keep)
+            with tracing.span("egom2p.roar.decoder"):
+                y_u = model.forward_dec_subset_hidden(dev, target_mod, ctx_u, mask_u, ids_keep)
             y = torch.cat([y_c, y_u], dim=0)
         else:
-            context, enc_mask = model.forward_enc_context(dev, num_enc_c)
-            y = model.forward_dec_subset_hidden(dev, target_mod, context, enc_mask, ids_keep)
-        samples, probs = chunked_head_sample(
-            model, target_mod, y, (cfg_scale,) if use_cfg else None, generator,
-            temperature, top_k, top_p, self.info[target_mod]["vocab_size"])
-        if num_select < ids_keep.shape[1]:
-            # MaskGIT: keep the most confident positions (reference: generate.py:652-665)
-            top_idx = torch.topk(probs, num_select, dim=1).indices
-            sel_pos = torch.gather(ids_keep, 1, top_idx)
-            samples = torch.gather(samples, 1, top_idx)
-        else:
-            sel_pos = ids_keep
-        d = dev[target_mod]
-        rows = torch.arange(sel_pos.shape[0], device=sel_pos.device)[:, None]
-        d["tensor"][rows, sel_pos] = samples.to(d["tensor"].dtype)
-        d["input_mask"][rows, sel_pos] = False
-        d["target_mask"][rows, sel_pos] = True
+            with tracing.span("egom2p.roar.encoder"):
+                context, enc_mask = model.forward_enc_context(dev, num_enc_c)
+            with tracing.span("egom2p.roar.decoder"):
+                y = model.forward_dec_subset_hidden(dev, target_mod, context, enc_mask, ids_keep)
+        with tracing.span("egom2p.roar.head"):
+            samples, probs = chunked_head_sample(
+                model, target_mod, y, (cfg_scale,) if use_cfg else None, generator,
+                temperature, top_k, top_p, self.info[target_mod]["vocab_size"])
+        with tracing.span("egom2p.roar.update"):
+            if num_select < ids_keep.shape[1]:
+                # MaskGIT: keep the most confident positions (reference: generate.py:652-665)
+                top_idx = torch.topk(probs, num_select, dim=1).indices
+                sel_pos = torch.gather(ids_keep, 1, top_idx)
+                samples = torch.gather(samples, 1, top_idx)
+            else:
+                sel_pos = ids_keep
+            d = dev[target_mod]
+            rows = torch.arange(sel_pos.shape[0], device=sel_pos.device)[:, None]
+            d["tensor"][rows, sel_pos] = samples.to(d["tensor"].dtype)
+            d["input_mask"][rows, sel_pos] = False
+            d["target_mask"][rows, sel_pos] = True
         return sel_pos
 
     def _stacked_step(self, mod_dict, target_mod: str, ids_keep: np.ndarray, k: int,
@@ -431,23 +442,27 @@ class GenerationSampler:
         stacked = self._stack_dicts(mod_dict, self._make_uncond(mod_dict, conditioning))
         dev = self._to_device(stacked)
         ids = torch.from_numpy(np.concatenate([ids_keep, ids_keep])).to(self.device, torch.int64)
-        context, enc_mask = model.forward_enc_context(
-            dev, _bucket(self._num_enc_tokens(stacked)))
-        y = model.forward_dec_subset_hidden(dev, target_mod, context, enc_mask, ids)
-        samples, probs = chunked_head_sample(model, target_mod, y, (cfg_scale,), generator,
-                                             temperature, top_k, top_p,
-                                             self.info[target_mod]["vocab_size"])
-        samples, probs = samples.cpu().numpy(), probs.cpu().numpy()
-        if scheme == "maskgit" and num_select < k:
-            top_idx = np.argsort(-probs, axis=1)[:, :num_select]
-            sel_pos = np.take_along_axis(ids_keep, top_idx, axis=1)
-            samples = np.take_along_axis(samples, top_idx, axis=1)
-        else:
-            sel_pos = ids_keep
-        rows = np.arange(sel_pos.shape[0])[:, None]
-        d["tensor"][rows, sel_pos] = samples.astype(d["tensor"].dtype)
-        d["input_mask"][rows, sel_pos] = False
-        d["target_mask"][rows, sel_pos] = True
+        with tracing.span("egom2p.roar.encoder"):
+            context, enc_mask = model.forward_enc_context(
+                dev, _bucket(self._num_enc_tokens(stacked)))
+        with tracing.span("egom2p.roar.decoder"):
+            y = model.forward_dec_subset_hidden(dev, target_mod, context, enc_mask, ids)
+        with tracing.span("egom2p.roar.head"):
+            samples, probs = chunked_head_sample(model, target_mod, y, (cfg_scale,), generator,
+                                                 temperature, top_k, top_p,
+                                                 self.info[target_mod]["vocab_size"])
+        with tracing.span("egom2p.roar.update"):
+            samples, probs = samples.cpu().numpy(), probs.cpu().numpy()
+            if scheme == "maskgit" and num_select < k:
+                top_idx = np.argsort(-probs, axis=1)[:, :num_select]
+                sel_pos = np.take_along_axis(ids_keep, top_idx, axis=1)
+                samples = np.take_along_axis(samples, top_idx, axis=1)
+            else:
+                sel_pos = ids_keep
+            rows = np.arange(sel_pos.shape[0])[:, None]
+            d["tensor"][rows, sel_pos] = samples.astype(d["tensor"].dtype)
+            d["input_mask"][rows, sel_pos] = False
+            d["target_mask"][rows, sel_pos] = True
 
     def _img_step(self, mod_dict, dev, dirty: set, target_mod: str,
                   scheme: str, num_select: int, temperature: float,

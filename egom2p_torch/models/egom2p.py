@@ -50,6 +50,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from egom2p_torch.core import tracing
 from egom2p_torch.data.modality_info import MODALITY_INFO
 from egom2p_torch.models.embeddings import (make_decoder_embedding,
                                             make_encoder_embedding)
@@ -472,6 +473,9 @@ class EgoM2P(nn.Module):
         perm = None if shuffle is None else torch.randperm(len(dec_embeds), generator=shuffle)
         decoder_tokens, decoder_emb, _, target_ids, sa_mask, dec_mod_mask = \
             self.forward_mask_decoder(dec_embeds, num_decoder_tokens, perm)
+        if self.training:  # the slots the encoder and the decoder compute
+            tracing.count("train.input_slots", encoder_tokens.shape[0] * encoder_tokens.shape[1])
+            tracing.count("train.target_slots", decoder_tokens.shape[0] * decoder_tokens.shape[1])
 
         x = self.forward_encoder(encoder_tokens + encoder_emb, encoder_mask, shuffle, rows)
         context = self.decoder_proj_context(x) + encoder_emb

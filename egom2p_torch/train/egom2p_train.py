@@ -48,7 +48,7 @@ from typing import Dict, Optional
 
 import torch
 
-from egom2p_torch.core import distributed, fsdp
+from egom2p_torch.core import distributed, fsdp, tracing
 from egom2p_torch.core.optim import Optimizer
 from egom2p_torch.models.egom2p import EgoM2P
 
@@ -105,9 +105,11 @@ def make_train_step(model: EgoM2P, optimizer: Optimizer, num_input_tokens: int,
         for i in range(accum_steps):
             lo = (i * world + rank) * micro if gathered else i * micro
             md = _take(batch, lo, lo + micro)
-            loss, mod_loss = model(md, num_input_tokens, num_target_tokens, loss_type,
-                                   shuffle=shuffle, count_reduce=count_reduce, rows=draws)
-            (loss / accum_steps).backward()
+            with tracing.span("egom2p.train.forward"):
+                loss, mod_loss = model(md, num_input_tokens, num_target_tokens, loss_type,
+                                       shuffle=shuffle, count_reduce=count_reduce, rows=draws)
+            with tracing.span("egom2p.train.backward"):
+                (loss / accum_steps).backward()
             if sharded is not None:
                 sharded.after_backward()
             loss_sum = loss_sum + loss.detach()
@@ -117,12 +119,16 @@ def make_train_step(model: EgoM2P, optimizer: Optimizer, num_input_tokens: int,
                    **{f"loss_{m}": v / accum_steps for m, v in mod_sums.items()}}
         if sharded is not None:
             sharded.reshard_root()
-            sharded.reduce_grads_([p for p in optimizer.params if sharded.sharded(p) is None])
+            with tracing.span("egom2p.train.all_reduce"):
+                sharded.reduce_grads_([p for p in optimizer.params
+                                       if sharded.sharded(p) is None])
         elif parallel:
-            distributed.all_reduce_grads_(optimizer.params)
+            with tracing.span("egom2p.train.all_reduce"):
+                distributed.all_reduce_grads_(optimizer.params)
         if parallel:
             metrics = distributed.global_metrics(metrics)
-        grad_norm = optimizer.step()
+        with tracing.span("egom2p.train.optimizer"):
+            grad_norm = optimizer.step()
         return {"loss": metrics.pop("loss"), "grad_norm": grad_norm, **metrics}
 
     return train_step

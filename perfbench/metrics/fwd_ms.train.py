@@ -1,0 +1,8 @@
+"""Train step: device ms a profiled step in the kernels the program's
+`egom2p.train.forward` spans launched (their own time, not the
+device's waits)."""
+from perfbench import registry
+
+
+def read(layer):
+    return registry.device_ms_a_unit(layer, "egom2p.train.forward")
