@@ -401,7 +401,10 @@ LARGE_HEADS, LARGE_HD = 15, 68
 # batch 8 runs out of the card's 80 GB at its second step (once AdamW's
 # state exists); batch 4 peaks near 50 GiB (NVIDIA H100 80GB HBM3, 700 W)
 LARGE_B = 4
-# kernel launches per training step, by wrapper (see _wrappers)
+# kernel launches per training step, by wrapper (see _wrappers); a CE
+# kernel runs once for each 64k head with a row in the batch (forward_loss
+# launches nothing for a head with none): every batch of these seeded runs
+# holds rows of both 64k heads
 DEFAULT_STEP = dict(fwd=36, dq=36, dkv=36, dqkv=0, ce_fwd=2, ce_bwd=0, stock_fwd=0, stock_bwd=0)
 FUSED_STEP = dict(DEFAULT_STEP, dq=0, dkv=0, dqkv=36, ce_bwd=2)
 LARGE_STEP = dict(fwd=0, dq=0, dkv=0, dqkv=0, ce_fwd=0, ce_bwd=0, stock_fwd=72, stock_bwd=72)
@@ -1394,17 +1397,23 @@ def _step_live_rows(R, dev, gen):
     return ((pos % 2048) >= start[pos // 2048]) & ((pos % 2048) < start[pos // 2048] + 1024)
 
 
-# flash-CE forward cases (R, V, D, live rows): the base step's head with all
-# rows and with half the rows live, vocabs its tiles do not divide (the
-# caption head's 30000 among them), the
-# wider registry dims, and the split instance at the trainer's B = 1 (R =
-# 2048) and the dim-1024 check step's R = 512
+# flash-CE forward cases (R, V, D, live rows): every decoder row of the base
+# step (B = 8) with all rows and with half the rows live (the kernel's
+# live-row scan), vocabs its tiles do not divide (the caption head's 30000
+# among them), the wider registry dims, the split instance at the trainer's
+# B = 1 (R = 2048) and the dim-1024 check step's R = 512, and the loss's
+# shape: forward_loss hands each 64k head only its own rows, every one
+# live, about 4,100 of the base step's 16384 and their number changing from
+# batch to batch (the seeded training batches of phases 5 and 5b give a 64k
+# head 2058 to 8016 rows)
+LOSS_HEAD_ROWS = (4100, 2058, 8016)
 CE_FWD_CASES = ((16384, 64000, 768, "all"), (1000, 64007, 768, "all"),
                 (16384, 30000, 768, "all"),
                 (16384, 64000, 1024, "all"), (16384, 64000, 2048, "all"),
                 (16384, 64000, 768, "step"), (2048, 64000, 768, "all"),
                 (512, 64000, 768, "all"), (2048, 64000, 1024, "all"),
-                (512, 64000, 1024, "all"))
+                (512, 64000, 1024, "all"),
+                *((r, 64000, 768, "all") for r in LOSS_HEAD_ROWS))
 
 
 def ce_phase(dev):
@@ -1559,22 +1568,31 @@ def ragged_bwd_phase(dev):
 
 def ce_bwd_phase(dev):
     """The CE backward kernel against the plain chunked backward (the
-    default), with about half the rows at weight 0 at the step's shape, and
-    at the other column plans: D = 128, 384, 640 (a 128-column warpgroup),
-    1024 and 2048 (column groups over a streamed owned tile)."""
+    default): over every decoder row of the base step with about half the
+    rows at weight 0 (weight 1 / count on the others), at the loss's shape
+    (one 64k head's gathered rows, LOSS_HEAD_ROWS, every one live at weight
+    1, as forward_loss hands them to flash_ce_total), and at the other
+    column plans: D = 128, 384, 640 (a 128-column warpgroup), 1024 and 2048
+    (column groups over a streamed owned tile)."""
     from egom2p_torch.ops.flash_ce import (_bwd_chunked, bwd_column_plan, ce_bwd,
                                            row_stats_reference)
 
     rows = []
-    for R, V, D in ((16384, 64000, 768), (1000, 64007, 768), (16384, 64000, 128),
-                    (16384, 64000, 384), (16384, 64000, 640), (16384, 64000, 1024),
-                    (16384, 64000, 2048)):
+    for R, V, D, which in ((16384, 64000, 768, "step"), (1000, 64007, 768, "step"),
+                           *((r, 64000, 768, "all") for r in LOSS_HEAD_ROWS),
+                           (16384, 64000, 128, "step"), (16384, 64000, 384, "step"),
+                           (16384, 64000, 640, "step"), (16384, 64000, 1024, "step"),
+                           (16384, 64000, 2048, "step")):
         gen = torch.Generator(device=dev).manual_seed(R + 1)
         y = torch.randn((R, D), device=dev, generator=gen).to(torch.bfloat16)
         w = (torch.randn((V, D), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
         t = torch.randint(0, V, (R,), device=dev, generator=gen, dtype=torch.int32)
-        live = _step_live_rows(R, dev, gen)  # the weight is 1 / count
-        wc = live.float() / live.sum().clamp(min=1)
+        if which == "all":
+            live = torch.ones(R, dtype=torch.bool, device=dev)
+            wc = live.float()
+        else:
+            live = _step_live_rows(R, dev, gen)
+            wc = live.float() / live.sum().clamp(min=1)
         logz, _ = row_stats_reference(y, w, t)
         dy, dw = ce_bwd(y, w, t, wc, logz)
         torch.cuda.synchronize()
@@ -1593,9 +1611,22 @@ def ce_bwd_phase(dev):
               f"dW {err['dW']:.2e}  kernel {ms:.3f} ms (bound "
               f"{ce_bwd_bound_ms(n_live, R, D, V)[0]:.3f} ms)  plain chunked {plain_ms:.3f} ms")
         rows.append({"R": R, "V": V, "D": D, "err": max(err.values()), "ms": ms,
-                     "plain_ms": plain_ms, "live_rows": n_live})
+                     "plain_ms": plain_ms, "live_rows": n_live, "all_live": which == "all"})
         del y, w, dy, dw, rdy, rdw
     return rows
+
+
+def loss_head_rows(ce_rows, ce_bwd_rows):
+    """The CE kernels' rows of ce_phase and ce_bwd_phase at the loss's
+    shape (one 64k head's gathered rows, every one live, LOSS_HEAD_ROWS),
+    each with its bound: (forward rows, backward rows)."""
+    fwd = [{k: r[k] for k in ("R", "err", "ms", "plain_ms", "splits")}
+           | {"bound_ms": ce_fwd_bound_ms(r["R"], r["D"], r["V"])[0]}
+           for r in ce_rows if r["R"] in LOSS_HEAD_ROWS]
+    bwd = [{k: r[k] for k in ("R", "err", "ms", "plain_ms")}
+           | {"bound_ms": ce_bwd_bound_ms(r["R"], r["R"], r["D"], r["V"])[0]}
+           for r in ce_bwd_rows if r["all_live"]]
+    return fwd, bwd
 
 
 def _stock_case(rng, dev, n, heads, hd, mode, dead_row=False):
@@ -1958,14 +1989,15 @@ def step_check(model, batch, expected, swaps, n_tokens=2048):
     model.zero_grad(set_to_none=True)
 
 
-def _head_live_shares(model, batch, n_tokens=2048):
-    """[(V, share of live rows)] of each flash-CE call in one forward of the
-    model on `batch` (the rows of weight 0 are the other modalities')."""
+def _head_rows(model, batch, n_tokens=2048):
+    """[(V, rows)] of each flash-CE call in one forward of the model on
+    `batch`: forward_loss hands each head its own rows, the head's targets
+    in the batch."""
     import egom2p_torch.ops.flash_ce as fce
-    shares, real = [], fce.row_stats
+    heads, real = [], fce.row_stats
 
     def record(y, w, targets, live=None):
-        shares.append((w.shape[0], 1.0 if live is None else live.float().mean().item()))
+        heads.append((w.shape[0], y.shape[0]))
         return real(y, w, targets, live=live)
 
     record.launches = real.launches  # `real` counts its launch on the module's row_stats
@@ -1976,7 +2008,7 @@ def _head_live_shares(model, batch, n_tokens=2048):
     finally:
         fce.row_stats = real
         real.launches = record.launches
-    return shares
+    return heads
 
 
 def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_kind,
@@ -2051,9 +2083,9 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     it.close()
     profile_step(model, out["optimizer"], data, step_ms)
     del out
-    shares = _head_live_shares(model, data)
-    print(f"{label}: live rows of each flash-CE head on one batch: "
-          + (", ".join(f"V={v} {share:.1%}" for v, share in shares) or "no flash-CE head"))
+    heads = _head_rows(model, data)
+    print(f"{label}: rows of each flash-CE head on one batch: "
+          + (", ".join(f"V={v} {rows}" for v, rows in heads) or "no flash-CE head"))
     step_check(model, data, expected, _plain_versions(plain_kind))
     del model, data
     torch.cuda.empty_cache()
@@ -5657,6 +5689,7 @@ def main() -> int:
     # y @ W^T alone, which writes them
     caption_ce = next(r for r in ce_rows if r["V"] == CAPTION_VOCAB)
     caption_bound = ce_fwd_bound_ms(caption_ce["R"], 768, CAPTION_VOCAB)
+    loss_fwd, loss_bwd = loss_head_rows(ce_rows, ce_bwd_rows)
     add("flash_ce_fwd", "flash_ce_fwd.cu", "flash_ce.py:76", train_launches["ce_fwd"],
         max(r["err"] for r in ce_rows), ce_rows[0]["ms"], ce_rows[0]["plain_ms"],
         ce_fwd_bound_ms(ce_rows[0]["R"], 768, ce_rows[0]["V"]), None,
@@ -5664,12 +5697,13 @@ def main() -> int:
         caption_head={"R": caption_ce["R"], "V": CAPTION_VOCAB, "D": 768,
                       "max_abs_err": caption_ce["err"], "ms": caption_ce["ms"],
                       "plain_ms": caption_ce["plain_ms"], "bound_ms": caption_bound[0],
-                      "bound_by": caption_bound[1], "matmul_ms": caption_ce["matmul_ms"]})
+                      "bound_by": caption_bound[1], "matmul_ms": caption_ce["matmul_ms"]},
+        loss_heads=loss_fwd)
     # no single PyTorch call computes the CE backward: plain_ms is the chunked route
     add("flash_ce_bwd", "flash_ce_bwd.cu", "flash_ce.py:167", fused_launches["ce_bwd"],
         max(r["err"] for r in ce_bwd_rows), ce_bwd_rows[0]["ms"], ce_bwd_rows[0]["plain_ms"],
         ce_bwd_bound_ms(ce_bwd_rows[0]["live_rows"], ce_bwd_rows[0]["R"], 768,
-                        ce_bwd_rows[0]["V"]), None)
+                        ce_bwd_rows[0]["V"]), None, loss_heads=loss_bwd)
     # stock_rows[0]: EgoM2P-large's heads of 68, 2048^2, key padding; the
     # bound counts the true head of 68
     # library_ms: scaled_dot_product_attention on the heads zero-padded to 80

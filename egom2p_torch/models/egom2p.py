@@ -365,51 +365,58 @@ class EgoM2P(nn.Module):
         return self.decoder_norm(y)
 
     # ------------------------------------------------------------------ loss
-    def _chunked_masked_ce(self, y, mod: str, target_ids, weights, chunk: int = 2048):
-        """(sum of CE * w, sum of w) of modality `mod`'s head over the
-        decoder rows.  Heads of 4096 or more tokens take flash_ce_total (its
-        hand-written kernel on CUDA: no (rows, V) logits in device memory)
-        when flash_ce.takes_dim says the kernels take the model dim (a
-        multiple of 128: not EgoM2P-large's 1020, as in the JAX package; the
-        kernels' launchers decide by the same function); EGOM2P_FLASH_CE=0
-        turns it off.  Other heads take a plain logsumexp over chunks of
-        rows, each chunk under torch.utils.checkpoint: its (chunk, V) fp32
-        logits are recomputed in the backward, not kept (the JAX package's
-        jax.checkpoint around its scan body).  The logits product goes
-        through flash_ce.matmul_f32: its operands are bf16 values widened to
-        fp32, exact in TF32, so on the card the product and its recompute run
-        on the TF32 tensor cores with the same numbers.  EGOM2P_CE_CHUNK
-        overrides the chunk."""
+    def _head_ce(self, y, mod: str, targets, chunk: int = 2048):
+        """The fp32 sum of the CE of modality `mod`'s head over the rows of
+        y (R, D) with their targets (R,): the rows forward_loss gathered for
+        the head, each of weight 1.  Heads of 4096 or more tokens take
+        flash_ce_total (its hand-written kernel on CUDA: no (rows, V) logits
+        in device memory) when flash_ce.takes_dim says the kernels take the
+        model dim (a multiple of 128: not EgoM2P-large's 1020, as in the JAX
+        package; the kernels' launchers decide by the same function);
+        EGOM2P_FLASH_CE=0 turns it off.  Other heads take a plain logsumexp
+        over chunks of rows, each chunk under torch.utils.checkpoint: its
+        (chunk, V) fp32 logits are recomputed in the backward, not kept (the
+        JAX package's jax.checkpoint around its scan body).  The logits
+        product goes through flash_ce.matmul_f32: its operands are bf16
+        values widened to fp32, exact in TF32, so on the card the product and
+        its recompute run on the TF32 tensor cores with the same numbers.
+        EGOM2P_CE_CHUNK overrides the chunk."""
         chunk = int(os.environ.get("EGOM2P_CE_CHUNK", "0")) or chunk
         flash = os.environ.get("EGOM2P_FLASH_CE", "1") != "0"
         emb_mod = self.decoder_embeddings[mod]
-        D = y.shape[-1]
-        yf = y.reshape(-1, D)
-        w = weights.reshape(-1).float()
-        # other modalities' targets can exceed this head's vocab: zero them
-        t = torch.where(weights.reshape(-1), target_ids.reshape(-1),
-                        torch.zeros_like(target_ids.reshape(-1)))
-        if flash and emb_mod.vocab_size >= 4096 and flash_ce_takes_dim(D):
-            return flash_ce_total(yf, emb_mod.logits_weight, t, w, chunk=chunk), w.sum()
+        if not len(y):
+            # no row: no route runs, yet y and the head get the zero gradients
+            # that the CE over every row gives them (AdamW steps a parameter
+            # whose gradient is zero, and skips one whose gradient is None)
+            return (y @ emb_mod.logits_weight[:0].to(y.dtype).t()).float().sum()
+        if flash and emb_mod.vocab_size >= 4096 and flash_ce_takes_dim(y.shape[-1]):
+            ones = y.new_ones(len(y), dtype=torch.float32)
+            return flash_ce_total(y, emb_mod.logits_weight, targets, ones, chunk=chunk)
         head_t = emb_mod.head_weight(y.dtype).t()
         bf16_values = y.dtype == torch.bfloat16
 
-        def chunk_total(y_c, t_c, w_c):
+        def chunk_total(y_c, t_c):
             logits = matmul_f32(y_c, head_t, bf16_values=bf16_values)
             logz = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(1, t_c.long()[:, None])[:, 0]
-            return ((logz - gold) * w_c).sum()
+            return (logz - gold).sum()
 
-        total = yf.new_zeros((), dtype=torch.float32)
-        for r0 in range(0, yf.shape[0], chunk):
-            total = total + checkpoint(chunk_total, yf[r0:r0 + chunk], t[r0:r0 + chunk],
-                                       w[r0:r0 + chunk], use_reentrant=False)
-        return total, w.sum()
+        total = y.new_zeros((), dtype=torch.float32)
+        for r0 in range(0, len(y), chunk):
+            total = total + checkpoint(chunk_total, y[r0:r0 + chunk], targets[r0:r0 + chunk],
+                                       use_reentrant=False)
+        return total
 
     def forward_loss(self, y, target_ids, decoder_mod_mask, loss_type: str,
                      present_mods: List[str], count_reduce: Optional[Callable] = None):
         """'mod' / 'weighted_mod' / 'token' losses
         (reference: egom2p_model.py:553-680).
+
+        Each head runs over its own rows only: the decoder rows are ordered
+        by the modality they belong to (dead slots last), one host read of
+        the heads' row counts splits them, and each head's rows of y and of
+        the targets are gathered before its products.  A row of another
+        modality or a dead slot would add 0 to the loss and its gradients.
 
         `count_reduce` takes the (len(present_mods),) fp32 target counts and
         returns them summed over the global batch (the process group's
@@ -418,14 +425,26 @@ class EgoM2P(nn.Module):
         the shares sum to it over the ranks.  None: the batch is the global
         batch."""
         info = self.mod_info
-        totals: Dict[str, torch.Tensor] = {}
-        mod_count: Dict[str, torch.Tensor] = {}
-        for mod in present_mods:
-            w = decoder_mod_mask == info[mod]["id"]
-            totals[mod], mod_count[mod] = self._chunked_masked_ce(y, mod, target_ids, w)
+        n = len(present_mods)
+        D = y.shape[-1]
+        mod_ids = decoder_mod_mask.reshape(-1)
+        # (rows, heads), built on the device: no host-to-device copy (a sync)
+        hit = torch.stack([mod_ids == info[m]["id"] for m in present_mods], dim=1)
+        # each row's head, as its place in present_mods; n for a dead slot
+        head = torch.where(hit.any(dim=1), hit.int().argmax(dim=1), n)
+        counts = hit.sum(dim=0)
+        sizes = counts.tolist()  # the forward's one host sync
+        rows = torch.argsort(head, stable=True)[:sum(sizes)]
+        ys = y.reshape(-1, D).index_select(0, rows).split(sizes)
+        ts = target_ids.reshape(-1).index_select(0, rows).split(sizes)
+        if self.training:  # the rows the heads compute, of every decoder row a head
+            tracing.count("train.ce_rows", sum(sizes))
+            tracing.count("train.ce_row_slots", n * len(mod_ids))
+        totals = {m: self._head_ce(ys[i], m, ts[i]) for i, m in enumerate(present_mods)}
+        counts = counts.float()
         if count_reduce is not None:
-            reduced = count_reduce(torch.stack([mod_count[m].float() for m in present_mods]))
-            mod_count = dict(zip(present_mods, reduced.unbind(0)))
+            counts = count_reduce(counts)
+        mod_count = dict(zip(present_mods, counts.unbind(0)))
         mod_loss: Dict[str, torch.Tensor] = {}
         for mod in present_mods:
             total, count = totals[mod], mod_count[mod]

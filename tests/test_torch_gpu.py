@@ -620,6 +620,118 @@ def test_flash_ce_bwd_switch_raises_on_what_it_cannot_take(cuda, monkeypatch):
         fce.flash_ce_total(y32, w32, t, wts).backward()
 
 
+# ------------------------------------------------------------ loss rows
+def _loss_case(cuda, D):
+    """A one-block model of dim D with the four released heads, and (mods,
+    modality ids, targets, y) of B x M = 8 x 2048 bf16 decoder rows: about
+    a quarter of them for each 64k head, a few for cam and gaze, about half
+    dead, one run a modality as forward_mask_decoder lays them out."""
+    from egom2p_torch.data.modality_info import MODALITY_INFO
+    from egom2p_torch.models.egom2p import create_model
+
+    mods = ("tok_cam", "tok_depth", "tok_gaze", "tok_rgb")
+    torch.manual_seed(0)
+    model = create_model("egom2p_tiny_6e_6d_swiglu_nobias", mods, mods,
+                         modality_info={m: MODALITY_INFO[m] for m in mods}, dim=D,
+                         num_heads=D // 64 if D % 64 == 0 else D // 68,
+                         encoder_depth=1, decoder_depth=1, device=cuda)
+    info, B, M = model.mod_info, 8, 2048
+    rng = np.random.default_rng(7)
+    mod_ids = np.full((B, M), -1, np.int32)
+    targets = np.zeros((B, M), np.int32)
+    for b in range(B):
+        pos = 0
+        for m, n in zip(rng.permutation(mods), (512, 30, 512, 30)):
+            n = int(n * rng.uniform(0.8, 1.2)) if n > 30 else n
+            mod_ids[b, pos:pos + n] = info[m]["id"]
+            targets[b, pos:pos + n] = rng.integers(0, info[m]["vocab_size"], n)
+            pos += n
+    mod_ids, targets = torch.from_numpy(mod_ids).to(cuda), torch.from_numpy(targets).to(cuda)
+    y = torch.randn((B, M, D), device=cuda).to(torch.bfloat16)
+    return model, mods, mod_ids, targets, y
+
+
+@pytest.mark.parametrize("D,pallas_bwd", [(768, "0"), (768, "1"), (1020, "0")])
+def test_loss_heads_over_their_own_rows_on_the_card(cuda, monkeypatch, D, pallas_bwd):
+    """models/egom2p.py:forward_loss on _loss_case's rows: each head over
+    its gathered rows against the same head over every row with weight 0 on
+    the others' (the route as it ran on every row): flash CE at D 768
+    (chunked or kernel backward), the plain chunked CE at EgoM2P-large's
+    1020.  Loss, the gradient of y and of every head."""
+    import egom2p_torch.ops.flash_ce as fce
+    from torch.utils.checkpoint import checkpoint
+
+    monkeypatch.setenv("EGOM2P_CE_PALLAS_BWD", pallas_bwd)
+    model, mods, mod_ids, targets, y = _loss_case(cuda, D)
+    info = model.mod_info
+
+    def every_row(yr):
+        yf, t = yr.reshape(-1, D), targets.reshape(-1)
+        mod_loss = {}
+        for m in mods:
+            w = mod_ids.reshape(-1) == info[m]["id"]
+            tm = torch.where(w, t, torch.zeros_like(t))
+            emb = model.decoder_embeddings[m]
+            if emb.vocab_size >= 4096 and fce.takes_dim(D):
+                total = fce.flash_ce_total(yf, emb.logits_weight, tm, w.float())
+            else:
+                def chunk_total(y_c, head_t, t_c, w_c):
+                    logits = fce.matmul_f32(y_c, head_t, bf16_values=True)
+                    gold = logits.gather(1, t_c.long()[:, None])[:, 0]
+                    return ((torch.logsumexp(logits, dim=-1) - gold) * w_c).sum()
+
+                head_t = emb.head_weight(yf.dtype).t()
+                total = sum(checkpoint(chunk_total, yf[r:r + 2048], head_t, tm[r:r + 2048],
+                                       w.float()[r:r + 2048], use_reentrant=False)
+                            for r in range(0, len(yf), 2048))
+            mod_loss[m] = total / w.sum()
+        return sum(mod_loss.values()) / len(mods)
+
+    results = []
+    for gathered in (True, False):
+        model.zero_grad(set_to_none=True)
+        yr = y.clone().requires_grad_()
+        loss = (model.forward_loss(yr, targets, mod_ids, "mod", list(mods))[0] if gathered
+                else every_row(yr))
+        loss.backward()
+        results.append((loss, yr.grad.float(),
+                        {m: model.decoder_embeddings[m].logits_weight.grad for m in mods}))
+    torch.cuda.synchronize()
+    (loss, dy, dw), (rloss, rdy, rdw) = results
+    torch.testing.assert_close(loss, rloss, rtol=1e-5, atol=0)
+    # the gradients of the same products summed in another order, within a
+    # bf16 ulp of their max: dy is bf16, and a plain-route head's gradient
+    # comes back through the bf16 copy of its weight (the cam and gaze heads
+    # read up to 1.8e-3 of their max)
+    assert (dy - rdy).abs().max() <= 1e-2 * rdy.abs().max()
+    assert torch.count_nonzero(dy.reshape(-1, D)[mod_ids.reshape(-1) < 0]) == 0
+    for m in mods:
+        assert (dw[m] - rdw[m]).abs().max() <= 1e-2 * rdw[m].abs().max(), m
+
+
+@pytest.mark.parametrize("D", [768, 1020])
+def test_loss_reads_the_host_once_a_forward(cuda, D):
+    """forward_loss's forward, on both CE routes, waits for the card once:
+    the read of the heads' row counts that splits the gathered rows.  Any
+    other synchronising call (a copy of the heads' ids from host memory, an
+    .item()) counts under torch.cuda's sync debug mode."""
+    import warnings
+
+    model, mods, mod_ids, targets, y = _loss_case(cuda, D)
+    y.requires_grad_()
+    model.forward_loss(y, targets, mod_ids, "mod", list(mods))  # the kernels built
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model.forward_loss(y, targets, mod_ids, "mod", list(mods))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, syncs
+
+
 # The Cosmos decoder on the card against the same decoder on CPU tensors, at
 # the small topology (channels 16, mults (1, 2, 2), z_channels 8) on the
 # full 5 x 32 x 32 token grid: exact fp32 on both sides is the same math in

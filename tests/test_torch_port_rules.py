@@ -270,12 +270,11 @@ def test_ce_route_and_launchers_agree_on_every_registry_dim(monkeypatch):
     assert {768, 1020, 1024, 2046, 2048} <= set(dims)
     for D in dims:
         fake = SimpleNamespace(decoder_embeddings={"tok_rgb": TokenGridDecoderEmbedding(4096, (2,), D)})
-        y = torch.zeros((1, 3, D))
-        target = torch.zeros((1, 3), dtype=torch.long)
-        weights = torch.ones((1, 3), dtype=torch.bool)
+        y = torch.zeros((3, D))
+        target = torch.zeros((3,), dtype=torch.long)
         routed.clear()
         with torch.no_grad():
-            tm.EgoM2P._chunked_masked_ce(fake, y, "tok_rgb", target, weights)
+            tm.EgoM2P._head_ce(fake, y, "tok_rgb", target)
         jax_takes = D % 128 == 0  # egom2p_tpu/models/egom2p.py:390-391
         assert (routed == [D]) == jax_takes, D
         if jax_takes:

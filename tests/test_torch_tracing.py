@@ -26,7 +26,7 @@ TRAIN_UNIT = ["egom2p.data.fetch", "egom2p.data.to_device", "egom2p.train.step",
 REGISTRY_READERS = ["roar_encoder_ms.serve", "roar_decoder_ms.serve", "roar_head_ms.serve",
                     "fwd_ms.train", "bwd_ms.train", "optim_ms.train", "live_share.train",
                     "live_in_max_share.train", "live_tgt_max_share.train",
-                    "device_allocs.train"]
+                    "device_allocs.train", "ce_row_share.train"]
 TRACE_READERS = ["fetch_ms.train", "to_device_ms.train"]
 
 
@@ -192,7 +192,10 @@ def test_training_opens_fetch_copy_step_forward_backward_optimizer_each_step(
         "train.live_targets": sum(int(x.sum()) for x in live_tgt),
         "train.live_inputs_max": sum(int(x.max()) for x in live_in),
         "train.live_targets_max": sum(int(x.max()) for x in live_tgt),
-        "train.input_slots": 2 * 2 * 32, "train.target_slots": 2 * 2 * 32}
+        "train.input_slots": 2 * 2 * 32, "train.target_slots": 2 * 2 * 32,
+        # each of the 4 heads over its own rows: the live targets
+        "train.ce_rows": sum(int(x.sum()) for x in live_tgt),
+        "train.ce_row_slots": 2 * 4 * 2 * 32}
     out = capsys.readouterr().out
     assert "profile trace ->" in out and re.search(r"egom2p\.train\.backward\s+2\s", out)
 
@@ -233,7 +236,8 @@ def test_reader_returns_nothing_on_an_empty_registry_or_without_a_trace(name):
             pass
         for k in ("train.batches", "train.rows", "train.live_inputs", "train.live_targets",
                   "train.live_inputs_max", "train.live_targets_max", "train.input_slots",
-                  "train.target_slots", "device.allocs"):
+                  "train.target_slots", "device.allocs", "train.ce_rows",
+                  "train.ce_row_slots"):
             tracing.count(k, 2)
     assert read_metric(name, _layer(None)) is None
 
@@ -245,7 +249,8 @@ def test_readers_divide_the_registry_by_the_units(monkeypatch):
     counters = {"train.batches": 2, "train.rows": 16, "train.live_inputs": 8000,
                 "train.live_targets": 8384, "train.live_inputs_max": 2048,
                 "train.live_targets_max": 1024, "train.input_slots": 16 * 1024,
-                "train.target_slots": 16 * 1024, "device.allocs": 6}
+                "train.target_slots": 16 * 1024, "device.allocs": 6,
+                "train.ce_rows": 8384, "train.ce_row_slots": 4 * 16 * 1024}
     monkeypatch.setattr(tracing, "snapshot", lambda: {"units": 2, "counters": counters})
     host = [("egom2p.roar.encoder", 0.0, 100.0), _launch(10.0), _launch(20.0),
             ("egom2p.train.optimizer", 200.0, 300.0), _launch(250.0),
@@ -259,6 +264,7 @@ def test_readers_divide_the_registry_by_the_units(monkeypatch):
     assert read_metric("live_in_max_share.train", layer) == pytest.approx(100.0)
     assert read_metric("live_tgt_max_share.train", layer) == pytest.approx(50.0)
     assert read_metric("device_allocs.train", layer) == 3.0
+    assert read_metric("ce_row_share.train", layer) == pytest.approx(12.79296875)
     assert read_metric("fetch_ms.train", layer) == 2.0
     assert read_metric("to_device_ms.train", layer) is None
 

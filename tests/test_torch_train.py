@@ -639,8 +639,10 @@ def test_plain_ce_rematerialises_its_logits(heads68_models, monkeypatch):
     """The plain CE (the heads of a model whose dim is no multiple of 128)
     keeps no (chunk, V) fp32 logits for the backward: each chunk runs under
     torch.utils.checkpoint and recomputes them, as the JAX package's
-    jax.checkpoint around its scan body.  Loss and gradients are those of
-    the same CE with the logits kept (the fp32 sums in another order)."""
+    jax.checkpoint around its scan body.  Loss and gradients, over the live
+    rows gathered as forward_loss gathers them, are those of the same CE
+    over every row with the logits kept and weight 0 on the dead rows (the
+    fp32 sums in another order)."""
     _, _, tmodel = heads68_models
     emb = tmodel.decoder_embeddings["tok_rgb"]
     V, D, chunk = emb.vocab_size, 204, 64
@@ -649,13 +651,14 @@ def test_plain_ce_rematerialises_its_logits(heads68_models, monkeypatch):
     y = torch.from_numpy(rng.standard_normal((2, 96, D)).astype(np.float32)).requires_grad_()
     ids = torch.from_numpy(rng.integers(0, V, (2, 96)).astype(np.int32))
     weights = torch.from_numpy(rng.uniform(size=(2, 96)) < 0.6)
+    live = weights.reshape(-1).nonzero()[:, 0]
 
     saved = []
     tmodel.zero_grad(set_to_none=True)
     with torch.autograd.graph.saved_tensors_hooks(
             lambda t: saved.append((tuple(t.shape), t.dtype)) or t, lambda t: t):
-        total, count = tmodel._chunked_masked_ce(y, "tok_rgb", ids, weights)
-    assert V == 64000 and count.item() == weights.sum().item()
+        total = tmodel._head_ce(y.reshape(-1, D)[live], "tok_rgb", ids.reshape(-1)[live])
+    assert V == 64000 and len(live) > chunk  # more than one chunk
     kept = [s for s, dt in saved if len(s) == 2 and s[1] == V and s[0] != D]
     assert not kept, f"logits-sized tensors saved for the backward: {kept}"
     total.backward()
