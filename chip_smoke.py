@@ -130,13 +130,18 @@
    live (dead rows exactly +inf / 0), at a vocab its tile does not divide,
    at D = 1024 and 2048, and split at R = 2048 and 512 (two runs bitwise
    equal).  Prints errors, S, kernel / plain times and the bound over the
-   live rows, beside cuBLAS's y @ W^T alone.
+   live rows, beside cuBLAS's y @ W^T alone.  Then the LayerNorm kernels
+   (forward, backward) at base's and large's norms, bf16 (8, 2048, 768)
+   and (4, 2048, 1020), against the formula the port ran before, within
+   one bf16 ulp; device ms beside the plain formula's and the byte bound.
 5. Training slice, at full width: the port's trainer
    (egom2p_torch.cli.run_training.main) with cfgs/egom2p/main_mod4.yaml's
    settings as arguments (EgoM2P-base, 4 modalities in and out, 2048 + 2048
    tokens, batch 8, AdamW (0.9, 0.95), wd 0.05, clip 1.0) on synthetic
    data, constant LR, 6 steps: one warm-up, five timed.  Checks 36 forward,
-   36 dq, 36 dk/dv and 2 flash-CE launches per step, finite losses and
+   36 dq, 36 dk/dv and 2 flash-CE launches per step, 74 LayerNorm forward
+   and 74 backward launches (2 norms an encoder block, 4 a decoder block,
+   the 2 final norms; NORM_STEP), finite losses and
    gradient norms, first-step losses near ln V and that every parameter
    moved; prints step time, tokens/s, peak memory and model FLOP/s.  Then a
    profiler trace of one step (device time by kernel class, idle share), each
@@ -163,8 +168,8 @@
    after epoch 0, every trunk tensor moved after epoch 1.
 5c. Activation checkpointing: EgoM2P-base at B = 8 with
    --use_act_checkpoint true through the trainer (72 forward, 36 dq, 36
-   dk/dv, 2 CE launches a step: the forward kernel runs again in each
-   block's backward); on one batch and one set of weights, the loss and
+   dk/dv, 2 CE launches a step, 146 / 74 LayerNorm launches: the forward
+   kernels run again in each block's backward); on one batch and one set of weights, the loss and
    every gradient with remat none, full and dots bitwise equal, with their
    times, peak memory and launches, and the forward kernel run twice on
    the same inputs bitwise; then EgoM2P-large at B = 8 with remat full
@@ -273,7 +278,8 @@
    the dense path); then one bf16 forward of a random DINOv2-B14 (12
    flash64_train forward launches at 257 tokens) and of a random
    ImageBind-H14 (32 stock-route forward launches, 16 heads of 80) at B =
-   8, kernels against plain versions, and each attention kernel at that
+   8, each cast whole to bf16 (its norms' weights too: one LayerNorm
+   forward launch a norm, 25 and 65), kernels against plain versions, and each attention kernel at that
    shape beside its plain version, bound and scaled_dot_product_attention.
 5j. The gradient quantizers through the CLI: the rgb video VQ-VAE at 5h's
    settings with --quantizer_type taming, B = 8, 3 steps, no eval: step ms,
@@ -338,7 +344,7 @@
    1020, 15 heads of 68, 2048 + 2048 tokens, batch 4): every
    attention on the stock route (72 forward and 72 backward launches per
    step, no flash64_train and no flash-CE launch: flash CE needs the model
-   dim to be a multiple of 128), finite losses near ln V, every parameter
+   dim to be a multiple of 128; 146 / 146 LayerNorm launches), finite losses near ln V, every parameter
    moved; step time, tokens/s, peak memory, a profiled step and a one-batch
    kernels-vs-plain check.
 12. Prints its seconds in all, the kernel JSON line (per kernel: launches
@@ -408,6 +414,22 @@ LARGE_B = 4
 DEFAULT_STEP = dict(fwd=36, dq=36, dkv=36, dqkv=0, ce_fwd=2, ce_bwd=0, stock_fwd=0, stock_bwd=0)
 FUSED_STEP = dict(DEFAULT_STEP, dq=0, dkv=0, dqkv=36, ce_bwd=2)
 LARGE_STEP = dict(fwd=0, dq=0, dkv=0, dqkv=0, ce_fwd=0, ce_bwd=0, stock_fwd=72, stock_bwd=72)
+
+
+def norm_step(depth: int, remat: bool = False):
+    """LayerNorm launches a training step of a depth + depth EgoM2P
+    (_norm_counts): 2 norms an encoder block, 4 a decoder block, the 2
+    final norms; remat runs every block's norms again in the backward."""
+    blocks = 6 * depth
+    return {"ln_fwd": blocks + 2 + (blocks if remat else 0), "ln_bwd": blocks + 2}
+
+
+# the LayerNorm kernels at base's and large's norms (bf16 x, fp32 weight and
+# bias) against the formula the port ran before, with the tolerances of
+# tests/test_torch_gpu.py: one bf16 ulp (2^-7) of |y| where the variance's
+# summation order moves a rounding, plus fp32 rounding of the largest value
+LN_CASES = ((8, 2048, 768), (4, 2048, 1020))
+LN_BF16_ULP, LN_F32_RTOL = 2.0 ** -7, 1e-5
 HBM_GB_PER_S = 3350.0          # H100 SXM device memory, NVIDIA's data sheet
 SM_COUNT, EXP2_PER_SM_CLOCK = 132, 16   # H100 SXM; special-function results per SM per clock
 SM_CLOCK_MHZ = 1980.0          # H100 SXM boost clock; main() takes the card's clocks.max.sm
@@ -455,6 +477,12 @@ def bound_ms(flops: float, nbytes: float):
     ops_ms = flops / BF16_PEAK_TFLOPS / 1e9
     bytes_ms = nbytes / HBM_GB_PER_S / 1e6
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def layer_norm_bound_ms(rows: int, dim: int, backward: bool = False):
+    """The LayerNorm kernels' bound: bf16 x and y (backward: dy, x and dx)
+    once each, and the fp32 row statistics, at the device memory rate."""
+    return bound_ms(0, (6 if backward else 4) * rows * dim + 8 * rows)
 
 
 def attention_bound_ms(products: int, b: int, heads: int, n: int, m: int, hd: int,
@@ -1334,7 +1362,106 @@ def _train_case(rng, dev, name, n, mode, C=HEADS * 64):
     return name, qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], do, kvb, seg
 
 
+def _plain_layer_norm(x, weight, bias, eps):
+    """The formula the port ran before (egom2p_utils.py:118-133): fp32
+    mean, two-pass variance, rsqrt and affine, one rounding to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def _ln_off(got, want, rtol) -> float:
+    """The largest |got - want| over its tolerance rtol |want| + LN_F32_RTOL
+    max |want| (tests/test_torch_gpu.py): above 1 fails."""
+    got, want = got.double(), want.double()
+    scale = want.abs().max().item()
+    return ((got - want).abs() / (rtol * want.abs() + LN_F32_RTOL * scale)).max().item()
+
+
+def _device_ms(fn, reps: int, kernels) -> float:
+    """Device time a call of the kernels whose names hold one of `kernels`
+    (a call launches one of kernels[0]), from the profiler: CUDA events
+    would read the wrapper's host time at these sizes.  The profiler may
+    miss the first launches of its window, so the time is averaged over the
+    calls it recorded.  CUDA events' time, said so, where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(k in e.name for k in kernels)]
+    calls = sum(kernels[0] in e.name for e in hits)
+    if calls:
+        us = sum(e.time_range.end - e.time_range.start for e in hits)
+        return us / 1e3 / calls
+    print(f"the profiler recorded none of {kernels}: CUDA events' time, the wrapper's host "
+          f"time included")
+    return _cuda_time_ms(fn, reps)
+
+
+def layer_norm_check(dev):
+    """The LayerNorm kernels (ops/layer_norm.py) at LN_CASES, bias on,
+    against _plain_layer_norm's output and gradients; their device ms
+    beside the plain formula's (CUDA events: forward; forward and backward)
+    and the byte bound.  Returns one row a case."""
+    import egom2p_torch.ops.layer_norm as lnk
+
+    rows = []
+    for shape in LN_CASES:
+        D = shape[-1]
+        g = torch.Generator(device=dev).manual_seed(D)
+        x = (torch.randn(shape, generator=g, device=dev) * 2
+             + torch.randn(shape[:-1] + (1,), generator=g, device=dev)).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        w = 1 + 0.2 * torch.randn(D, generator=g, device=dev)
+        b = 0.2 * torch.randn(D, generator=g, device=dev)
+        eps = 1e-6
+        y, mean, rstd = lnk.layer_norm_fwd(x, w, b, eps)
+        dx, dw, db = lnk.layer_norm_bwd(dy, x, w, b, mean, rstd)
+        xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+        yr = _plain_layer_norm(xr, wr, br, eps)
+        yr.backward(dy)
+        off = {"y": _ln_off(y, yr, LN_BF16_ULP), "dx": _ln_off(dx, xr.grad, LN_BF16_ULP),
+               "dw": _ln_off(dw, wr.grad, LN_F32_RTOL), "db": _ln_off(db, br.grad, LN_F32_RTOL)}
+        err = max((y.float() - yr.float()).abs().max().item(),
+                  (dx.float() - xr.grad.float()).abs().max().item())
+        ms = {"fwd": _device_ms(lambda: lnk.layer_norm_fwd(x, w, b, eps), 20,
+                                ("ln_fwd_kernel",)),
+              "bwd": _device_ms(lambda: lnk.layer_norm_bwd(dy, x, w, b, mean, rstd), 20,
+                                ("ln_bwd_kernel", "ln_params_kernel"))}
+
+        def plain_step():
+            xr.grad = wr.grad = br.grad = None
+            _plain_layer_norm(xr, wr, br, eps).backward(dy)
+
+        plain = {"fwd": _cuda_time_ms(lambda: _plain_layer_norm(x, w, b, eps), 5, 1),
+                 "fwd_bwd": _cuda_time_ms(plain_step, 5, 1)}
+        bound = {"fwd": layer_norm_bound_ms(x.numel() // D, D),
+                 "bwd": layer_norm_bound_ms(x.numel() // D, D, backward=True)}
+        print(f"LayerNorm {tuple(shape)} bf16: max_abs_err {err:.2e}, largest error over its "
+              f"tolerance " + " ".join(f"{k} {v:.2f}" for k, v in off.items())
+              + f"; kernel ms fwd {ms['fwd']:.4f} bwd {ms['bwd']:.4f} (bound {bound['fwd'][0]:.4f}"
+              f", {bound['bwd'][0]:.4f}); plain formula ms fwd {plain['fwd']:.4f} fwd + bwd "
+              f"{plain['fwd_bwd']:.4f}")
+        if max(off.values()) > 1:
+            raise AssertionError(f"LayerNorm {shape}: the kernels disagree with the plain "
+                                 f"formula {off}")
+        rows.append({"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": {k: v[0] for k, v in bound.items()}})
+        del x, dy, y, dx, xr, yr
+    return rows
+
+
 def train_kernel_phase(dev):
+    """Returns (the flash64_train rows, layer_norm_check's rows)."""
     import egom2p_torch.ops.flash64_train as ft
 
     rng = np.random.default_rng(1)
@@ -1385,7 +1512,7 @@ def train_kernel_phase(dev):
             rows.append({"case": name, "mode": mode, "err": err, "ms": ms, "plain_ms": plain,
                          "library_ms": {"fwd": lib_fwd, "bwd": lib_bwd}})
         del q, k, v, do
-    return rows
+    return rows, layer_norm_check(dev)
 
 
 def _step_live_rows(R, dev, gen):
@@ -1809,6 +1936,14 @@ def _counts():
     return {k: f.launches for k, f in _wrappers().items()}
 
 
+def _norm_counts():
+    """The LayerNorm wrappers' CUDA launches, which every model of the port
+    makes: kept out of _wrappers, whose counts hold the attention and CE
+    kernels (and show the dense path where they read 0)."""
+    import egom2p_torch.ops.layer_norm as lnk
+    return {"ln_fwd": lnk.layer_norm_fwd.launches, "ln_bwd": lnk.layer_norm_bwd.launches}
+
+
 def _reset_counts():
     for f in _wrappers().values():
         f.launches = 0
@@ -1827,7 +1962,10 @@ def _kernel_class(name: str) -> str:
         return "flash64_train dq/dk/dv (fused)" if ", true>" in name else "flash64_train dk/dv"
     for key, cls in (("flash64_dq_kernel", "flash64_train dq"),
                      ("flash_ce_fwd_kernel", "flash-CE fwd"),
-                     ("flash_ce_bwd_kernel", "flash-CE bwd")):
+                     ("flash_ce_bwd_kernel", "flash-CE bwd"),
+                     ("ln_fwd_kernel", "LayerNorm fwd"),
+                     ("ln_bwd_kernel", "LayerNorm bwd"),
+                     ("ln_params_kernel", "LayerNorm bwd")):
         if key in name:
             return cls
     low = name.lower()
@@ -2011,12 +2149,14 @@ def _head_rows(model, batch, n_tokens=2048):
     return heads
 
 
-def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_kind,
+def train_run(dev, label, model_name, batch, expected, norms, flops_per_sample, plain_kind,
               steps=TRAIN_STEPS, extra=()):
     """`steps` steps of the port's trainer at cfgs/egom2p/main_mod4.yaml's
-    settings (and the arguments `extra`), checked; then, where `plain_kind`
-    is given, a profiled step and the one-batch step check.  Returns
-    (launch totals, median step ms, peak GiB, the first step's metrics)."""
+    settings (and the arguments `extra`), checked: `expected` attention and
+    CE launches and `norms` LayerNorm launches a step; then, where
+    `plain_kind` is given, a profiled step and the one-batch step check.
+    Returns (launch totals, median step ms, peak GiB, the first step's
+    metrics)."""
     from egom2p_torch.cli import run_training
     from egom2p_torch.data.loader import batch_to_device
     from egom2p_torch.models.egom2p import create_model
@@ -2030,15 +2170,17 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
             "--lr_schedule", "constant", "--epochs", "1", "--eval_freq", "0",
             "--epoch_size", str(batch * steps),
             "--seed", "0", "--output_dir", out_dir, "--print_freq", "1", *extra])
-        per_step = []
+        per_step, norm_steps = [], []
         torch.cuda.reset_peak_memory_stats(dev)
         _reset_counts()
-        last = _counts()
+        last, last_norms = _counts(), _norm_counts()
 
         def on_step(step, metrics, seconds):
-            now = _counts()
+            now, now_norms = _counts(), _norm_counts()
             per_step.append(({k: now[k] - last[k] for k in now}, metrics, seconds))
+            norm_steps.append({k: now_norms[k] - last_norms[k] for k in now_norms})
             last.update(now)
+            last_norms.update(now_norms)
 
         out = run_training.main(args, on_step=on_step)
         totals = _counts()
@@ -2050,6 +2192,9 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
     for step, (launches, metrics, _) in enumerate(per_step):
         if launches != expected:
             raise AssertionError(f"{label} step {step} launched {launches}, expected {expected}")
+        if norm_steps[step] != norms:
+            raise AssertionError(f"{label} step {step} launched {norm_steps[step]} LayerNorm "
+                                 f"kernels, expected {norms}")
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"{label} step {step}: non-finite metrics {metrics}")
     _check_first_losses(label, per_step)
@@ -2072,7 +2217,7 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
           f"peak memory {peak_gib:.2f} GiB, model {tflop:.2f} TFLOP/step = "
           f"{tflop / step_ms * 1e3:.1f} TFLOP/s, {tflop / step_ms * 1e3 / BF16_PEAK_TFLOPS:.1%} "
           f"of the card's dense bf16 peak ({BF16_PEAK_TFLOPS:.0f} TFLOP/s); "
-          f"launches per step {expected}")
+          f"launches per step {expected}, {norms}")
     if plain_kind is None:
         del out, model
         torch.cuda.empty_cache()
@@ -2096,7 +2241,7 @@ def train_run(dev, label, model_name, batch, expected, flops_per_sample, plain_k
 def train_slice_phase(dev):
     """Phase 5: (launch totals, median step ms, the first step's metrics)."""
     totals, step_ms, _, first = train_run(dev, "EgoM2P-base", BASE_MODEL, B, DEFAULT_STEP,
-                                          train_flops_per_sample(), "default")
+                                          norm_step(12), train_flops_per_sample(), "default")
     return totals, step_ms, first
 
 
@@ -2105,7 +2250,8 @@ def fused_train_phase(dev, default_ms):
     for this phase only."""
     with _env(EGOM2P_F64T_FUSED_BWD="1", EGOM2P_CE_PALLAS_BWD="1"):
         totals, step_ms, _, _ = train_run(dev, "EgoM2P-base, fused backwards", BASE_MODEL, B,
-                                       FUSED_STEP, train_flops_per_sample(), "fused")
+                                       FUSED_STEP, norm_step(12), train_flops_per_sample(),
+                                       "fused")
     print(f"fused backwards: step {step_ms:.1f} ms vs {default_ms:.1f} ms with the split "
           f"attention backward and the plain CE backward ({step_ms / default_ms - 1:+.1%})")
     return totals, step_ms
@@ -2156,7 +2302,7 @@ def wide_ce_step_phase(dev):
 def large_train_phase(dev):
     """EgoM2P-large at full width and depth: every attention on the stock
     route's kernels at head_dim 80 (heads of 68 zero-padded)."""
-    return train_run(dev, "EgoM2P-large", LARGE_MODEL, LARGE_B, LARGE_STEP,
+    return train_run(dev, "EgoM2P-large", LARGE_MODEL, LARGE_B, LARGE_STEP, norm_step(24),
                      train_flops_per_sample(n_layers=24, dim=1020, h=int(2 * 4 * 1020 / 3)),
                      "large")[:2]
 
@@ -2521,12 +2667,14 @@ def remat_phase(dev):
     totals of the base remat run and of EgoM2P-large's."""
     t_phase = time.perf_counter()
     base_totals, full_ms, full_gib, _ = train_run(
-        dev, "EgoM2P-base, remat full", BASE_MODEL, B, REMAT_STEP, train_flops_per_sample(),
-        None, steps=REMAT_TRAIN_STEPS, extra=("--use_act_checkpoint", "true"))
+        dev, "EgoM2P-base, remat full", BASE_MODEL, B, REMAT_STEP, norm_step(12, remat=True),
+        train_flops_per_sample(), None, steps=REMAT_TRAIN_STEPS,
+        extra=("--use_act_checkpoint", "true"))
     remat_check(dev)
     large_totals, _, large_gib, _ = train_run(
         dev, f"EgoM2P-large, B = {LARGE_REMAT_B}, remat full", LARGE_MODEL, LARGE_REMAT_B,
-        LARGE_REMAT_STEP, train_flops_per_sample(n_layers=24, dim=1020, h=int(2 * 4 * 1020 / 3)),
+        LARGE_REMAT_STEP, norm_step(24, remat=True),
+        train_flops_per_sample(n_layers=24, dim=1020, h=int(2 * 4 * 1020 / 3)),
         None, steps=LARGE_REMAT_STEPS, extra=("--use_act_checkpoint", "true"))
     if large_gib >= 80:
         raise AssertionError(f"EgoM2P-large at B = {LARGE_REMAT_B}: {large_gib:.2f} GiB")
@@ -4749,22 +4897,28 @@ def teacher_check(dev, domain, wrapper, expected):
         for blk in teacher.blocks:
             blk.ls1.data.fill_(1.0)
             blk.ls2.data.fill_(1.0)
-    teacher = teacher.to(torch.bfloat16)
+    teacher = teacher.to(torch.bfloat16)   # its norms' weights too, as build_teacher casts
     gen = torch.Generator(device=dev).manual_seed(21)
     x = torch.rand((TEACHER_B, 224, 224, 3), generator=gen, device=dev) * 2 - 1
+    norms = 2 * spec.depth + spec.ln_pre + spec.ln_post
     with torch.no_grad():
-        before = _counts()
+        before, norms_before = _counts(), _norm_counts()["ln_fwd"]
         feats_k = teacher(x).float()
         launches = _counts()[wrapper] - before[wrapper]
+        norm_launches = _norm_counts()["ln_fwd"] - norms_before
         with _swapped(_plain_versions("default") + _plain_versions("large")):
             feats_p = teacher(x).float()
     rel = _rel_l2(feats_k, feats_p)
     n_params = sum(p.numel() for p in teacher.parameters()) / 1e6
     print(f"{domain} teacher (bf16, random weights, {n_params:.1f}M params), B={TEACHER_B}: "
           f"features {tuple(feats_k.shape)}, kernels vs plain relative L2 {rel:.2e} (tolerance "
-          f"{TEACHER_REL_L2:g}), {launches} {wrapper} launches")
+          f"{TEACHER_REL_L2:g}), {launches} {wrapper} launches, {norm_launches} LayerNorm "
+          f"forward launches ({norms} norms)")
     if launches != expected or not torch.isfinite(feats_k).all() or rel > TEACHER_REL_L2:
         raise AssertionError(f"{domain} teacher: {launches} launches, rel L2 {rel}")
+    if norm_launches != norms:
+        raise AssertionError(f"{domain} teacher: {norm_launches} LayerNorm launches, "
+                             f"{norms} norms")
     del teacher
     return spec, launches
 
@@ -5594,7 +5748,7 @@ def main() -> int:
         hub = phase(hub_phase, dev, served, ckpt_dir)
     served.clear()  # the training phases need the card's memory
     torch.cuda.empty_cache()
-    train_rows = phase(train_kernel_phase, dev)
+    train_rows, norm_rows = phase(train_kernel_phase, dev)
     ce_rows = phase(ce_phase, dev)
     train_launches, default_ms, first_metrics = phase(train_slice_phase, dev)
     lora = phase(lora_phase, dev, default_ms)
@@ -5624,8 +5778,10 @@ def main() -> int:
     kernels = []
 
     def add(name, source, replaces, n, err, ms, plain_ms, bound, library_ms, **more):
+        if not replaces.startswith("egom2p_tpu/"):
+            replaces = f"egom2p_tpu/ops/{replaces}"
         kernels.append({"name": name, "route": "cuda", "source": f"egom2p_torch/csrc/{source}",
-                        "replaces": f"egom2p_tpu/ops/{replaces}", "launches": n,
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
                         **more})
@@ -5722,6 +5878,17 @@ def main() -> int:
         attention_bound_ms(5, B, LARGE_HEADS, 2048, 2048, LARGE_HD, 4, 4), lib["bwd"],
         library_math_ms=lib["math_bwd"], instance="head_dim 80",
         large_b8_remat_launches=large_remat_launches["stock_bwd"])
+    # norm_rows[0] / [1]: base's / large's norm, bf16; launches a step (base,
+    # large) as train_run checked them; plain_ms is the formula the port ran
+    # before, its forward alone and its forward and backward
+    for part in ("fwd", "bwd"):
+        add(f"layer_norm_{part}", "layer_norm.cu", "egom2p_tpu/models/transformer.py:23",
+            {"base": norm_step(12)[f"ln_{part}"], "large": norm_step(24)[f"ln_{part}"]},
+            max(r["max_abs_err"] for r in norm_rows), norm_rows[0]["ms"][part],
+            norm_rows[0]["plain_ms"]["fwd" if part == "fwd" else "fwd_bwd"],
+            (norm_rows[0]["bound_ms"][part], "bytes"), None,
+            large_norm={"shape": norm_rows[1]["shape"], "ms": norm_rows[1]["ms"][part],
+                        "bound_ms": norm_rows[1]["bound_ms"][part]})
     print(f"chip_smoke: {time.perf_counter() - _STARTED:.1f} s from its imports to its result")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -24,6 +24,7 @@ from torch import nn
 from egom2p_torch.ops.attention import (SegmentMask, generation_trace_active,
                                         inference_attention_active, key_padding_mask,
                                         masked_attention)
+from egom2p_torch.ops.layer_norm import layer_norm
 
 
 def gelu(x):
@@ -43,8 +44,9 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with optional bias, computed in fp32
-    (reference: egom2p_utils.py:118-133)."""
+    """LayerNorm with optional bias, computed in fp32 and rounded once to
+    the input's dtype; autograd keeps only the input and the fp32 row
+    statistics (ops/layer_norm.py; reference: egom2p_utils.py:118-133)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, bias: bool = True):
         super().__init__()
@@ -53,13 +55,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim)) if bias else None
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mean).square().mean(dim=-1, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Mlp(nn.Module):

@@ -53,6 +53,12 @@ SIGNATURES = {
     # w row stride, stream
     "egom2p_flash_ce_bwd": ([_c_void_p] * 8 + [_c_int] * 4 + [_c_ll] * 2
                             + [_c_void_p], _c_int),
+    # x, w, b, y, mean, rstd, rows, dim, eps, dtype, vec, stream
+    "egom2p_layer_norm_fwd": ([_c_void_p] * 6 + [_c_int] * 2 + [_c_float] + [_c_int] * 2
+                              + [_c_void_p], _c_int),
+    # dy, x, w, mean, rstd, dx, partial, dw, db, rows, dim, blocks, warps, dtype, vec,
+    # stream
+    "egom2p_layer_norm_bwd": ([_c_void_p] * 9 + [_c_int] * 6 + [_c_void_p], _c_int),
 }
 
 

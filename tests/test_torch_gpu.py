@@ -843,3 +843,199 @@ def test_seq_entry_points_on_the_card(cuda, tmp_path, monkeypatch, task, shape, 
     assert flash64_attention.launches == 2 * layers_x_steps
     out = np.load(next(iter(rec["outputs"].values())))
     assert out.shape == shape and np.isfinite(out).all()
+
+
+# LayerNorm (csrc/layer_norm.cu) against the formula the port ran before,
+# written out in fp32 on the card; the tolerances of test_torch_layer_norm.py
+# (this file runs alone on the card, so it keeps its own copies): one bf16
+# ulp (2^-7 of |y|) where the variance's summation order moves a rounding,
+# fp32 rounding (1e-5 of the largest value) otherwise
+LN_BF16_ULP = 2.0 ** -7
+LN_F32_RTOL = 1e-5
+# one forward plus backward: the forward kernel, the backward kernel and the
+# weight / bias reduction
+LN_LAUNCHES = 3
+# a bf16 teacher's features, the kernels against the plain formula: one-ulp
+# differences of the norms carried through bf16 blocks
+LN_TEACHER_REL_L2 = 1e-2
+
+
+def _plain_layer_norm(x, weight, bias, eps):
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def _ln_within(got, want, rtol, what):
+    got, want = got.double(), want.double()
+    scale = want.abs().max().item()
+    bad = (got - want).abs() > rtol * want.abs() + LN_F32_RTOL * scale
+    assert not bad.any(), (f"{what}: {int(bad.sum())} of {bad.numel()} off, largest "
+                           f"{(got - want).abs().max().item():.3g} (scale {scale:.3g})")
+
+
+def _ln_case(cuda, shape, dtype, bias, seed=0):
+    from egom2p_torch.models.transformer import LayerNorm
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    D = shape[-1]
+    x = (torch.randn(shape, generator=g) * 2 + torch.randn(shape[:-1] + (1,), generator=g))
+    dy = torch.randn(shape, generator=g)
+    ln = LayerNorm(D, bias=bias).to(cuda)
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.2 * torch.randn(D, generator=g))
+        if bias:
+            ln.bias.copy_(0.2 * torch.randn(D, generator=g))
+    return x.to(cuda, dtype), dy.to(cuda, dtype), ln
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("shape,view", [
+    ((4, 2048, 1020), None),      # EgoM2P-large's norms
+    ((8, 512, 768), None),        # base's
+    ((2, 300, 12, 64), "qk"),     # the qk-norm on a slice of a fused qkv projection
+    ((3, 37, 1022), None),        # a width no 4-element load divides: scalar loads
+    ((2, 5, 1280), "offset"),     # rows that start off a 16-byte boundary
+])
+def test_layer_norm_kernels_match_the_plain_formula(cuda, dtype, bias, shape, view):
+    from egom2p_torch.ops import layer_norm as lnk
+
+    x, dy, ln = _ln_case(cuda, shape, dtype, bias)
+    if view == "qk":   # q of a (B, N, 3C) projection, heads split
+        C = shape[-2] * shape[-1]
+        qkv = torch.cat([x.flatten(-2), x.flatten(-2), x.flatten(-2)], dim=-1)
+        x = qkv[..., :C].unflatten(-1, shape[-2:])
+    elif view == "offset":
+        x = torch.cat([x.flatten()[:1], x.flatten()])[1:].view(shape)
+    before = (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches)
+    xa = x.detach().clone() if view is None else x.detach()
+    xa.requires_grad_()
+    y = ln(xa)
+    y.backward(dy)
+    xr = x.detach().clone().requires_grad_()
+    w = ln.weight.detach().clone().requires_grad_()
+    b = None if not bias else ln.bias.detach().clone().requires_grad_()
+    yr = _plain_layer_norm(xr, w, b, ln.eps)
+    yr.backward(dy)
+    torch.cuda.synchronize()
+    assert (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert y.dtype == dtype and xa.grad.dtype == dtype
+    rtol = LN_BF16_ULP if dtype == torch.bfloat16 else LN_F32_RTOL
+    _ln_within(y, yr, rtol, "y")
+    _ln_within(xa.grad, xr.grad, rtol, "dx")
+    _ln_within(ln.weight.grad, w.grad, LN_F32_RTOL, "dweight")
+    if bias:
+        _ln_within(ln.bias.grad, b.grad, LN_F32_RTOL, "dbias")
+
+
+def test_layer_norm_kernels_are_deterministic(cuda):
+    """Every sum runs in a fixed order: two runs agree bit for bit."""
+    x, dy, ln = _ln_case(cuda, (4, 2048, 1020), torch.bfloat16, True)
+    out = []
+    for _ in range(2):
+        ln.zero_grad(set_to_none=True)
+        xa = x.clone().requires_grad_()
+        y = ln(xa)
+        y.backward(dy)
+        out.append((y, xa.grad, ln.weight.grad, ln.bias.grad))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_layer_norm_launches_one_kernel_forward_and_two_backward(cuda):
+    """A bf16 norm at EgoM2P-large's shape, forward plus backward, launches
+    LN_LAUNCHES kernels on the card, counted by the profiler: no cast, no
+    elementwise pass, no separate reduction of the statistics."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, dy, ln = _ln_case(cuda, (4, 2048, 1020), torch.bfloat16, False)
+    xa = x.clone().requires_grad_()
+    ln(xa).backward(dy)  # the library built, the parameters' .grad allocated
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ln(xa).backward(dy)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the second backward adds into .grad: one more elementwise launch, the
+    # accumulation autograd does for any parameter
+    assert len([k for k in kernels if "ln_" in k]) == LN_LAUNCHES, kernels
+    assert len(kernels) <= LN_LAUNCHES + 2, kernels
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_layer_norm_kernels_take_bf16_parameters(cuda, bias):
+    """A module cast whole to bf16 (the teachers at --teacher_dtype bf16):
+    the kernels get the parameters in fp32 and autograd returns their
+    gradients in bf16; within the tolerances above, the parameters' each
+    rounded once to bf16 (one ulp)."""
+    from egom2p_torch.ops import layer_norm as lnk
+
+    x, dy, ln = _ln_case(cuda, (4, 2048, 1020), torch.bfloat16, bias)
+    ln = ln.to(torch.bfloat16)
+    before = (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches)
+    xa, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+    y = ln(xa)
+    y.backward(dy)
+    w = ln.weight.detach().clone().requires_grad_()
+    b = None if not bias else ln.bias.detach().clone().requires_grad_()
+    yr = _plain_layer_norm(xr, w, b, ln.eps)
+    yr.backward(dy)
+    torch.cuda.synchronize()
+    assert (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert ln.weight.grad.dtype == torch.bfloat16
+    _ln_within(y, yr, LN_BF16_ULP, "y")
+    _ln_within(xa.grad, xr.grad, LN_BF16_ULP, "dx")
+    _ln_within(ln.weight.grad, w.grad, LN_BF16_ULP, "dweight")
+    if bias:
+        _ln_within(ln.bias.grad, b.grad, LN_BF16_ULP, "dbias")
+
+
+def test_bf16_teacher_norms_on_the_card(cuda, monkeypatch):
+    """A ViT teacher cast whole to bf16 runs its norms on the kernels; its
+    features against the same teacher with the plain formula, within
+    LN_TEACHER_REL_L2 (tests/test_torch_layer_norm.py: TEACHER_REL_L2)."""
+    import egom2p_torch.models.transformer as transformer
+    from egom2p_torch.models.teachers import TeacherSpec, ViTTeacher
+    from egom2p_torch.ops import layer_norm as lnk
+
+    spec = TeacherSpec(name="bf16-test", patch=16, width=768, depth=2, heads=12,
+                       feat_dim=768, ln_pre=True)
+    teacher = ViTTeacher(spec).to(cuda)
+    teacher.init_random_(torch.Generator(device=cuda).manual_seed(0))
+    teacher = teacher.to(torch.bfloat16).eval()
+    x = torch.rand((4, 224, 224, 3), generator=torch.Generator(device=cuda).manual_seed(1),
+                   device=cuda) * 2 - 1
+    before = lnk.layer_norm_fwd.launches
+    with torch.no_grad():
+        got = teacher(x).float()
+        launches = lnk.layer_norm_fwd.launches - before
+        monkeypatch.setattr(transformer.LayerNorm, "forward",
+                            lambda self, v: _plain_layer_norm(v, self.weight, self.bias,
+                                                              self.eps))
+        want = teacher(x).float()
+    assert launches == 2 * spec.depth + 2   # ln_pre, two a block, ln_post
+    assert torch.isfinite(got).all()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel < LN_TEACHER_REL_L2, rel
+
+
+def test_layer_norm_of_an_empty_input_launches_nothing(cuda):
+    from egom2p_torch.models.transformer import LayerNorm
+    from egom2p_torch.ops import layer_norm as lnk
+
+    ln = LayerNorm(768).to(cuda)
+    x = torch.empty((0, 768), dtype=torch.bfloat16, device=cuda, requires_grad=True)
+    before = (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches)
+    y = ln(x)
+    y.sum().backward()
+    assert y.shape == x.shape and y.device == x.device
+    assert (lnk.layer_norm_fwd.launches, lnk.layer_norm_bwd.launches) == before
+    assert torch.equal(ln.weight.grad, torch.zeros_like(ln.weight))

@@ -200,6 +200,37 @@ def test_bounds_at_the_table_shapes(got, want_ms):
     assert ms == pytest.approx(want_ms, rel=5e-3)
 
 
+# PERF.md's table, row 10: the LayerNorm kernels at large's and base's norms
+@pytest.mark.parametrize("rows,dim,backward,want_ms", [
+    (4 * 2048, 1020, False, 0.0100), (4 * 2048, 1020, True, 0.0150),
+    (8 * 2048, 768, False, 0.0151), (8 * 2048, 768, True, 0.0226),
+])
+def test_layer_norm_bounds_at_the_table_shapes(rows, dim, backward, want_ms):
+    ms, by = chip_smoke.layer_norm_bound_ms(rows, dim, backward)
+    assert by == "bytes"
+    assert ms == pytest.approx(want_ms, rel=5e-3)
+
+
+@pytest.mark.parametrize("model,depth", [(chip_smoke.BASE_MODEL, 12),
+                                         (chip_smoke.LARGE_MODEL, 24)])
+def test_norm_launches_a_step_are_the_models_norms(model, depth):
+    """chip_smoke's LayerNorm launches a step: one forward and one backward
+    a LayerNorm module of the model; remat adds a forward a block's norm."""
+    from egom2p_torch.cli import run_training
+    from egom2p_torch.models.egom2p import create_model
+    from egom2p_torch.models.transformer import LayerNorm
+
+    with torch.device("meta"):
+        m = create_model(model, sorted(run_training.MODS4), sorted(run_training.MODS4),
+                         device="meta")
+    norms = sum(isinstance(x, LayerNorm) for x in m.modules())
+    in_blocks = sum(isinstance(x, LayerNorm) for blk in (*m.encoder, *m.decoder)
+                    for x in blk.modules())
+    assert chip_smoke.norm_step(depth) == {"ln_fwd": norms, "ln_bwd": norms}
+    assert chip_smoke.norm_step(depth, remat=True) == {"ln_fwd": norms + in_blocks,
+                                                       "ln_bwd": norms}
+
+
 def test_bound_is_the_larger_of_bytes_and_operations():
     # one product over one key: 4 tensors of bytes, almost no arithmetic
     ms, by = chip_smoke.attention_bound_ms(2, 8, 12, 8704, 1, 64)
